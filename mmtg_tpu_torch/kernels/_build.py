@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``mmtg_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into ONE
+shared library with a plain C interface, ``build/kernels/libmmtg_kernels_<hash>.so``
+under the repository root (``build/`` is git-ignored), and loaded with
+``ctypes``. The hash covers the sources and the flags, so an edited source
+builds anew and an unchanged one is reused. Nothing is built at import:
+:func:`load` runs on the first kernel launch, and only on a machine with the
+CUDA toolkit.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately NO
+``--use_fast_math`` — it makes ``/`` approximate, and the int8 cache writes
+must stay bit-identical to the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / spills per kernel, kept in the .log
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found: the mmtg_tpu_torch CUDA kernels are built on a "
+        "machine with the CUDA toolkit (CPU tensors use the plain versions)"
+    )
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libmmtg_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources if their library is not built yet; returns its
+    path. The ptxas report goes to ``<library>.log``."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mmtg_decode_attention_append.argtypes = (
+        [p] * 9 + [i] * 6 + [f, i, i, p]
+    )
+    lib.mmtg_decode_attention_append.restype = i
+    lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.mmtg_fused_gru.restype = i
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use, once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(build()))
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

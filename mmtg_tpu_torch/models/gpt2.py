@@ -1,0 +1,287 @@
+"""GPT-2 decoder, decode side (:mod:`mmtg_tpu.models.gpt2`).
+
+Parameters keep the JAX package's stacked layout: ``params["h"][name]`` is
+``[L, ...]`` and every weight is applied as ``x @ W`` (HF ``Conv1D``
+orientation). Learned position embeddings, token-type ids embedded with the
+word embedding matrix, pre-LN blocks with fused QKV, ``gelu_new``, final LN,
+weight-tied head.
+
+Eval only: no dropout, no remat, no tensor / pipeline parallelism, no int4
+or merged caches. The prefill (:func:`prefill_cache`) is plain PyTorch
+attention — the JAX package runs XLA attention there too. The one-token
+decode step (:func:`gpt2_decode_step`) attends through the hand-written
+decode-attention kernel for CUDA tensors
+(:mod:`mmtg_tpu_torch.ops.decode_attention`).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from mmtg_tpu.configs import GPT2Config
+from mmtg_tpu_torch.ops.decode_attention import (
+    NEG_INF,
+    decode_attention_append_plain,
+    decode_attention_fp_append,
+    decode_attention_int8_append,
+    quantize_rows,
+    true_div,
+)
+
+__all__ = [
+    "KVCache", "quantize_rows", "layer_norm", "gelu_new", "gpt2_forward",
+    "prefill_cache", "gpt2_decode_step", "import_hf_gpt2",
+    "quantize_decode_weights",
+]
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity KV cache ``[L, B, T_max, D]`` (heads merged into D).
+
+    int8 when ``k_scale`` / ``v_scale`` (``[L, B, T_max]`` f32 per-row
+    abs-max scales) are set, else in the model dtype. Unlike the JAX
+    version the tensors are updated IN PLACE by :func:`gpt2_decode_step`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def layer_norm(x, g, b, eps):
+    """The JAX package's LayerNorm numerics: row statistics accumulate in
+    f32, elementwise math stays in x's dtype."""
+    mean = x.float().mean(dim=-1, keepdim=True)
+    xm = x - mean.to(x.dtype)
+    var = xm.square().float().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps).to(x.dtype)
+    return xm * rstd * g + b
+
+
+def gelu_new(x):
+    return 0.5 * x * (1.0 + torch.tanh(
+        0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+def gpt2_forward(
+    params: Dict,
+    cfg: GPT2Config,
+    inputs_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    token_type_ids: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    return_kv: bool = False,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Full-sequence eval forward (prefill / teacher forcing).
+
+    Args:
+      inputs_embeds: ``[B, T, D]``; position_ids ``[B, T]`` or ``[T]``;
+      token_type_ids ``[B, T]`` (embedded via ``wte``); attention_mask
+      ``[B, T]`` 1/0 key padding.
+    Returns:
+      (logits ``[B, T, V]``, per-layer (k, v) each ``[L, B, T, D]`` when
+      ``return_kv``).
+    """
+    B, T, D = inputs_embeds.shape
+    h = inputs_embeds + params["wpe"][position_ids]
+    if token_type_ids is not None:
+        h = h + params["wte"][token_type_ids]
+    hd = cfg.head_dim
+    n_head = D // hd
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype,
+                                          device=h.device))
+    causal = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
+    bias = torch.zeros(T, T, dtype=h.dtype, device=h.device).masked_fill(
+        ~causal, NEG_INF)[None, None]
+    if attention_mask is not None:
+        pad = (1.0 - attention_mask.to(h.dtype)) * NEG_INF
+        bias = bias + pad[:, None, None, :]
+    ks, vs = [], []
+    p = params["h"]
+    for l in range(cfg.n_layer):
+        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
+        q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D, dim=-1)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+        qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
+                      for t in (q, k, v))
+        # f32-accumulated score dot, then the model dtype (as the JAX
+        # einsum with preferred_element_type=f32)
+        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+        probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
+        ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D)
+        h = h + (ctx @ p["attn_proj_w"][l] + p["attn_proj_b"][l])
+        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
+        m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])
+        h = h + (m @ p["mlp_proj_w"][l] + p["mlp_proj_b"][l])
+    h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+    logits = h @ params["wte"].T
+    kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
+    return logits, kv
+
+
+def prefill_cache(
+    params: Dict,
+    cfg: GPT2Config,
+    inputs_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    token_type_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    capacity: int,
+    cache_dtype: str = "model",
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt once; return its logits and a cache of ``capacity``
+    slots holding the prompt's k/v (``cache_dtype`` ``"model"`` or
+    ``"int8"``)."""
+    if cache_dtype not in ("model", "int8"):
+        raise NotImplementedError(f"cache_dtype {cache_dtype!r} is not ported")
+    logits, (k, v) = gpt2_forward(params, cfg, inputs_embeds, position_ids,
+                                  token_type_ids, attention_mask,
+                                  return_kv=True)
+    L, B, T, D = k.shape
+
+    def padded(x):
+        out = torch.zeros((L, B, capacity) + x.shape[3:], dtype=x.dtype,
+                          device=x.device)
+        out[:, :, :T] = x
+        return out
+
+    if cache_dtype == "int8":
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        return logits, KVCache(padded(kq), padded(vq), padded(ks), padded(vs))
+    return logits, KVCache(padded(k), padded(v))
+
+
+def _mm(x, p, l, key):
+    """``x @ W`` for layer ``l``; weight-only int8 (``key_q`` / ``key_s``
+    from :func:`quantize_decode_weights`) dequantizes in the matmul's
+    epilogue, in f32, then casts back to x's dtype."""
+    if key + "_q" in p:
+        return ((x @ p[key + "_q"][l].to(x.dtype)) * p[key + "_s"][l]).to(x.dtype)
+    return x @ p[key][l]
+
+
+def gpt2_decode_step(
+    params: Dict,
+    cfg: GPT2Config,
+    cache: KVCache,
+    x_embed: torch.Tensor,
+    position: int,
+    token_type_id: torch.Tensor,
+    key_mask: torch.Tensor,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """One-token KV-cached decode step; returns logits ``[B, V]``.
+
+    The new token's k/v are written into the cache at ``position`` (in
+    place) before attending over slots ``<= position`` with ``key_mask``
+    ``[B, T_max]`` int32 != 0. ``use_kernels=False`` runs the attention's
+    plain PyTorch version on any device (a reference for the kernel path).
+    """
+    D = x_embed.shape[-1]
+    n_head = D // cfg.head_dim
+    p = params["h"]
+    h = x_embed + params["wpe"][position] + params["wte"][token_type_id]
+    if not use_kernels:
+        attend = functools.partial(decode_attention_append_plain,
+                                   k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale)
+    elif cache.quantized:
+        attend = functools.partial(decode_attention_int8_append,
+                                   k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale)
+    else:
+        attend = decode_attention_fp_append
+    for l in range(cfg.n_layer):
+        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
+        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D, dim=-1)
+        ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                     k_cache=cache.k, v_cache=cache.v, key_mask=key_mask,
+                     position=position, layer=l, n_head=n_head)
+        h = h + _mm(ctx, p, l, "attn_proj_w") + p["attn_proj_b"][l]
+        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
+        m = gelu_new(_mm(m, p, l, "mlp_fc_w") + p["mlp_fc_b"][l])
+        h = h + _mm(m, p, l, "mlp_proj_w") + p["mlp_proj_b"][l]
+    h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+    if "wte_q" in params:
+        return ((h @ params["wte_q"].T.to(h.dtype)) * params["wte_s"].T).to(h.dtype)
+    return h @ params["wte"].T
+
+
+def quantize_decode_weights(params: Dict) -> Dict:
+    """Weight-only int8 for the decode loop
+    (:func:`mmtg_tpu.models.gpt2.quantize_decode_weights`): per-output-
+    channel abs-max over the four glue matmuls (``[L, in, out]`` → scales
+    ``[L, 1, out]``) and per-vocab-row over ``wte`` (scales ``[V, 1]``).
+    The full-precision weights stay in the returned dict."""
+    out = dict(params)
+    h = dict(params["h"])
+
+    def q(w, dim):
+        w = w.float()
+        s = true_div(w.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8), 127.0)
+        return torch.round(w / s).clamp(-127, 127).to(torch.int8), s
+
+    for key in ("attn_w", "attn_proj_w", "mlp_fc_w", "mlp_proj_w"):
+        h[key + "_q"], h[key + "_s"] = q(h[key], 1)
+    out["h"] = h
+    out["wte_q"], out["wte_s"] = q(params["wte"], 1)
+    return out
+
+
+_HF_LAYER_NAMES = {
+    "ln1_g": "ln_1.weight", "ln1_b": "ln_1.bias",
+    "attn_w": "attn.c_attn.weight", "attn_b": "attn.c_attn.bias",
+    "attn_proj_w": "attn.c_proj.weight", "attn_proj_b": "attn.c_proj.bias",
+    "ln2_g": "ln_2.weight", "ln2_b": "ln_2.bias",
+    "mlp_fc_w": "mlp.c_fc.weight", "mlp_fc_b": "mlp.c_fc.bias",
+    "mlp_proj_w": "mlp.c_proj.weight", "mlp_proj_b": "mlp.c_proj.bias",
+}
+
+
+def import_hf_gpt2(state_dict: Dict[str, torch.Tensor], cfg: GPT2Config,
+                   prefix: str = "") -> Dict:
+    """HF ``GPT2LMHeadModel`` state dict → the stacked layout (HF
+    ``Conv1D`` weights are already ``[in, out]``: no transposes)."""
+    get = lambda name: torch.as_tensor(state_dict[prefix + name]).detach()  # noqa: E731
+    return {
+        "wte": get("transformer.wte.weight").clone(),
+        "wpe": get("transformer.wpe.weight").clone(),
+        "h": {
+            ours: torch.stack([get(f"transformer.h.{i}.{theirs}")
+                               for i in range(cfg.n_layer)])
+            for ours, theirs in _HF_LAYER_NAMES.items()
+        },
+        "lnf_g": get("transformer.ln_f.weight").clone(),
+        "lnf_b": get("transformer.ln_f.bias").clone(),
+    }
+
+
+def export_hf_gpt2(params: Dict, cfg: GPT2Config, prefix: str = "") -> Dict:
+    """Inverse of :func:`import_hf_gpt2` (plus the weight-tied
+    ``lm_head``)."""
+    out = {
+        prefix + "transformer.wte.weight": params["wte"].detach().cpu().clone(),
+        prefix + "transformer.wpe.weight": params["wpe"].detach().cpu().clone(),
+        prefix + "lm_head.weight": params["wte"].detach().cpu().clone(),
+    }
+    for ours, theirs in _HF_LAYER_NAMES.items():
+        for i in range(cfg.n_layer):
+            out[f"{prefix}transformer.h.{i}.{theirs}"] = (
+                params["h"][ours][i].detach().cpu().clone())
+    out[prefix + "transformer.ln_f.weight"] = params["lnf_g"].detach().cpu().clone()
+    out[prefix + "transformer.ln_f.bias"] = params["lnf_b"].detach().cpu().clone()
+    return out

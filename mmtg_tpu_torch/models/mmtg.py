@@ -1,0 +1,111 @@
+"""Top-level MMTG model pieces used by generation (:mod:`mmtg_tpu.models.mmtg`):
+encoder → LN → alpha ×2 → beta, the WenLan gather, the fused-window
+addition, the 2048→512→768 projector and the type-id schemes."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from mmtg_tpu.configs import DataConfig, ModelConfig, SpecialTokens
+from mmtg_tpu_torch.models.attention import alpha_attention, beta_attention
+from mmtg_tpu_torch.models.encoder import encoder_forward
+from mmtg_tpu_torch.models.gpt2 import layer_norm
+
+SPECIAL = SpecialTokens()
+
+
+def encode_experiences(
+    params: Dict,
+    mcfg: ModelConfig,
+    topic_emb: torch.Tensor,
+    img_embs: torch.Tensor,
+    r_embs: torch.Tensor,
+    use_fused_gru: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topic_emb`` ``[B, 2048]``; ``img_embs`` / ``r_embs`` ``[B, T,
+    2048]``. Returns (fused ``[B, T, 2048]``, kl_per_sample ``[B]``)."""
+    dtype = params["encoder"]["topic_fc"]["w"].dtype
+    topic_o, image_o, text_o = encoder_forward(
+        params["encoder"], mcfg, topic_emb.to(dtype),
+        img_embs.to(dtype).transpose(0, 1), r_embs.to(dtype).transpose(0, 1),
+        use_fused_gru=use_fused_gru,
+    )
+    ln = lambda x, p: layer_norm(x, p["g"], p["b"], 1e-5)  # noqa: E731
+    topic_o = ln(topic_o, params["ln_topic"])  # [1, B, H]
+    image_o = ln(image_o, params["ln_image"])  # [T, B, H]
+    text_o = ln(text_o, params["ln_text"])
+    img_ctx, img_kl = alpha_attention(params["alpha_img"], mcfg,
+                                      image_o.transpose(0, 1))
+    text_ctx, text_kl = alpha_attention(params["alpha_text"], mcfg,
+                                        text_o.transpose(0, 1))
+    fused = beta_attention(params["beta"], topic_o[0], img_ctx, text_ctx)
+    return fused, img_kl + text_kl
+
+
+def wenlan_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Dense gather of the ``[vocab, 2048]`` WenLan table."""
+    return table[ids]
+
+
+def add_fused_windows(token_wenlan: torch.Tensor, fused: torch.Tensor,
+                      dcfg: DataConfig) -> torch.Tensor:
+    """``token_wenlan[:, 44k:44(k+1)] += fused[:, k]`` for k < T; positions
+    past the last window get nothing."""
+    B, L, E = token_wenlan.shape
+    T = fused.shape[1]
+    pos = torch.arange(L, device=fused.device) // dcfg.two_sents_length
+    gathered = fused[:, pos.clamp(max=T - 1)]  # [B, L, E]
+    in_window = (pos < T)[None, :, None]
+    return token_wenlan + torch.where(in_window, gathered,
+                                      torch.zeros_like(gathered))
+
+
+def project_to_gpt2(params: Dict, wenlan: torch.Tensor) -> torch.Tensor:
+    """2048 → 512 → tanh → 768, in the projector's dtype."""
+    w1 = params["projector1"]
+    h = torch.tanh(wenlan.to(w1["w"].dtype) @ w1["w"] + w1["b"])
+    return h @ params["projector2"]["w"] + params["projector2"]["b"]
+
+
+def decoder_input_embeds(params: Dict, wenlan_table: torch.Tensor,
+                         dcfg: DataConfig, fused: torch.Tensor,
+                         topic_ids: torch.Tensor,
+                         target_ids: torch.Tensor) -> torch.Tensor:
+    """GPT-2 ``inputs_embeds`` for [topic prompt | targets]."""
+    topic_wl = wenlan_embed(wenlan_table, topic_ids)
+    tgt_wl = add_fused_windows(wenlan_embed(wenlan_table, target_ids), fused,
+                               dcfg)
+    return project_to_gpt2(params, torch.cat([topic_wl, tgt_wl.to(topic_wl.dtype)],
+                                             dim=1))
+
+
+def train_scheme_type_ids(positions: torch.Tensor, tokens: torch.Tensor,
+                          dcfg: DataConfig) -> torch.Tensor:
+    """Type ids of the training data: content tokens of sentence pair p get
+    p+1 (pair 4 → 1); START/EOS/PAD/SEP slots get 0. ``positions`` index
+    the 221-token target grid."""
+    frame = dcfg.sent_frame_length
+    r = positions % frame
+    sent = positions // frame
+    pair = sent // 2
+    type_id = torch.where(pair == 4, torch.ones_like(pair), pair + 1)
+    is_content = (r >= 1) & (r <= dcfg.max_sent_length) & (sent < 10)
+    return torch.where(is_content & (tokens != SPECIAL.pad_id), type_id,
+                       torch.zeros_like(type_id)).to(torch.int32)
+
+
+def infer_scheme_type_ids(positions: torch.Tensor, tokens: torch.Tensor,
+                          dcfg: DataConfig) -> torch.Tensor:
+    """The reference's per-sentence inference scheme: sentence s → s+1
+    (s < 10), START/EOS slots and PAD → 0."""
+    frame = dcfg.sent_frame_length
+    r = positions % frame
+    sent = positions // frame
+    max_sent_num = dcfg.max_seq_length // frame + 1
+    type_id = torch.where(sent < max_sent_num - 1, sent + 1,
+                          torch.ones_like(sent))
+    is_inner = (r != 0) & (r != frame - 1)
+    return torch.where(is_inner & (tokens != SPECIAL.pad_id), type_id,
+                       torch.zeros_like(type_id)).to(torch.int32)

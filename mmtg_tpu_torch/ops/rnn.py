@@ -1,0 +1,42 @@
+"""GRU scan with torch-exact numerics (:func:`mmtg_tpu.ops.rnn.rnn_forward`).
+
+Params keep the JAX package's layout: ``{"layers": [{"w_ih": [in, 3H],
+"w_hh": [H, 3H], "b_ih": [3H], "b_hh": [3H]}, ...]}`` (``x @ W``
+orientation). Gates are stacked [r, z, n];
+``n = tanh(Wx + b_in + r * (Uh + b_hn))`` — the hidden bias sits inside the
+reset product, as in ``torch.nn.GRU``. Inference only: no dropout. The
+LSTM / RNN cells are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+
+def rnn_forward(params: Dict[str, List[Dict[str, torch.Tensor]]],
+                x: torch.Tensor, kind: str = "GRU"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a (multi-layer) GRU stack over ``x`` ``[T, B, in]`` in x's
+    dtype. Returns (outputs ``[T, B, H]``, final hidden ``[layers, B, H]``)."""
+    if kind != "GRU":
+        raise NotImplementedError(f"rnn kind {kind!r}: only GRU is ported")
+    finals = []
+    out = x
+    for lp in params["layers"]:
+        H = lp["w_hh"].shape[0]
+        x_proj = out @ lp["w_ih"] + lp["b_ih"]  # [T, B, 3H], one matmul
+        h = torch.zeros(x.shape[1], H, dtype=x.dtype, device=x.device)
+        ys = []
+        for t in range(x_proj.shape[0]):
+            xr, xz, xn = x_proj[t].split(H, dim=-1)
+            hr, hz, hn = (h @ lp["w_hh"] + lp["b_hh"]).split(H, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1.0 - z) * n + z * h
+            ys.append(h)
+        finals.append(h)
+        out = torch.stack(ys)
+    return out, torch.stack(finals)

@@ -1,0 +1,77 @@
+"""The port's generate CLI end to end on the CPU: a tiny model saved as a
+reference .pth, synthetic test rows and a token-embedding pkl in, one
+sample per line out."""
+
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from mmtg_tpu.data import make_synthetic_records
+from mmtg_tpu_torch import generate as cli
+from mmtg_tpu_torch.checkpoint import save_reference_checkpoint
+from mmtg_tpu_torch.params import init_params
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory, tiny_model_cfg, tiny_data_cfg):
+    d = tmp_path_factory.mktemp("cli")
+    model = str(d / "model.pth")
+    save_reference_checkpoint(model, init_params(tiny_model_cfg, seed=0),
+                              tiny_model_cfg)
+    rng = np.random.default_rng(0)
+    records = make_synthetic_records(3, rng, emb_size=tiny_data_cfg.wenlan_emb_size)
+    for r in records:
+        r.pop("rating")
+    data = str(d / "test.pkl")
+    with open(data, "wb") as f:
+        pickle.dump(records, f)
+    emb = str(d / "emb.pkl")
+    with open(emb, "wb") as f:
+        pickle.dump({i: rng.standard_normal(tiny_data_cfg.wenlan_emb_size)
+                     .astype(np.float32) for i in range(0, 13317, 7)}, f)
+    return d, model, data, emb
+
+
+def _args(files, reference_vocab_path, *extra):
+    d, model, data, emb = files
+    return ["--data_path", data, "--model_path", model,
+            "--tokenizer_path", reference_vocab_path, "--token_emb_path", emb,
+            "--device", "cpu", *extra]
+
+
+def test_cli_writes_one_line_per_sample(files, reference_vocab_path,
+                                        tiny_model_cfg, tiny_data_cfg):
+    out = str(files[0] / "samples.txt")
+    # batch 4 over 3 rows x 2 samples: the last batch is padded and cut
+    cli.main(_args(files, reference_vocab_path, "--batch_size", "4",
+                   "--n_samples", "2", "--save_samples",
+                   "--save_samples_path", out),
+             mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+    with open(out, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 6
+    assert all(line.strip() for line in lines)
+
+
+@pytest.mark.parametrize("extra", [
+    ("--mesh_data", "2"), ("--cache_dtype", "int4"), ("--attn_impl", "fused"),
+    ("--topk_impl", "approx"),
+])
+def test_cli_unported_flags_raise(files, reference_vocab_path, tiny_model_cfg,
+                                  tiny_data_cfg, extra):
+    with pytest.raises(NotImplementedError):
+        cli.main(_args(files, reference_vocab_path, "--batch_size", "2",
+                       "--n_samples", "1", *extra),
+                 mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+
+
+def test_cli_rejects_orbax_dirs(files, reference_vocab_path, tiny_model_cfg,
+                                tiny_data_cfg):
+    args = _args(files, reference_vocab_path)
+    args[args.index("--model_path") + 1] = str(files[0])
+    with pytest.raises(NotImplementedError):
+        cli.main(args, mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
