@@ -4,17 +4,22 @@ The reference model is itself PyTorch, so this is a direct name map between
 its ``MMTG.state_dict()`` (``model.py:330-354``; optionally
 ``module.``-prefixed by ``nn.DataParallel``) and the port's parameter tree:
 ``nn.Linear`` / ``nn.GRU`` weights are transposed to ``x @ W`` orientation
-and the per-layer GPT-2 tensors are stacked. Orbax train-state restore is
-not ported yet.
+and the per-layer GPT-2 tensors are stacked.
+
+Train states (:func:`save_train_state` / :func:`restore_train_state`) are
+written in the port's own format, one ``torch.save`` file per step. Reading
+the JAX package's Orbax directories is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import glob
+import os
+from typing import Dict, Tuple
 
 import torch
 
-from mmtg_tpu.configs import ModelConfig
+from mmtg_tpu_torch.configs import ModelConfig
 from mmtg_tpu_torch.models.gpt2 import export_hf_gpt2, import_hf_gpt2
 
 
@@ -142,3 +147,51 @@ def save_reference_checkpoint(path: str, params: Dict, mcfg: ModelConfig) -> Non
     sd = export_reference_state_dict(params, mcfg)
     torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
                 "args": {}, "model_cfgs": {}}, path)
+
+
+def _step_files(directory: str):
+    return sorted(glob.glob(os.path.join(directory, "step_*.pt")))
+
+
+def save_train_state(directory: str, step: int, state, keep: int = 5) -> str:
+    """Write ``state`` (a :class:`mmtg_tpu_torch.train.TrainState`) to
+    ``<directory>/step_<step>.pt`` — parameters, AdamW state, step and the
+    dropout generator's state, as CPU tensors — and delete all but the
+    ``keep`` newest files. Returns the file's path."""
+    from mmtg_tpu_torch.params import tree_map
+
+    os.makedirs(directory, exist_ok=True)
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    path = os.path.join(directory, f"step_{int(step):08d}.pt")
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({"params": tree_map(cpu, state.params),
+                "opt_state": tree_map(cpu, state.opt_state),
+                "step": int(state.step),
+                "rng_state": state.rng.get_state()}, tmp)
+    os.replace(tmp, path)
+    for old in _step_files(directory)[:-keep]:
+        os.remove(old)
+    return path
+
+
+def restore_train_state(directory: str, state) -> Tuple[object, int]:
+    """Load the newest ``step_*.pt`` of ``directory`` INTO ``state`` (its
+    tensors keep their device and are overwritten in place; the tree must
+    match). Returns ``(state, step)``, or ``(state, -1)`` unchanged when the
+    directory holds no checkpoint."""
+    from mmtg_tpu_torch.params import tree_map
+
+    files = _step_files(directory)
+    if not files:
+        return state, -1
+    raw = torch.load(files[-1], map_location="cpu", weights_only=True)
+
+    def load_into(dst, src):
+        with torch.no_grad():
+            dst.copy_(src)
+        return dst
+
+    tree_map(load_into, state.params, raw["params"])
+    tree_map(load_into, state.opt_state, raw["opt_state"])
+    state.rng.set_state(raw["rng_state"])
+    return state._replace(step=int(raw["step"])), int(raw["step"])

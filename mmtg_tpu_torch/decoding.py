@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
-from mmtg_tpu.configs import DataConfig, GenerateConfig, ModelConfig, SpecialTokens
+from mmtg_tpu_torch.configs import DataConfig, GenerateConfig, ModelConfig, SpecialTokens
 from mmtg_tpu_torch.models.gpt2 import (
     gpt2_decode_step,
     prefill_cache,

@@ -23,8 +23,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from mmtg_tpu.configs import DataConfig, GenerateConfig, ModelConfig
-from mmtg_tpu.utils.logging import setup_logger
+from mmtg_tpu_torch.configs import DataConfig, GenerateConfig, ModelConfig
+from mmtg_tpu_torch.utils.logging import setup_logger
 from mmtg_tpu_torch.decoding import generate as generate_batch
 from mmtg_tpu_torch.decoding import postprocess_tokens
 from mmtg_tpu_torch.params import tree_to
@@ -79,8 +79,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_model", default=1, type=int,
                    help="parity flag: meshes are not ported (must be 1)")
     p.add_argument("--device", default=None, type=str,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda; pass 'cpu' to run "
+                        "without a GPU)")
     return p
+
+
+def resolve_device(name: str | None) -> torch.device:
+    """The CLI's device: ``--device`` when given, else the CUDA card. With
+    no card and no ``--device`` this raises rather than run on the CPU
+    unasked."""
+    if name is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available (torch.cuda.is_available() is "
+                "False); pass --device cpu to run on the CPU")
+        name = "cuda"
+    return torch.device(name)
 
 
 def replicate_batch(rows: List[Dict[str, np.ndarray]], n_samples: int,
@@ -102,16 +116,15 @@ def main(argv=None, mcfg: ModelConfig | None = None,
     if args.mesh_data != 1 or args.mesh_model != 1:
         raise NotImplementedError("mesh decoding is not ported (use "
                                   "--mesh_data 1 --mesh_model 1)")
-    from mmtg_tpu.bpe import load_tokenizer
-    from mmtg_tpu.data import MMTGDataset, load_token_embedding_table
+    from mmtg_tpu_torch.bpe import load_tokenizer
+    from mmtg_tpu_torch.data import MMTGDataset, load_token_embedding_table
     from mmtg_tpu_torch.checkpoint import load_reference_checkpoint
 
     logger = setup_logger()
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     if mcfg is None or dcfg is None:
         if args.variant == "english":
-            from mmtg_tpu.configs import english_variant
+            from mmtg_tpu_torch.configs import english_variant
 
             tok = load_tokenizer(args.tokenizer_path)
             mcfg, dcfg = english_variant(clip_dim=args.clip_dim,

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``mmtg_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into ONE
-shared library with a plain C interface, ``build/kernels/libmmtg_kernels_<hash>.so``
-under the repository root (``build/`` is git-ignored), and loaded with
+Every ``mmtg_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process (all started together) and the objects are linked into ONE shared
+library with a plain C interface, ``build/kernels/libmmtg_kernels_<hash>.so``
+under the repository root (``build/`` is git-ignored), loaded with
 ``ctypes``. The hash covers the sources and the flags, so an edited source
 builds anew and an unchanged one is reused. Nothing is built at import:
 :func:`load` runs on the first kernel launch, and only on a machine with the
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in the .log
 )
 
@@ -68,27 +69,52 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.tmp{os.getpid()}"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs, procs = [], []
+    for src in sources():  # one compiler per source, all at once
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    log, failed = "", []
+    for src, proc in zip(sources(), procs):
+        stdout, stderr = proc.communicate()
+        log += f"== {os.path.basename(src)}\n{stdout}{stderr}"
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(log + link.stdout + link.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mmtg_decode_attention_append.argtypes = (
         [p] * 9 + [i] * 6 + [f, i, i, p]
     )
     lib.mmtg_decode_attention_append.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mmtg_fused_gru.restype = i
+    lib.mmtg_mha_train_packed_fwd.argtypes = (
+        [p] * 6 + [i] * 4 + [f, f, u, i, i, p])
+    lib.mmtg_mha_train_packed_fwd.restype = i
+    lib.mmtg_mha_train_packed_bwd.argtypes = (
+        [p] * 10 + [i] * 4 + [f, f, u, i, i, p])
+    lib.mmtg_mha_train_packed_bwd.restype = i
     return lib
 
 

@@ -9,7 +9,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from mmtg_tpu.configs import ModelConfig
+from mmtg_tpu_torch.configs import ModelConfig
 
 
 def gaussian_step_priors(seq_len: int = 5) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""GPT-2 decoder, decode side (:mod:`mmtg_tpu.models.gpt2`).
+"""GPT-2 decoder (:mod:`mmtg_tpu.models.gpt2`).
 
 Parameters keep the JAX package's stacked layout: ``params["h"][name]`` is
 ``[L, ...]`` and every weight is applied as ``x @ W`` (HF ``Conv1D``
@@ -6,10 +6,13 @@ orientation). Learned position embeddings, token-type ids embedded with the
 word embedding matrix, pre-LN blocks with fused QKV, ``gelu_new``, final LN,
 weight-tied head.
 
-Eval only: no dropout, no remat, no tensor / pipeline parallelism, no int4
-or merged caches. The prefill (:func:`prefill_cache`) is plain PyTorch
-attention — the JAX package runs XLA attention there too. The one-token
-decode step (:func:`gpt2_decode_step`) attends through the hand-written
+The full-sequence forward (:func:`gpt2_forward`) serves training (dropout,
+per-block remat, attention through the hand-written train-attention kernel
+pair, :mod:`mmtg_tpu_torch.ops.train_attention`) and the prefill
+(:func:`prefill_cache`, plain PyTorch attention — the JAX package runs XLA
+attention there too). No tensor / pipeline parallelism, no segment ids, no
+int4 or merged caches, no selective remat policies. The one-token decode
+step (:func:`gpt2_decode_step`) attends through the hand-written
 decode-attention kernel for CUDA tensors
 (:mod:`mmtg_tpu_torch.ops.decode_attention`).
 """
@@ -17,11 +20,13 @@ decode-attention kernel for CUDA tensors
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
-from mmtg_tpu.configs import GPT2Config
+from mmtg_tpu_torch.configs import GPT2Config
 from mmtg_tpu_torch.ops.decode_attention import (
     NEG_INF,
     decode_attention_append_plain,
@@ -29,6 +34,10 @@ from mmtg_tpu_torch.ops.decode_attention import (
     decode_attention_int8_append,
     quantize_rows,
     true_div,
+)
+from mmtg_tpu_torch.ops.train_attention import (
+    mha_train_packed,
+    mha_train_packed_plain,
 )
 
 __all__ = [
@@ -74,6 +83,26 @@ def gelu_new(x):
         0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0))))
 
 
+def _dropout(x, rate: float, seed):
+    """Inverted dropout from a 16-bit threshold compare, scaled by the
+    realised keep probability ``(65536 - thr) / 65536`` (the JAX package's
+    ``_dropout`` rule; the bits themselves differ). The mask is a pure
+    function of ``seed`` (a Python int) and x's shape and device, so a
+    block recomputed under ``torch.utils.checkpoint`` draws it again
+    identically. ``seed=None`` or ``rate <= 0`` returns x."""
+    if seed is None or rate <= 0.0:
+        return x
+    thr = int(round(rate * 65536.0))
+    keep_p = (65536 - thr) / 65536.0
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    bits = torch.randint(0, 65536, x.shape, generator=gen, device=x.device,
+                         dtype=torch.int32)
+    return torch.where(bits >= thr, x / keep_p, torch.zeros_like(x))
+
+
+_ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel", "plain": "plain"}
+
+
 def gpt2_forward(
     params: Dict,
     cfg: GPT2Config,
@@ -82,54 +111,136 @@ def gpt2_forward(
     token_type_ids: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
     return_kv: bool = False,
+    dropout_gen: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    remat: bool = False,
+    attn_impl: str = "auto",
+    lm_head: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Full-sequence eval forward (prefill / teacher forcing).
+    """Full-sequence forward (train / prefill / teacher forcing).
 
     Args:
       inputs_embeds: ``[B, T, D]``; position_ids ``[B, T]`` or ``[T]``;
       token_type_ids ``[B, T]`` (embedded via ``wte``); attention_mask
       ``[B, T]`` 1/0 key padding.
+      dropout_gen / deterministic: with a generator and ``deterministic=
+        False`` the embedding, attention and residual dropouts are on, at
+        the config's rates. Every mask's seed is drawn from the generator
+        BEFORE the layer loop, so ``remat`` recomputes identical masks.
+      remat: recompute each block in the backward
+        (``torch.utils.checkpoint``) instead of keeping its activations.
+      attn_impl: ``"kernel"`` (also ``"auto"``, the default) runs
+        :func:`mmtg_tpu_torch.ops.train_attention.mha_train_packed` — the
+        hand-written kernel pair for CUDA tensors, which raises on what it
+        does not take (``head_dim > 128``) — on the sequence padded once to
+        a multiple of 128; ``"plain"`` runs its plain version on the same
+        padded sequence. Neither applies with ``return_kv``: the prefill
+        keeps each layer's k/v, has no dropout, and materializes the ``[B,
+        1, T, T]`` bias and soft-maxes in the activations' dtype, as the
+        JAX package's prefill does.
+      lm_head: ``False`` returns the final hidden states ``[B, T, D]``
+        (for the chunked loss) instead of logits.
     Returns:
-      (logits ``[B, T, V]``, per-layer (k, v) each ``[L, B, T, D]`` when
-      ``return_kv``).
+      (logits ``[B, T, V]`` or hidden, per-layer (k, v) each ``[L, B, T,
+      D]`` when ``return_kv``).
     """
+    if attn_impl not in _ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: one of {sorted(_ATTN_IMPLS)}")
+    attn_impl = _ATTN_IMPLS[attn_impl]
     B, T, D = inputs_embeds.shape
+    L = cfg.n_layer
     h = inputs_embeds + params["wpe"][position_ids]
     if token_type_ids is not None:
         h = h + params["wte"][token_type_ids]
+
+    dropout = dropout_gen is not None and not deterministic
+    if return_kv and dropout:
+        raise ValueError("gpt2_forward: return_kv (the prefill) has no dropout")
+    embd_seed, layer_seeds, attn_seeds = None, [(None, None)] * L, None
+    if dropout:
+        draws = torch.randint(0, 2 ** 31 - 1, (1 + 3 * L,), generator=dropout_gen,
+                              device=dropout_gen.device).cpu()
+        embd_seed = int(draws[0])
+        layer_seeds = [(int(draws[2 + 3 * l]), int(draws[3 + 3 * l]))
+                       for l in range(L)]
+        attn_seeds = draws[1::3].to(device=h.device, dtype=torch.int32)
+        h = _dropout(h, cfg.embd_pdrop, embd_seed)
+    attn_rate = cfg.attn_pdrop if dropout else 0.0
+
     hd = cfg.head_dim
     n_head = D // hd
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype,
-                                          device=h.device))
-    causal = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
-    bias = torch.zeros(T, T, dtype=h.dtype, device=h.device).masked_fill(
-        ~causal, NEG_INF)[None, None]
-    if attention_mask is not None:
-        pad = (1.0 - attention_mask.to(h.dtype)) * NEG_INF
-        bias = bias + pad[:, None, None, :]
-    ks, vs = [], []
+    T_real = T
+    if return_kv:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype,
+                                              device=h.device))
+        causal = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
+        bias = torch.zeros(T, T, dtype=h.dtype, device=h.device).masked_fill(
+            ~causal, NEG_INF)[None, None]
+        if attention_mask is not None:
+            pad = (1.0 - attention_mask.to(h.dtype)) * NEG_INF
+            bias = bias + pad[:, None, None, :]
+    else:
+        # the sequence is padded once to a multiple of 128 for the whole
+        # stack; padded keys get a -1e30 bias, padded query rows are cut
+        attend = mha_train_packed if attn_impl == "kernel" else mha_train_packed_plain
+        Tp = ((T + 127) // 128) * 128
+        mask = (attention_mask.to(torch.float32) if attention_mask is not None
+                else torch.ones(B, T, dtype=torch.float32, device=h.device))
+        if Tp != T:
+            h = torch.nn.functional.pad(h, (0, 0, 0, Tp - T))
+            mask = torch.nn.functional.pad(mask, (0, Tp - T))
+        bias = ((1.0 - mask) * NEG_INF).contiguous()  # [B, Tp] key bias
+        if attn_seeds is None:
+            attn_seeds = torch.zeros(L, dtype=torch.int32, device=h.device)
+        T = Tp
+
     p = params["h"]
-    for l in range(cfg.n_layer):
-        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
-        q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D, dim=-1)
+    eps = cfg.layer_norm_epsilon
+
+    def block(h, l):
+        k_resid1, k_resid2 = layer_seeds[l]
+        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], eps)
+        k = v = None
+        if return_kv:
+            q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D, dim=-1)
+            qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
+                          for t in (q, k, v))
+            # f32-accumulated score dot, then the model dtype (as the JAX
+            # einsum with preferred_element_type=f32)
+            scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+            probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
+            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D)
+        else:
+            # the projection bias is added inside the attention function
+            ctx = attend(a @ p["attn_w"][l], p["attn_b"][l], bias,
+                         attn_seeds[l:l + 1], n_head, attn_rate,
+                         1.0 / math.sqrt(hd))
+        attn_out = ctx @ p["attn_proj_w"][l] + p["attn_proj_b"][l]
+        h = h + _dropout(attn_out, cfg.resid_pdrop, k_resid1)
+        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], eps)
+        m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])
+        m = m @ p["mlp_proj_w"][l] + p["mlp_proj_b"][l]
+        return h + _dropout(m, cfg.resid_pdrop, k_resid2), k, v
+
+    ks, vs = [], []
+    for l in range(L):
+        if remat and torch.is_grad_enabled():
+            # masks are functions of their seeds, so the generators' global
+            # state need not be saved and restored
+            h, k, v = torch.utils.checkpoint.checkpoint(
+                block, h, l, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, k, v = block(h, l)
         if return_kv:
             ks.append(k)
             vs.append(v)
-        qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
-                      for t in (q, k, v))
-        # f32-accumulated score dot, then the model dtype (as the JAX
-        # einsum with preferred_element_type=f32)
-        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-        probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
-        ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D)
-        h = h + (ctx @ p["attn_proj_w"][l] + p["attn_proj_b"][l])
-        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
-        m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])
-        h = h + (m @ p["mlp_proj_w"][l] + p["mlp_proj_b"][l])
-    h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
-    logits = h @ params["wte"].T
+    if T != T_real:
+        h = h[:, :T_real]
+    h = layer_norm(h, params["lnf_g"], params["lnf_b"], eps)
     kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
-    return logits, kv
+    if not lm_head:
+        return h, kv
+    return h @ params["wte"].T, kv
 
 
 def prefill_cache(

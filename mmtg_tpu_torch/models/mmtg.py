@@ -1,19 +1,27 @@
-"""Top-level MMTG model pieces used by generation (:mod:`mmtg_tpu.models.mmtg`):
-encoder → LN → alpha ×2 → beta, the WenLan gather, the fused-window
-addition, the 2048→512→768 projector and the type-id schemes."""
+"""Top-level MMTG model (:mod:`mmtg_tpu.models.mmtg`): encoder → LN →
+alpha ×2 → beta, the WenLan gather, the fused-window addition, the
+2048→512→768 projector, the type-id schemes, and the teacher-forced train
+forward :func:`mmtg_forward_train`."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from mmtg_tpu.configs import DataConfig, ModelConfig, SpecialTokens
+from mmtg_tpu_torch.configs import DataConfig, ModelConfig, SpecialTokens
 from mmtg_tpu_torch.models.attention import alpha_attention, beta_attention
 from mmtg_tpu_torch.models.encoder import encoder_forward
-from mmtg_tpu_torch.models.gpt2 import layer_norm
+from mmtg_tpu_torch.models.gpt2 import gpt2_forward, layer_norm
 
 SPECIAL = SpecialTokens()
+
+
+class MMTGOutput(NamedTuple):
+    logits: Optional[torch.Tensor]  # [B, prompt+target, vocab] (None if lm_head=False)
+    kl_per_sample: torch.Tensor  # [B] alpha-attention KL (img + text)
+    lm_loss: Optional[torch.Tensor]  # HF-style shifted CE (parity aux)
+    hidden: Optional[torch.Tensor] = None  # [B, L, n_embd] pre-LM-head states
 
 
 def encode_experiences(
@@ -23,6 +31,7 @@ def encode_experiences(
     img_embs: torch.Tensor,
     r_embs: torch.Tensor,
     use_fused_gru: bool = False,
+    dropout_gen: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``topic_emb`` ``[B, 2048]``; ``img_embs`` / ``r_embs`` ``[B, T,
     2048]``. Returns (fused ``[B, T, 2048]``, kl_per_sample ``[B]``)."""
@@ -30,7 +39,7 @@ def encode_experiences(
     topic_o, image_o, text_o = encoder_forward(
         params["encoder"], mcfg, topic_emb.to(dtype),
         img_embs.to(dtype).transpose(0, 1), r_embs.to(dtype).transpose(0, 1),
-        use_fused_gru=use_fused_gru,
+        use_fused_gru=use_fused_gru, dropout_gen=dropout_gen,
     )
     ln = lambda x, p: layer_norm(x, p["g"], p["b"], 1e-5)  # noqa: E731
     topic_o = ln(topic_o, params["ln_topic"])  # [1, B, H]
@@ -109,3 +118,50 @@ def infer_scheme_type_ids(positions: torch.Tensor, tokens: torch.Tensor,
     is_inner = (r != 0) & (r != frame - 1)
     return torch.where(is_inner & (tokens != SPECIAL.pad_id), type_id,
                        torch.zeros_like(type_id)).to(torch.int32)
+
+
+def mmtg_forward_train(
+    params: Dict,
+    const: Dict,
+    mcfg: ModelConfig,
+    dcfg: DataConfig,
+    batch: Dict[str, torch.Tensor],
+    dropout_gen: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    compute_lm_loss: bool = False,
+    remat: bool = False,
+    attn_impl: str = "auto",
+    lm_head: bool = True,
+) -> MMTGOutput:
+    """Teacher-forced forward (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train`).
+
+    ``batch`` uses the reference key names. Returns logits over [topic
+    prompt | targets] (or, with ``lm_head=False``, the hidden states for the
+    chunked loss) plus the per-sample alpha-attention KL. The encoder runs
+    the GRU scan under autograd, never the inference-only fused GRU kernel.
+    ``dropout_gen`` with ``deterministic=False`` turns dropout on: the
+    encoder draws from it first, then the decoder."""
+    gen = dropout_gen if not deterministic else None
+    fused, kl = encode_experiences(
+        params, mcfg, batch["topic_emb"], batch["img_embs"], batch["r_embs"],
+        dropout_gen=gen)
+    embeds = decoder_input_embeds(params, const["wenlan_table"], dcfg, fused,
+                                  batch["topic_ids"], batch["targets"])
+    type_ids = torch.cat([batch["tpw_type_ids"], batch["type_ids"]], dim=1)
+    attn_mask = torch.cat([batch["tpw_attention_mask"], batch["attention_mask"]],
+                          dim=1)
+    L = embeds.shape[1]
+    positions = torch.arange(L, device=embeds.device)[None, :]
+    out, _ = gpt2_forward(
+        params["gpt2"], mcfg.gpt2, embeds, positions, type_ids, attn_mask,
+        dropout_gen=gen, deterministic=deterministic, remat=remat,
+        attn_impl=attn_impl, lm_head=lm_head)
+    if not lm_head:
+        return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)
+    lm_loss = None
+    if compute_lm_loss:
+        labels = torch.cat([batch["topic_ids"], batch["targets"]], dim=1)
+        logp = torch.log_softmax(out[:, :-1], dim=-1)
+        nll = -torch.gather(logp, -1, labels[:, 1:, None].long())
+        lm_loss = nll.mean()
+    return MMTGOutput(logits=out, kl_per_sample=kl, lm_loss=lm_loss)

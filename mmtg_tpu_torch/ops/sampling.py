@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from mmtg_tpu.configs import SpecialTokens
+from mmtg_tpu_torch.configs import SpecialTokens
 
 NEG_INF = -1e30
 SPECIAL = SpecialTokens()

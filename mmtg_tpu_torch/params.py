@@ -1,5 +1,6 @@
 """Parameter trees for the port: the bridge from / to the JAX package's
-pytree, and a seeded initializer for machines without JAX.
+pytree (parameters and AdamW moments), a seeded initializer for machines
+without JAX, and the small tree helpers the trainer uses.
 
 The tree is the JAX package's own (``mmtg_tpu.models.mmtg.init_mmtg_params``):
 nested dicts (and the GRU ``layers`` list) of tensors, stacked ``[L, ...]``
@@ -15,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from mmtg_tpu.configs import ModelConfig
+from mmtg_tpu_torch.configs import ModelConfig
 
 
 def from_jax_numpy(tree: Any, device="cpu", dtype: torch.dtype | None = None):
@@ -161,6 +162,41 @@ def init_params(mcfg: ModelConfig, seed: int = 0,
         },
     }
     return tree_to(tree, device, dtype)
+
+
+def tree_map(fn, tree: Any, *rest: Any):
+    """``fn`` over the leaves of one tree (and of others of its shape)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def adam_state_from_numpy(mu: Any, nu: Any, count, device="cpu") -> Dict:
+    """AdamW moments as numpy trees (``optax``'s ``ScaleByAdamState`` ``mu``
+    / ``nu`` / ``count``) → the port's optimizer state
+    (:class:`mmtg_tpu_torch.train.AdamW`)."""
+    return {"count": torch.tensor(int(count), dtype=torch.int64, device=device),
+            "mu": from_jax_numpy(mu, device, torch.float32),
+            "nu": from_jax_numpy(nu, device, torch.float32)}
+
+
+def adam_state_to_numpy(opt_state: Dict):
+    """The port's optimizer state → ``(mu, nu, count)`` as numpy trees and
+    an int (inverse of :func:`adam_state_from_numpy`)."""
+    return (to_numpy(opt_state["mu"]), to_numpy(opt_state["nu"]),
+            int(opt_state["count"]))
 
 
 def tree_to(tree: Any, device=None, dtype: torch.dtype | None = None):

@@ -1,0 +1,88 @@
+"""Logging / timing utilities (the port's own copy of
+:mod:`mmtg_tpu.utils.logging`).
+
+Keeps the reference's observability surface (CLI-selected log file with
+step/val logs — ``train.py:58-63``, ``utils.py:13-20``) and adds per-step
+wall-time and samples/sec counters. :class:`StepTimer` waits for the CUDA
+device before it reads the clock, so a step's time includes its kernels.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import torch
+
+
+def format_time(elapsed: float) -> str:
+    """hh:mm:ss (reference ``utils.py:13-20``)."""
+    elapsed_rounded = int(round(elapsed))
+    h = elapsed_rounded // 3600
+    m = (elapsed_rounded % 3600) // 60
+    s = elapsed_rounded % 60
+    return f"{h:02d}:{m:02d}:{s:02d}"
+
+
+def setup_logger(log_path: Optional[str] = None, name: str = "mmtg_tpu_torch") -> logging.Logger:
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    fmt = logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)-2s - %(filename)-8s : "
+        "%(lineno)s line - %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S",
+    )
+    if log_path:
+        import os
+
+        parent = os.path.dirname(log_path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        fh = logging.FileHandler(log_path)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    if not logger.handlers:
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+    return logger
+
+
+class StepTimer:
+    """Rolling throughput counter (samples/sec, tokens/sec, p50 step ms)."""
+
+    def __init__(self, window: int = 50, device=None):
+        self.window = window
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self.times: list[float] = []
+        self._t0: Optional[float] = None
+
+    def _sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def start(self) -> None:
+        self._sync()
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        self._sync()
+        dt = time.perf_counter() - self._t0
+        self.times.append(dt)
+        if len(self.times) > self.window:
+            self.times.pop(0)
+        return dt
+
+    @property
+    def p50_ms(self) -> float:
+        if not self.times:
+            return 0.0
+        s = sorted(self.times)
+        return 1000.0 * s[len(s) // 2]
+
+    def throughput(self, units_per_step: int) -> float:
+        if not self.times:
+            return 0.0
+        avg = sum(self.times) / len(self.times)
+        return units_per_step / avg

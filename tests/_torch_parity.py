@@ -42,3 +42,69 @@ def make_setup(mcfg, dcfg, tokenizer, seed=7, jax_init=True):
         tconst={"wenlan_table": torch.from_numpy(table)},
         tbatch={k: torch.from_numpy(v) for k, v in np_batch.items()},
     )
+
+
+def to_port_config(cfg):
+    """A config dataclass of the JAX package → the port's class of the same
+    name, field by field (nested configs converted too)."""
+    import dataclasses
+
+    from mmtg_tpu_torch import configs as tconfigs
+
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    cls = getattr(tconfigs, type(cfg).__name__)
+    return cls(**{f.name: to_port_config(getattr(cfg, f.name))
+                  for f in dataclasses.fields(cfg)})
+
+
+def train_configs():
+    """The train-slice tiny model: 2 layers, 2 heads of 64 (the packed
+    kernel's head width), n_embd 128, vocab 200, 64-d WenLan. Returns the
+    JAX package's (mcfg, dcfg)."""
+    from mmtg_tpu.configs import ChannelConfig, DataConfig, GPT2Config, ModelConfig
+
+    mcfg = ModelConfig(
+        seq_len=5,
+        topic=ChannelConfig(input_dim=64, hidden_dim=32, type="MLP"),
+        image=ChannelConfig(input_dim=64, hidden_dim=32, type="GRU"),
+        text=ChannelConfig(input_dim=64, hidden_dim=32, type="GRU"),
+        self_att_hidden_size=32, self_att_heads=4, mm_att_out_dim=64,
+        gpt2=GPT2Config(vocab_size=200, n_positions=256, n_ctx=250, n_embd=128,
+                        n_layer=2, n_head=2),
+    )
+    return mcfg, DataConfig(wenlan_emb_size=64)
+
+
+def make_train_setup(tokenizer, n=4, seed=11, ratings=None):
+    """One train batch (``make_synthetic_records`` through ``MMTGDataset``,
+    ids folded into the tiny vocab) and one parameter tree, for both
+    packages."""
+    mcfg, dcfg = train_configs()
+    rng = np.random.default_rng(seed)
+    records = make_synthetic_records(n, rng, emb_size=dcfg.wenlan_emb_size)
+    if ratings is not None:
+        for r, v in zip(records, ratings):
+            r["rating"] = v
+    ds = MMTGDataset.from_records(records, tokenizer, dcfg, if_train=True)
+    batch = next(ds.batches(batch_size=n))
+    V = mcfg.gpt2.vocab_size
+    for k in ("topic_ids", "targets"):
+        batch[k] = np.minimum(batch[k], V - 1)
+    jparams = jax.tree.map(jnp.asarray, tparams.to_numpy(
+        tparams.init_params(to_port_config(mcfg), seed=3)))
+    # biases and LN gains off their init values, so their gradients matter
+    leaves, treedef = jax.tree.flatten(jparams)
+    leaves = [x + 0.02 * rng.standard_normal(x.shape).astype(np.float32)
+              for x in leaves]
+    jparams = jax.tree.unflatten(treedef, leaves)
+    table = rng.standard_normal((V, dcfg.wenlan_emb_size)).astype(np.float32)
+    return dict(
+        mcfg=mcfg, dcfg=dcfg, tmcfg=to_port_config(mcfg),
+        tdcfg=to_port_config(dcfg), np_batch=batch,
+        jparams=jparams, jconst={"wenlan_table": jnp.asarray(table)},
+        jbatch={k: jnp.asarray(v) for k, v in batch.items()},
+        tparams=tparams.from_jax_numpy(jparams),
+        tconst={"wenlan_table": torch.from_numpy(table)},
+        tbatch={k: torch.from_numpy(v) for k, v in batch.items()},
+    )

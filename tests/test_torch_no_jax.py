@@ -1,8 +1,12 @@
-"""The port runs where JAX is not installed: importing any of its modules
-must not import jax."""
+"""The port runs where JAX is not installed and stands apart from the JAX
+package: importing any of its modules (or chip_smoke) imports neither
+``jax`` nor anything of ``mmtg_tpu``, and no source of it has such an import
+statement."""
 
+import glob
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -24,17 +28,23 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.checkpoint", "mmtg_tpu_torch.params",
                  "mmtg_tpu_torch.models.gpt2", "mmtg_tpu_torch.ops.fused_gru",
                  "mmtg_tpu_torch.ops.decode_attention",
-                 "mmtg_tpu_torch.kernels._build"):
+                 "mmtg_tpu_torch.kernels._build",
+                 "mmtg_tpu_torch.train", "mmtg_tpu_torch.loss",
+                 "mmtg_tpu_torch.configs", "mmtg_tpu_torch.data",
+                 "mmtg_tpu_torch.bpe", "mmtg_tpu_torch.tokenizer",
+                 "mmtg_tpu_torch.utils.logging",
+                 "mmtg_tpu_torch.ops.train_attention"):
         assert name in mods
 
 
 def test_importing_the_port_never_imports_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {_modules()!r}:\n"
+        f"for m in {_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules "
-        "if k.startswith('jax'))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'mmtg_tpu' or k.startswith('mmtg_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -43,3 +53,31 @@ def test_importing_the_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|mmtg_tpu)(?:[.\s]|$)", re.M)
+
+
+def _sources():
+    pkg = os.path.join(REPO, "mmtg_tpu_torch")
+    return sorted(glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)) + [
+        os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = _sources()
+    assert len(files) > 20
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            found = _IMPORT.findall(f.read())
+        assert not found, f"{os.path.relpath(path, REPO)} imports {found}"
+
+
+def test_the_import_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax import numpy", "  import mmtg_tpu",
+                 "from mmtg_tpu.configs import ModelConfig", "import mmtg_tpu.data"):
+        assert _IMPORT.search(line), line
+    for line in ("from mmtg_tpu_torch.configs import ModelConfig",
+                 "import mmtg_tpu_torch", "# from mmtg_tpu import x in a comment",
+                 ":mod:`mmtg_tpu.decoding`"):
+        assert not _IMPORT.search(line), line
