@@ -12,9 +12,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes: the decode kernels (caches and scales bit-exact,
      ctx / GRU output within the stated tolerance) and the train-attention
-     pair mha_train_packed forward + backward (ctx, dqkv, dqb at rate 0 and
-     rate 0.1 with the same dropout hash, f32 and bf16, B=8 and B=64). Each
-     is timed (CUDA events, median of single calls queued behind a sleep
+     kernels, forward + backward (ctx, dqkv, dqb at rate 0 and rate 0.1 with
+     the same dropout hash, f32 and bf16): mha_train_packed at B=8 and B=64,
+     T=256; mha_train_packed_seg at 32 rows of 512 with the segment ids of a
+     real PackedBatcher batch; mha_train (head-major slab, heads padded
+     64 -> 128) at B=64, T=256. Each is timed (CUDA events, median of single calls queued behind a sleep
      kernel so host overhead is excluded) beside its plain version and one
      PyTorch library call used nowhere in the port, and its bound (the
      larger of bytes / 3.35 TB/s and operations / peak) is computed;
@@ -31,9 +33,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
      then B=8 in f32 without dropout: loss and every gradient leaf through
      the kernels vs through the plain attention;
   7. the train CLI (default device: the card) on synthetic records, depth
-     cut to 2 layers: an epoch, a checkpoint, a resumed second epoch.
+     cut to 2 layers: an epoch, a checkpoint, a resumed second epoch;
+  8. the packed-sequence train path (--pack_sequences) at full width:
+     make_train_step on PackedBatcher batches, 32 rows of 512, bf16 compute /
+     f32 masters, dropout on, remat on, 1 warm-up + 5 timed steps (launch
+     counts of mha_train_packed_seg asserted, none of mha_train_packed), then
+     4 rows in f32: loss and gradients, kernel path vs plain path;
+  9. the unpacked train step through the head-major kernel
+     (attn_impl="kernel_padded") at B=64, 1 + 3 steps, then B=8 in f32: loss
+     and gradients vs the standard-slab path;
+ 10. the train CLI with --pack_sequences (2 layers, --resume) and the
+     pretrain CLI (2 layers), whose file the train CLI's --gpt2_ckpt loads.
 It then prints the kernels' JSON line and, last, the device JSON line.
---profile adds a torch.profiler kernel-time split of one B=64 train step;
+--profile adds a torch.profiler kernel-time split of one B=64 train step
+and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
 parallel build. Without a CUDA device it exits non-zero and prints no result.
 """
@@ -69,6 +82,11 @@ TRAIN_BATCHES = (8, 64)  # the kernel-vs-plain check; the train step runs 64
 # hundreds), in another order and by atomic adds, so it is checked relative
 # to its largest entry.
 TRAIN_TOL = {"float32": (1e-5, 1e-5, 1e-4), "bfloat16": (2e-2, 4e-2, 2e-2)}
+PACK_ROWS, PACK_T, PACK_SLOTS = 32, 512, 8  # 32 x 512 = the tokens of B=64 x 256
+# mha_train_packed_seg at T=512: dk and dv sum over up to 512 queries, so
+# dqkv's entries pass 8, where one bf16 rounding is 0.0625 (the largest |dqkv|
+# is printed beside the error); f32 as above.
+SEG_TOL = {"float32": TRAIN_TOL["float32"], "bfloat16": (2e-2, 8e-2, 2e-2)}
 
 
 def model_configs():
@@ -296,10 +314,13 @@ def phase_kernels(out):
                      f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
                      f"{results[('fused_gru', dname)]['bound_ms']:.4f} ms")
     print("phase 2 kernels vs plain: ok; " + "; ".join(lines))
-    lines = phase_train_attention(results, gen)
-    print("phase 2 mha_train_packed vs plain: ok; " + "; ".join(lines))
+    for name, lines in phase_train_attention(results, gen).items():
+        print(f"phase 2 {name} vs plain: ok; " + "; ".join(lines))
+    print(f"phase 2 mha_train_packed_seg: the batch's segment ids let "
+          f"{results['seg_pairs_share']:.3f} of the causal pairs attend")
     out["kernels_vs_plain"] = {
-        f"{k[0]}[{','.join(str(x) for x in k[1:])}]": v for k, v in results.items()}
+        f"{k[0]}[{','.join(str(x) for x in k[1:])}]": v for k, v in results.items()
+        if isinstance(k, tuple)}
     return results
 
 
@@ -311,111 +332,241 @@ def _sdpa_mask(bias, T):
     return causal[None, None] & (bias == 0)[:, None, None, :]
 
 
-def phase_train_attention(results, gen):
-    """mha_train_packed forward + backward vs mha_train_packed_plain at the
-    train path's layer shape (T=256, H=12, hd=64), with a key-padding tail."""
+def _key_bias(B, T):
     import torch
 
     from mmtg_tpu_torch.ops import train_attention as ta
 
-    T, hd = TRAIN_T, TRAIN_HD
+    bias = torch.zeros(B, T, device=DEVICE)
+    bias[:, 236:] = ta.NEG_INF  # the pad to 256
+    bias[::3, 200:236] = ta.NEG_INF  # short rows
+    return bias
+
+
+def packed_batches(dcfg, n_samples, rows, seed, emb_size=None):
+    """Packed batches as the trainer makes them: synthetic framed samples
+    with sentence lengths clip(normal(12, 4), 2, 20), next-fit packed into
+    rows of PACK_T with at most PACK_SLOTS samples each. Returns (the
+    packer, the list of full numpy batches)."""
+    import numpy as np
+
+    from mmtg_tpu_torch.pack import PackedBatcher, synthetic_framed_cols
+
+    rng = np.random.default_rng(seed)
+    lens = np.clip(rng.normal(12.0, 4.0, (n_samples, 10)), 2, 20).astype(np.int64)
+    cols = synthetic_framed_cols(rng, dcfg, lens, emb_size=emb_size)
+    cols["rating"][:] = 5.0  # stage 3 keeps all, y = 1
+    pb = PackedBatcher(cols, dcfg, row_len=PACK_T, max_slots=PACK_SLOTS)
+    full = [b for b in pb.batches(rows, shuffle=True, rng=np.random.default_rng(seed + 1))
+            if b["slot_valid"].any(axis=1).all()]
+    check(bool(full), "packing produced no full batch")
+    return pb, full
+
+
+def _attention_vs_plain(results, name, fn, plain, dtype, B, qkv, qb, mask, co, scale,
+                        sdpa_inputs, nbytes, pairs, hd_ops, tols=TRAIN_TOL):
+    """One train-attention function (kernels) vs its plain version on the
+    same inputs: ctx, dqkv, dqb at rate 0 and 0.1; then device times of the
+    kernels, the plain version and one SDPA call at rate 0.1, and the bound.
+    ``sdpa_inputs()`` -> (q, k, v [B, H, T, hd], boolean mask); ``nbytes`` =
+    (forward, backward) bytes of the function's own inputs and outputs;
+    ``pairs`` = the (i, j) pairs that may attend, summed over batch and
+    heads; ``hd_ops`` the head width the products run over."""
+    import torch
+
+    dname = str(dtype).split(".")[1]
+    seed = torch.tensor([20240229], dtype=torch.int32, device=DEVICE)
+    errs = {}
+    for rate in (0.0, 0.1):
+        outs = []
+        for f in (fn, plain):
+            a = qkv.clone().requires_grad_(True)
+            b = qb.clone().requires_grad_(True)
+            ctx = f(a, b, mask, seed, H, rate, scale)
+            dqkv, dqb = torch.autograd.grad(ctx, (a, b), co)
+            torch.cuda.synchronize()
+            outs.append((ctx.detach().float(), dqkv.float(), dqb.float()))
+            del a, b, ctx, dqkv, dqb
+        for what, got, ref, tol in zip(("ctx", "dqkv", "dqb"), outs[0], outs[1],
+                                       tols[dname]):
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} {dname} B={B} rate {rate}: {what} not finite")
+            e = (got - ref).abs().max().item()
+            if what == "dqb":
+                e /= max(ref.abs().max().item(), 1e-6)  # relative
+            check(e <= tol, f"{name} {dname} B={B} rate {rate}: "
+                  f"{what} max-abs {e:.3g} > {tol}")
+            errs[f"{what}_rate{rate}"] = e
+        errs["dqkv_largest"] = outs[1][1].abs().max().item()
+        del outs
+        torch.cuda.empty_cache()
+    line = f"[{dname} B={B}] " + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+    # timing, at the main path's rate (dropout 0.1)
+    rate = 0.1
+    fwd_bound = bound(nbytes[0], 4.0 * hd_ops * pairs, dname)
+    bwd_bound = bound(nbytes[1], 10.0 * hd_ops * pairs, dname)
+    timed = {}
+    for label, f in (("kernel", fn), ("plain", plain)):
+        with torch.no_grad():
+            timed[f"{label}_fwd"] = device_ms(
+                lambda: f(qkv, qb, mask, seed, H, rate, scale), reps=11, warmup=2)
+        a = qkv.clone().requires_grad_(True)
+        b = qb.clone().requires_grad_(True)
+        ctx = f(a, b, mask, seed, H, rate, scale)
+        timed[f"{label}_bwd"] = device_ms(
+            lambda: torch.autograd.grad(ctx, (a, b), co, retain_graph=True),
+            reps=11, warmup=2)
+        del a, b, ctx
+        torch.cuda.empty_cache()
+    # the library yardstick: one SDPA call on the same q/k/v, mask, rate
+    q, k, v, attn_mask = sdpa_inputs()
+    q, k, v = (t.detach().contiguous().requires_grad_(True) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=attn_mask, dropout_p=rate, scale=scale)
+    with torch.no_grad():
+        timed["library_fwd"] = device_ms(sdpa, reps=11, warmup=2)
+    out = sdpa()
+    do = torch.randn_like(out)
+    timed["library_bwd"] = device_ms(
+        lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+        reps=11, warmup=2)
+    del q, k, v, out, do, attn_mask
+    torch.cuda.empty_cache()
+    results[(name, dname, B)] = dict(
+        max_abs_err=max(errs["ctx_rate0.1"], errs["dqkv_rate0.1"]), errs=errs,
+        ms=timed["kernel_fwd"] + timed["kernel_bwd"],
+        plain_ms=timed["plain_fwd"] + timed["plain_bwd"],
+        library_ms=timed["library_fwd"] + timed["library_bwd"],
+        bound_ms=fwd_bound["bound_ms"] + bwd_bound["bound_ms"],
+        bound_by=bwd_bound["bound_by"], fwd_bound=fwd_bound,
+        bwd_bound=bwd_bound, **timed)
+    return [line, f"[{dname} B={B} ms fwd/bwd] " + " ".join(
+        f"{w} {timed[w + '_fwd']:.3f}/{timed[w + '_bwd']:.3f}"
+        for w in ("kernel", "plain", "library"))
+        + f" bound {fwd_bound['bound_ms']:.3f}/{bwd_bound['bound_ms']:.3f}"]
+
+
+def _io_bytes(B, T, S, ctx_w, e_sz):
+    """The function's own inputs read once and outputs written once: forward
+    slab, qkv bias, [B, T] mask in, ctx out; backward slab, qkv bias, mask,
+    d(ctx) in, dqkv and dqb out. What the kernels keep between the two (ctx,
+    the row log-sum-exp) is their choice and is not counted."""
+    return ((B * T * S + S + B * T * ctx_w) * e_sz + 4 * B * T,
+            (2 * B * T * S + 2 * S + B * T * ctx_w) * e_sz + 4 * B * T)
+
+
+def phase_train_attention(results, gen):
+    """The three train-attention functions, forward + backward, vs their plain
+    versions at their paths' layer shapes (H=12, hd=64)."""
+    import torch
+
+    from mmtg_tpu_torch.ops import train_attention as ta
+
+    hd = TRAIN_HD
     S3 = 3 * H * hd
     scale = hd ** -0.5
-    lines = []
+    lines = {"mha_train_packed": [], "mha_train_packed_seg": [], "mha_train": []}
+
+    def standard_heads(qkv, qb, B, T):
+        heads = (qkv + qb).view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
+        return heads[0], heads[1], heads[2]
+
+    def slab(B, T, dtype):
+        return (torch.randn(B, T, S3, generator=gen, device=DEVICE).to(dtype),
+                (torch.randn(S3, generator=gen, device=DEVICE) * 0.1).to(dtype),
+                torch.randn(B, T, H * hd, generator=gen, device=DEVICE).to(dtype))
+
+    # mha_train_packed: the unpacked train step's shape, a key-padding tail
+    T = TRAIN_T
     for B in TRAIN_BATCHES:
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[1]
-            qkv = torch.randn(B, T, S3, generator=gen, device=DEVICE).to(dtype)
-            qb = (torch.randn(S3, generator=gen, device=DEVICE) * 0.1).to(dtype)
-            bias = torch.zeros(B, T, device=DEVICE)
-            bias[:, 236:] = ta.NEG_INF  # the pad to 256
-            bias[::3, 200:236] = ta.NEG_INF  # short rows
-            co = torch.randn(B, T, H * hd, generator=gen, device=DEVICE).to(dtype)
-            seed = torch.tensor([20240229], dtype=torch.int32, device=DEVICE)
-            errs = {}
-            for rate in (0.0, 0.1):
-                outs = []
-                for fn in (ta.mha_train_packed, ta.mha_train_packed_plain):
-                    a = qkv.clone().requires_grad_(True)
-                    b = qb.clone().requires_grad_(True)
-                    ctx = fn(a, b, bias, seed, H, rate, scale)
-                    dqkv, dqb = torch.autograd.grad(ctx, (a, b), co)
-                    torch.cuda.synchronize()
-                    outs.append((ctx.detach().float(), dqkv.float(), dqb.float()))
-                    del a, b, ctx, dqkv, dqb
-                for what, got, ref, tol in zip(("ctx", "dqkv", "dqb"), outs[0],
-                                               outs[1], TRAIN_TOL[dname]):
-                    check(bool(torch.isfinite(got).all()),
-                          f"mha_train_packed {dname} B={B} rate {rate}: {what} not finite")
-                    e = (got - ref).abs().max().item()
-                    if what == "dqb":
-                        e /= max(ref.abs().max().item(), 1e-6)  # relative
-                    check(e <= tol, f"mha_train_packed {dname} B={B} rate {rate}: "
-                          f"{what} max-abs {e:.3g} > {tol}")
-                    errs[f"{what}_rate{rate}"] = e
-                del outs
-                torch.cuda.empty_cache()
-            lines.append(f"[{dname} B={B}] " + " ".join(
-                f"{k} {v:.3g}" for k, v in errs.items()))
-
-            # timing, at the main path's rate (dropout 0.1)
-            rate = 0.1
-            e_sz = qkv.element_size()
-            pairs = B * H * T * (T + 1) / 2  # causal (i, j) pairs
-            # the function's own inputs read once and outputs written once:
-            # forward slab, qkv bias, key bias in, ctx out; backward slab, qkv
-            # bias, key bias, d(ctx) in, dqkv and dqb out. What the kernels
-            # keep between the two (ctx, the row log-sum-exp) is their choice
-            # and is not counted.
-            fwd_bytes = (B * T * S3 + S3 + B * T * H * hd) * e_sz + 4 * B * T
-            bwd_bytes = (2 * B * T * S3 + 2 * S3 + B * T * H * hd) * e_sz + 4 * B * T
-            fwd_bound = bound(fwd_bytes, 4.0 * hd * pairs, dname)
-            bwd_bound = bound(bwd_bytes, 10.0 * hd * pairs, dname)
-            timed = {}
-            for label, fn in (("kernel", ta.mha_train_packed),
-                              ("plain", ta.mha_train_packed_plain)):
-                with torch.no_grad():
-                    timed[f"{label}_fwd"] = device_ms(
-                        lambda: fn(qkv, qb, bias, seed, H, rate, scale), reps=11, warmup=2)
-                a = qkv.clone().requires_grad_(True)
-                b = qb.clone().requires_grad_(True)
-                ctx = fn(a, b, bias, seed, H, rate, scale)
-                timed[f"{label}_bwd"] = device_ms(
-                    lambda: torch.autograd.grad(ctx, (a, b), co, retain_graph=True),
-                    reps=11, warmup=2)
-                del a, b, ctx
-                torch.cuda.empty_cache()
-            # the library yardstick: one SDPA call on the same q/k/v, mask, rate
-            heads = (qkv + qb).view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
-            q, k, v = (heads[i].detach().contiguous().requires_grad_(True)
-                       for i in range(3))
-            del heads
-            attn_mask = _sdpa_mask(bias, T)
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=attn_mask, dropout_p=rate, scale=scale)
-            with torch.no_grad():
-                timed["library_fwd"] = device_ms(sdpa, reps=11, warmup=2)
-            out = sdpa()
-            do = co.view(B, T, H, hd).transpose(1, 2)
-            timed["library_bwd"] = device_ms(
-                lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
-                reps=11, warmup=2)
-            del q, k, v, out
-            torch.cuda.empty_cache()
-            results[("mha_train_packed", dname, B)] = dict(
-                max_abs_err=max(errs["ctx_rate0.1"], errs["dqkv_rate0.1"]), errs=errs,
-                ms=timed["kernel_fwd"] + timed["kernel_bwd"],
-                plain_ms=timed["plain_fwd"] + timed["plain_bwd"],
-                library_ms=timed["library_fwd"] + timed["library_bwd"],
-                bound_ms=fwd_bound["bound_ms"] + bwd_bound["bound_ms"],
-                bound_by=bwd_bound["bound_by"], fwd_bound=fwd_bound,
-                bwd_bound=bwd_bound, **timed)
-            lines.append(f"[{dname} B={B} ms fwd/bwd] " + " ".join(
-                f"{w} {timed[w + '_fwd']:.3f}/{timed[w + '_bwd']:.3f}"
-                for w in ("kernel", "plain", "library"))
-                + f" bound {fwd_bound['bound_ms']:.3f}/{bwd_bound['bound_ms']:.3f}")
+            qkv, qb, co = slab(B, T, dtype)
+            bias = _key_bias(B, T)
+            lines["mha_train_packed"] += _attention_vs_plain(
+                results, "mha_train_packed", ta.mha_train_packed,
+                ta.mha_train_packed_plain, dtype, B, qkv, qb, bias, co, scale,
+                lambda: (*standard_heads(qkv, qb, B, T), _sdpa_mask(bias, T)),
+                _io_bytes(B, T, S3, H * hd, qkv.element_size()),
+                B * H * T * (T + 1) / 2, hd)
             del qkv, co
             torch.cuda.empty_cache()
+
+    # mha_train_packed_seg: the packed step's shape, a real packed batch's ids
+    B, T = PACK_ROWS, PACK_T
+    _, batches = packed_batches(model_configs()[1], 5 * PACK_ROWS, PACK_ROWS, 5,
+                                emb_size=8)
+    seg = torch.from_numpy(batches[0]["seg"]).to(DEVICE)
+    tril = torch.ones(T, T, dtype=torch.bool, device=DEVICE).tril()
+    allowed = (seg[:, :, None] == seg[:, None, :]) & tril  # [B, T, T]
+    pairs = float(H * int(allowed.sum()))  # what this batch's ids let attend
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, qb, co = slab(B, T, dtype)
+        lines["mha_train_packed_seg"] += _attention_vs_plain(
+            results, "mha_train_packed_seg", ta.mha_train_packed_seg,
+            ta.mha_train_packed_seg_plain, dtype, B, qkv, qb, seg, co, scale,
+            lambda: (*standard_heads(qkv, qb, B, T), allowed[:, None]),
+            _io_bytes(B, T, S3, H * hd, qkv.element_size()), pairs, hd, tols=SEG_TOL)
+        if dtype == torch.bfloat16:
+            # what the tile test saves: the same kernels on one segment a row
+            # (plain causal attention, no tile pair skipped)
+            one, seed = torch.zeros_like(seg), torch.zeros(1, dtype=torch.int32,
+                                                           device=DEVICE)
+            with torch.no_grad():
+                fwd = device_ms(lambda: ta.mha_train_packed_seg(
+                    qkv, qb, one, seed, H, 0.1, scale), reps=11, warmup=2)
+            a = qkv.clone().requires_grad_(True)
+            ctx = ta.mha_train_packed_seg(a, qb, one, seed, H, 0.1, scale)
+            bwd = device_ms(lambda: torch.autograd.grad(ctx, a, co, retain_graph=True),
+                            reps=11, warmup=2)
+            r = results[("mha_train_packed_seg", "bfloat16", B)]
+            r["one_segment_fwd"], r["one_segment_bwd"] = fwd, bwd
+            lines["mha_train_packed_seg"].append(
+                f"[bfloat16 B={B} one segment a row, nothing skipped: kernel "
+                f"{fwd:.3f}/{bwd:.3f}]")
+            del a, ctx
+        del qkv, co
+        torch.cuda.empty_cache()
+    results["seg_pairs_share"] = pairs / (B * H * T * (T + 1) / 2)
+    del allowed
+
+    # mha_train: the head-major slab of the same heads, each padded 64 -> 128
+    B, T = TRAIN_BATCHES[-1], TRAIN_T
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, qb, _ = slab(B, T, dtype)
+        pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+            t.reshape(t.shape[:-1] + (3, H, hd)), (0, ta.LANES - hd)).transpose(
+                -3, -2).reshape(t.shape[:-1] + (H * ta.SLAB,)).contiguous()
+        hm, hm_b = pad(qkv), pad(qb)
+        co = torch.randn(B, T, H, ta.LANES, generator=gen, device=DEVICE)
+        co[..., hd:] = 0.0  # as the padded output projection hands it back
+        co = co.reshape(B, T, H * ta.LANES).to(dtype)
+        bias = _key_bias(B, T)
+        lines["mha_train"] += _attention_vs_plain(
+            results, "mha_train", ta.mha_train, ta.mha_train_plain, dtype, B, hm,
+            hm_b, bias, co, scale,
+            lambda: (*standard_heads(qkv, qb, B, T), _sdpa_mask(bias, T)),
+            _io_bytes(B, T, H * ta.SLAB, H * ta.LANES, qkv.element_size()),
+            B * H * T * (T + 1) / 2, ta.LANES)
+        # the pad lanes of everything it writes are zero, the live lanes are
+        # the standard-slab kernel's numbers
+        seed = torch.tensor([3], dtype=torch.int32, device=DEVICE)
+        a = hm.clone().requires_grad_(True)
+        ctx = ta.mha_train(a, hm_b, bias, seed, H, 0.1, scale)
+        dqkv, = torch.autograd.grad(ctx, a, co)
+        ref = ta.mha_train_packed(qkv, qb, bias, seed, H, 0.1, scale)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[1]
+        check(ctx.view(B, T, H, ta.LANES)[..., hd:].abs().max().item() == 0.0
+              and dqkv.view(B, T, H, 3, ta.LANES)[..., hd:].abs().max().item() == 0.0,
+              f"mha_train {dname}: a pad lane of ctx or dqkv is not zero")
+        e = (ctx.view(B, T, H, ta.LANES)[..., :hd].reshape(B, T, H * hd).float()
+             - ref.float()).abs().max().item()
+        check(e <= TRAIN_TOL[dname][0], f"mha_train {dname}: live lanes differ from "
+              f"mha_train_packed by {e:.3g}")
+        results[("mha_train", dname, B)]["vs_packed_ctx_max_abs"] = e
+        del qkv, hm, co, a, ctx, dqkv, ref
+        torch.cuda.empty_cache()
     return lines
 
 
@@ -444,16 +595,21 @@ def _full_width_inputs(dtype, seed):
     return mcfg, dcfg, params, {"wenlan_table": table}, batch
 
 
+TRAIN_FNS = ("mha_train_packed", "mha_train_packed_seg", "mha_train")
+
+
 def _counts():
     from mmtg_tpu_torch.ops import decode_attention as da
     from mmtg_tpu_torch.ops import fused_gru as fg
     from mmtg_tpu_torch.ops import train_attention as ta
 
-    return {"decode_attention_int8_append": da.decode_attention_int8_append.launches,
-            "decode_attention_fp_append": da.decode_attention_fp_append.launches,
-            "fused_gru": fg.fused_gru.launches,
-            "mha_train_packed_fwd": ta.mha_train_packed.fwd_launches,
-            "mha_train_packed_bwd": ta.mha_train_packed.bwd_launches}
+    counts = {"decode_attention_int8_append": da.decode_attention_int8_append.launches,
+              "decode_attention_fp_append": da.decode_attention_fp_append.launches,
+              "fused_gru": fg.fused_gru.launches}
+    for name in TRAIN_FNS:
+        counts[f"{name}_fwd"] = getattr(ta, name).fwd_launches
+        counts[f"{name}_bwd"] = getattr(ta, name).bwd_launches
+    return counts
 
 
 def _reset_counts():
@@ -464,8 +620,15 @@ def _reset_counts():
     da.decode_attention_int8_append.launches = 0
     da.decode_attention_fp_append.launches = 0
     fg.fused_gru.launches = 0
-    ta.mha_train_packed.fwd_launches = 0
-    ta.mha_train_packed.bwd_launches = 0
+    for name in TRAIN_FNS:
+        getattr(ta, name).fwd_launches = 0
+        getattr(ta, name).bwd_launches = 0
+
+
+def _only(launches, expected, what):
+    """The launch counts are ``expected`` and every other kernel's is 0."""
+    want = {k: expected.get(k, 0) for k in launches}
+    check(launches == want, f"{what}: launch counts {launches} != {want}")
 
 
 def _check_tokens(toks, mcfg, dcfg, what):
@@ -495,13 +658,9 @@ def phase_generate(out, gpu):
     mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
     steps = mcfg.gpt2.n_layer * LENGTH  # one launch per layer and step
     runs = [("b64 int8 cache", 64, GenerateConfig(cache_dtype="int8"),
-             {"decode_attention_int8_append": steps,
-              "decode_attention_fp_append": 0, "fused_gru": 2,
-              "mha_train_packed_fwd": 0, "mha_train_packed_bwd": 0}),
+             {"decode_attention_int8_append": steps, "fused_gru": 2}),
             ("b8 bf16 cache", 8, GenerateConfig(cache_dtype="model"),
-             {"decode_attention_int8_append": 0,
-              "decode_attention_fp_append": steps, "fused_gru": 2,
-              "mha_train_packed_fwd": 0, "mha_train_packed_bwd": 0})]
+             {"decode_attention_fp_append": steps, "fused_gru": 2})]
     batches = {b: make_batch(b) for _, b, _, _ in runs}
     for _, b, gcfg, _ in runs:  # warm-up (cuBLAS handles, allocator)
         generate(params, const, mcfg, dcfg, gcfg, batches[b],
@@ -520,7 +679,7 @@ def phase_generate(out, gpu):
         now = _counts()
         got = {k: now[k] - before[k] for k in now}
         before = now
-        check(got == expected, f"{what}: launch counts {got} != {expected}")
+        _only(got, expected, what)
         _check_tokens(toks, mcfg, dcfg, what)
         tps = b * LENGTH / wall
         out[f"generate_{what.replace(' ', '_')}"] = dict(
@@ -589,126 +748,241 @@ def _train_batch(b, dcfg, seed):
             for k, v in next(ds.batches(batch_size=b)).items()}
 
 
-def phase_train(out, gpu, profile):
+def _timed_steps(step, state, const, batches, warm, steps):
+    """``warm`` warm-up steps, then the counts set to 0, ``steps`` timed steps
+    (each ending in a synchronize) over ``batches`` in turn, and the counts
+    read. Returns (state, dict of what was measured)."""
     import torch
 
-    from mmtg_tpu_torch import train as ttrain
-    from mmtg_tpu_torch.configs import TrainConfig
-    from mmtg_tpu_torch.params import tree_leaves, tree_map
-
-    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
-    L = mcfg.gpt2.n_layer
-    B, WARM, STEPS = TRAIN_BATCHES[-1], 1, 5
-    tcfg = TrainConfig(dtype="bfloat16", remat=True, lr=1e-4, alpha=0.2,
-                       attn_impl="auto")
-    state, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params,
-                                          device=DEVICE)
-    step = ttrain.make_train_step(mcfg, dcfg, tcfg, tx)
-    batch = _train_batch(B, dcfg, 8)
-    for _ in range(WARM):  # also the schedule's rate-0 first update
-        state, m = step(state, const, batch, 3)
+    for i in range(warm):  # also the schedule's rate-0 first update
+        state, m = step(state, const, batches[i % len(batches)], 3)
     torch.cuda.synchronize()
 
-    _reset_counts()  # ---- the main path (train) starts here -----------------
-    losses, times = [], []
+    _reset_counts()  # ---- the main path starts here --------------------------
+    losses, times, kept = [], [], []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(STEPS):
+    for i in range(steps):
+        batch = batches[(warm + i) % len(batches)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, const, batch, 3)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
-    launches = _counts()  # ---- read just after the main path ----------------
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(all(torch.isfinite(torch.tensor(losses))), f"train: loss not finite {losses}")
-    check(losses[-1] < losses[0], f"train: loss did not fall on a repeated "
-          f"batch: {losses}")
-    check(launches["mha_train_packed_fwd"] == 2 * L * STEPS
-          and launches["mha_train_packed_bwd"] == L * STEPS,
-          f"train: launch counts {launches} != fwd {2 * L * STEPS} (remat) / "
-          f"bwd {L * STEPS}")
-    check(all(launches[k] == 0 for k in ("decode_attention_int8_append",
-                                         "decode_attention_fp_append", "fused_gru")),
-          f"train: a decode kernel ran: {launches}")
-    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
-          "train: a parameter is not finite")
+        kept.append(float(m["kept"]))
+    launches = _counts()  # ---- read just after the main path -----------------
     step_ms = statistics.median(times) * 1e3
-    out["train_b64"] = dict(step_ms=step_ms, samples_per_s=B / (step_ms / 1e3),
-                            losses=losses, step_ms_all=[t * 1e3 for t in times],
-                            peak_memory_gib=peak_gb, launches=launches)
+    return state, dict(
+        step_ms=step_ms, samples_per_step=statistics.mean(kept),
+        samples_per_s=statistics.mean(kept) / (step_ms / 1e3), losses=losses,
+        step_ms_all=[t * 1e3 for t in times], kept=kept,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches)
+
+
+def _check_trained(what, r, state):
+    import torch
+
+    from mmtg_tpu_torch.params import tree_leaves
+
+    losses = r["losses"]
+    check(all(torch.isfinite(torch.tensor(losses))), f"{what}: loss not finite {losses}")
+    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+          f"{what}: a parameter is not finite")
+
+
+def _profile_step(out, key, what, step, state, const, batch):
+    """A torch.profiler kernel-time split of one train step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, const, batch, 3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel events only: an operator's row repeats its kernels' time
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    check(bool(rows), f"{what} profile: torch.profiler recorded no kernel")
+    groups = {}
+    for name, us, _ in rows:
+        low = name.lower()
+        group = ("attention kernels (mha_*)" if "mha_" in low else
+                 "GEMM" if any(w in low for w in ("nvjet", "gemm", "cutlass", "cublas")) else
+                 "indexing / gather backward" if "index" in low or "gather" in low
+                 or "scatter" in low else
+                 "reductions (LayerNorm stats, softmax, sums)" if "reduce" in low
+                 or "softmax" in low else
+                 "random bits (dropout masks)" if "distribution" in low
+                 or "philox" in low or "random" in low else
+                 "elementwise" if "elementwise" in low else "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    total = sum(groups.values())
+    out[key] = dict(
+        wall_ms=wall_ms, device_ms=total, busy_share=total / wall_ms,
+        groups_ms=groups,
+        kernels=[dict(name=n[:120], ms=us / 1e3, calls=c) for n, us, c in rows[:25]])
+    print(f"{what} profile (one step under torch.profiler): wall "
+          f"{wall_ms:.1f} ms, kernel time {total:.1f} ms (busy share "
+          f"{total / wall_ms:.3f}); " + "; ".join(
+              f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
+                                                     key=lambda kv: -kv[1])))
+    return state
+
+
+def _loss_and_grads(params, const, mcfg, dcfg, batch, impl):
+    """f32, no dropout, no remat: (total, gradient leaves)."""
+    import torch
+
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.configs import TrainConfig
+    from mmtg_tpu_torch.params import tree_leaves
+
+    cfg = TrainConfig(dtype="float32", remat=False, alpha=0.2, attn_impl=impl)
+    total, _ = ttrain.loss_and_metrics(params, const, mcfg, dcfg, cfg, batch, 3,
+                                       None, True)
+    grads = torch.autograd.grad(total, tree_leaves(params))
+    torch.cuda.synchronize()
+    return float(total.detach()), grads
+
+
+def _compare_paths(out, key, what, params, const, mcfg, dcfg, batch, impls):
+    """Loss and every gradient leaf through ``impls[0]`` vs ``impls[1]``."""
+    from mmtg_tpu_torch.params import tree_map
+
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    a, b = (_loss_and_grads(params, const, mcfg, dcfg, batch, impl) for impl in impls)
+    loss_err = abs(a[0] - b[0])
+    grad_err = max((x - y).abs().max().item() for x, y in zip(a[1], b[1]))
+    grad_max = max(y.abs().max().item() for y in b[1])
+    check(loss_err <= 1e-4, f"{what}: loss {impls[0]} vs {impls[1]} differ by {loss_err:.3g}")
+    check(grad_err <= 1e-4, f"{what}: a gradient leaf differs by {grad_err:.3g} > 1e-4")
+    out[key] = dict(loss_abs_err=loss_err, grad_max_abs_err=grad_err,
+                    grad_max=grad_max, leaves=len(b[1]))
+    print(f"{what}, {impls[0]} path vs {impls[1]} path (full width, f32, no "
+          f"dropout): ok; loss |diff| {loss_err:.3g}, {len(b[1])} gradient "
+          f"leaves max-abs {grad_err:.3g} (<= 1e-4; largest gradient {grad_max:.3g})")
+
+
+def _train_state(params, mcfg, dcfg, attn_impl="auto"):
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.configs import TrainConfig
+
+    tcfg = TrainConfig(dtype="bfloat16", remat=True, lr=1e-4, alpha=0.2,
+                       attn_impl=attn_impl)
+    state, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params,
+                                          device=DEVICE)
+    return state, ttrain.make_train_step(mcfg, dcfg, tcfg, tx)
+
+
+def phase_train(out, gpu, profile):
+    import torch
+
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    L = mcfg.gpt2.n_layer
+    B, WARM, STEPS = TRAIN_BATCHES[-1], 1, 5
+    state, step = _train_state(params, mcfg, dcfg)
+    batch = _train_batch(B, dcfg, 8)
+    state, r = _timed_steps(step, state, const, [batch], WARM, STEPS)
+    launches = r["launches"]
+    _check_trained("train", r, state)
+    # forward + remat forward, one backward, per layer and step; nothing else
+    _only(launches, {"mha_train_packed_fwd": 2 * L * STEPS,
+                     "mha_train_packed_bwd": L * STEPS}, "train")
+    out["train_b64"] = r
     print(f"phase 6 train (full width, bf16 compute / f32 masters, B={B}, "
           f"dropout on, remat, {STEPS} steps, on {gpu}): ok; median step "
-          f"{step_ms:.1f} ms, {B / (step_ms / 1e3):.1f} samples/s, loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak {peak_gb:.1f} GiB, "
-          f"launches fwd {launches['mha_train_packed_fwd']} bwd "
-          f"{launches['mha_train_packed_bwd']}")
-
+          f"{r['step_ms']:.1f} ms, {r['samples_per_s']:.1f} samples/s, loss "
+          f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, peak "
+          f"{r['peak_memory_gib']:.1f} GiB, launches fwd "
+          f"{launches['mha_train_packed_fwd']} bwd {launches['mha_train_packed_bwd']}")
     if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as profiler
-
-        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, const, batch, 3)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # kernel events only: an operator's row repeats its kernels' time
-        rows = sorted(((e.key, e.self_device_time_total, e.count)
-                       for e in prof.key_averages()
-                       if getattr(e, "device_type", None) == DeviceType.CUDA
-                       and e.self_device_time_total > 0), key=lambda r: -r[1])
-        check(bool(rows), "train profile: torch.profiler recorded no kernel")
-        groups = {}
-        for name, us, _ in rows:
-            low = name.lower()
-            group = ("attention kernels (mha_*)" if "mha_" in low else
-                     "GEMM" if any(w in low for w in ("nvjet", "gemm", "cutlass", "cublas")) else
-                     "indexing / gather backward" if "index" in low or "gather" in low
-                     or "scatter" in low else
-                     "reductions (LayerNorm stats, softmax, sums)" if "reduce" in low
-                     or "softmax" in low else
-                     "random bits (dropout masks)" if "distribution" in low
-                     or "philox" in low or "random" in low else
-                     "elementwise" if "elementwise" in low else "other")
-            groups[group] = groups.get(group, 0.0) + us / 1e3
-        total = sum(groups.values())
-        out["train_profile"] = dict(
-            wall_ms=wall_ms, device_ms=total, busy_share=total / wall_ms,
-            groups_ms=groups,
-            kernels=[dict(name=n[:120], ms=us / 1e3, calls=c) for n, us, c in rows[:25]])
-        print(f"train profile (one B={B} step under torch.profiler): wall "
-              f"{wall_ms:.1f} ms, kernel time {total:.1f} ms (busy share "
-              f"{total / wall_ms:.3f}); " + "; ".join(
-                  f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
-                                                         key=lambda kv: -kv[1])))
-    del state, tx, batch
+        state = _profile_step(out, "train_profile", f"train B={B}", step, state,
+                              const, batch)
+    del state, step, batch
     torch.cuda.empty_cache()
+    _compare_paths(out, "train_kernel_vs_plain", "phase 6 train B=8", params, const,
+                   mcfg, dcfg, _train_batch(8, dcfg, 9), ("kernel", "plain"))
+    return launches
 
-    # kernel path vs plain path: loss and every gradient leaf, B=8, f32
-    batch = _train_batch(8, dcfg, 9)
-    params = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
-    got = {}
-    for impl in ("kernel", "plain"):
-        cfg = TrainConfig(dtype="float32", remat=False, alpha=0.2, attn_impl=impl)
-        total, m = ttrain.loss_and_metrics(params, const, mcfg, dcfg, cfg, batch,
-                                           3, None, True)
-        grads = torch.autograd.grad(total, tree_leaves(params))
-        torch.cuda.synchronize()
-        got[impl] = (float(total.detach()), grads)
-    loss_err = abs(got["kernel"][0] - got["plain"][0])
-    grad_err = max((a - b).abs().max().item()
-                   for a, b in zip(got["kernel"][1], got["plain"][1]))
-    grad_max = max(b.abs().max().item() for b in got["plain"][1])
-    check(loss_err <= 1e-4, f"train f32: loss kernel vs plain differ by {loss_err:.3g}")
-    check(grad_err <= 1e-4, f"train f32: a gradient leaf differs by {grad_err:.3g} > 1e-4")
-    out["train_kernel_vs_plain"] = dict(loss_abs_err=loss_err, grad_max_abs_err=grad_err,
-                                        grad_max=grad_max, leaves=len(got["plain"][1]))
-    print(f"phase 6 train, kernel path vs plain path (full width, f32, B=8, no "
-          f"dropout): ok; loss |diff| {loss_err:.3g}, {len(got['plain'][1])} gradient "
-          f"leaves max-abs {grad_err:.3g} (<= 1e-4; largest gradient {grad_max:.3g})")
+
+def phase_train_packed(out, gpu, profile):
+    """The packed-sequence train path: make_train_step on PackedBatcher
+    batches, 32 rows of 512 (the token count of phase 6's B=64 x 256)."""
+    import torch
+
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    L = mcfg.gpt2.n_layer
+    WARM, STEPS = 1, 5
+    pb, np_batches = packed_batches(dcfg, 24 * PACK_ROWS, PACK_ROWS, 11)
+    check(len(np_batches) >= WARM + STEPS, f"only {len(np_batches)} full packed batches")
+    to_dev = lambda b: {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}  # noqa: E731
+    batches = [to_dev(b) for b in np_batches[:WARM + STEPS]]
+    live = [float((b["seg"] < PACK_SLOTS).float().mean()) for b in batches]
+    state, step = _train_state(params, mcfg, dcfg)
+    state, r = _timed_steps(step, state, const, batches, WARM, STEPS)
+    launches = r["launches"]
+    _check_trained("packed train", r, state)
+    _only(launches, {"mha_train_packed_seg_fwd": 2 * L * STEPS,
+                     "mha_train_packed_seg_bwd": L * STEPS}, "packed train")
+    check(r["kept"] == [float(b["slot_valid"].sum()) for b in batches[WARM:]],
+          f"packed train: kept {r['kept']} is not the batches' real sample count")
+    r.update(density=pb.density, row_fill=statistics.mean(live), rows=PACK_ROWS,
+             row_len=PACK_T)
+    out["train_packed"] = r
+    print(f"phase 8 packed train (full width, bf16 compute / f32 masters, "
+          f"{PACK_ROWS} rows of {PACK_T}, <= {PACK_SLOTS} samples a row, dropout on, "
+          f"remat, {STEPS} steps, on {gpu}): ok; median step {r['step_ms']:.1f} ms, "
+          f"{r['samples_per_step']:.1f} real samples a step, "
+          f"{r['samples_per_s']:.1f} samples/s, packing density {pb.density:.3f} "
+          f"(real/grid tokens), row fill {r['row_fill']:.3f}, loss "
+          f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, peak "
+          f"{r['peak_memory_gib']:.1f} GiB, launches fwd "
+          f"{launches['mha_train_packed_seg_fwd']} bwd "
+          f"{launches['mha_train_packed_seg_bwd']}")
+    if profile:
+        state = _profile_step(out, "train_packed_profile", "packed train", step,
+                              state, const, batches[0])
+    del state, step, batches
+    torch.cuda.empty_cache()
+    _, small = packed_batches(dcfg, 24, 4, 12)
+    _compare_paths(out, "train_packed_kernel_vs_plain", "phase 8 packed train, 4 rows",
+                   params, const, mcfg, dcfg, to_dev(small[0]), ("kernel", "plain"))
+    return launches
+
+
+def phase_train_head_major(out, gpu):
+    """The unpacked train step through mha_train (attn_impl="kernel_padded")."""
+    import torch
+
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    L = mcfg.gpt2.n_layer
+    B, WARM, STEPS = TRAIN_BATCHES[-1], 1, 3
+    state, step = _train_state(params, mcfg, dcfg, attn_impl="kernel_padded")
+    state, r = _timed_steps(step, state, const, [_train_batch(B, dcfg, 8)], WARM, STEPS)
+    launches = r["launches"]
+    _check_trained("head-major train", r, state)
+    _only(launches, {"mha_train_fwd": 2 * L * STEPS, "mha_train_bwd": L * STEPS},
+          "head-major train")
+    out["train_head_major_b64"] = r
+    print(f"phase 9 head-major train (attn_impl=kernel_padded, full width, bf16, "
+          f"B={B}, dropout on, remat, {STEPS} steps, on {gpu}): ok; median step "
+          f"{r['step_ms']:.1f} ms (phase 6: {out['train_b64']['step_ms']:.1f} ms), "
+          f"{r['samples_per_s']:.1f} samples/s, loss {r['losses'][0]:.4f} -> "
+          f"{r['losses'][-1]:.4f}, peak {r['peak_memory_gib']:.1f} GiB, launches fwd "
+          f"{launches['mha_train_fwd']} bwd {launches['mha_train_bwd']}")
+    del state, step
+    torch.cuda.empty_cache()
+    _compare_paths(out, "train_head_major_vs_packed", "phase 9 head-major train B=8",
+                   params, const, mcfg, dcfg, _train_batch(8, dcfg, 9),
+                   ("kernel_padded", "kernel"))
     return launches
 
 
@@ -808,15 +1082,92 @@ def phase_train_cli(out, paths, tmp):
           f"ok; {secs:.1f} s, val loss {val1:.4f} -> {val2:.4f}, checkpoints {second}")
 
 
+def phase_packed_cli(out, paths, tmp):
+    """The pretrain CLI (2 layers), then the train CLI with --pack_sequences
+    and --gpt2_ckpt on its file (2 layers; default device: the card): an
+    epoch, a checkpoint, a resumed second epoch."""
+    import dataclasses
+
+    import torch
+
+    from mmtg_tpu_torch import pretrain
+    from mmtg_tpu_torch import train as cli
+
+    mcfg, dcfg = model_configs()
+    mcfg = dataclasses.replace(mcfg, gpt2=dataclasses.replace(mcfg.gpt2, n_layer=2))
+    corpus = os.path.join(tmp, "lyrics.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write("\n".join(["青山一道同云雨", "明月何曾是两乡", "海内存知己",
+                           "天涯若比邻"] * 64))
+    phase1 = os.path.join(tmp, "phase1")
+    _reset_counts()
+    t0 = time.perf_counter()
+    pretrain.main(["--corpus", corpus, "--vocab_path", paths["vocab"],
+                   "--save_path", phase1, "--batch_size", "16", "--seq_len", "128",
+                   "--epochs", "2", "--log_interval", "1"], cfg=mcfg.gpt2)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = _counts()
+    check(os.listdir(phase1) == ["pytorch_model.bin"], f"pretrain CLI wrote {os.listdir(phase1)}")
+    steps = pre["mha_train_packed_bwd"] // 2
+    _only(pre, {"mha_train_packed_fwd": 2 * steps, "mha_train_packed_bwd": 2 * steps},
+          "pretrain CLI")
+    check(steps >= 2, f"pretrain CLI took {steps} steps")
+
+    save = os.path.join(tmp, "ckpt_packed")
+    args = ["--train_data_path", paths["train"], "--val_data_path", paths["val"],
+            "--vocab_path", paths["vocab"], "--token_emb_path", paths["emb"],
+            "--batch_size", "8", "--val_batch_size", "8", "--curriculums", "0,0",
+            "--alpha", "0.2", "--lr", "1e-4", "--val_interval_ratio", "1.0",
+            "--log_interval", "1", "--save_model", "--save_path", save,
+            "--pack_sequences", "--pack_rows", "8", "--gpt2_ckpt", phase1]
+    _reset_counts()
+    t0 = time.perf_counter()
+    val1 = cli.main(args + ["--epochs", "1"], mcfg=mcfg, dcfg=dcfg)
+    state_dir = os.path.join(save, "train_state")
+    first = sorted(os.listdir(state_dir))
+    check(len(first) == 1, f"packed train CLI checkpoints: {first}")
+    val2 = cli.main(args + ["--epochs", "2", "--resume"], mcfg=mcfg, dcfg=dcfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    second = sorted(os.listdir(state_dir))
+    check(len(second) > 1 and second[0] == first[0],
+          f"packed train CLI checkpoints after --resume: {second}")
+    check(val1 == val1 and val2 == val2 and abs(val1) < 1e6 and abs(val2) < 1e6,
+          f"packed train CLI: val loss not finite ({val1}, {val2})")
+    counts = _counts()
+    # train steps go through the segment kernel (2 layers, forward + remat
+    # forward + backward); eval stays unpacked: forwards of mha_train_packed
+    n = counts["mha_train_packed_seg_bwd"] // 2
+    _only(counts, {"mha_train_packed_seg_fwd": 4 * n, "mha_train_packed_seg_bwd": 2 * n,
+                   "mha_train_packed_fwd": counts["mha_train_packed_fwd"]},
+          "packed train CLI")
+    check(n >= 2 and counts["mha_train_packed_fwd"] > 0,
+          f"packed train CLI: launch counts {counts}")
+    out["packed_cli"] = dict(pretrain_seconds=pre_s, pretrain_steps=steps,
+                             seconds=secs, val_loss=[val1, val2], launches=counts)
+    print(f"phase 10 pretrain CLI (2 layers, {steps} steps, {pre_s:.1f} s) -> "
+          f"--gpt2_ckpt; train CLI --pack_sequences (default device, 2 layers, 2 "
+          f"epochs with --resume): ok; {secs:.1f} s, {n} packed steps, val loss "
+          f"{val1:.4f} -> {val2:.4f}, checkpoints {second}")
+
+
+# (name, source, the TPU kernel it replaces, the phase whose run counts its
+# launches, the key of its phase-2 result at its main path's shape)
+_TA = "mmtg_tpu_torch/csrc/train_attention.cu"
 KERNELS = [
     ("decode_attention_int8_append", "mmtg_tpu_torch/csrc/decode_attention.cu",
-     "mmtg_tpu/ops/decode_attention.py:169"),
+     "mmtg_tpu/ops/decode_attention.py:169", "generate", ()),
     ("decode_attention_fp_append", "mmtg_tpu_torch/csrc/decode_attention.cu",
-     "mmtg_tpu/ops/decode_attention.py:137"),
+     "mmtg_tpu/ops/decode_attention.py:137", "generate", ()),
     ("fused_gru", "mmtg_tpu_torch/csrc/fused_gru.cu",
-     "mmtg_tpu/ops/fused_gru.py:60"),
-    ("mha_train_packed", "mmtg_tpu_torch/csrc/train_attention.cu",
-     "mmtg_tpu/ops/train_attention.py:723"),
+     "mmtg_tpu/ops/fused_gru.py:60", "generate", ()),
+    ("mha_train_packed", _TA, "mmtg_tpu/ops/train_attention.py:723", "train",
+     (TRAIN_BATCHES[-1],)),
+    ("mha_train_packed_seg", _TA, "mmtg_tpu/ops/train_attention.py:694",
+     "train_packed", (PACK_ROWS,)),
+    ("mha_train", _TA, "mmtg_tpu/ops/train_attention.py:283", "train_head_major",
+     (TRAIN_BATCHES[-1],)),
 ]
 
 
@@ -846,36 +1197,38 @@ def main(argv=None) -> int:
     gpu = gpu_line()
     out["gpu"] = gpu
     results = phase_kernels(out)
-    launches = phase_generate(out, gpu)
+    # each main path's run, the counts set to 0 before it and read after it
+    launches = {"generate": phase_generate(out, gpu)}
     phase_teacher_forced(out)
     mcfg, dcfg = model_configs()
     tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
     try:
         paths = _cli_fixtures(tmp, dcfg)
         phase_cli(out, paths, tmp)
-        train_launches = phase_train(out, gpu, args.profile)
+        launches["train"] = phase_train(out, gpu, args.profile)
         phase_train_cli(out, paths, tmp)
+        launches["train_packed"] = phase_train_packed(out, gpu, args.profile)
+        launches["train_head_major"] = phase_train_head_major(out, gpu)
+        phase_packed_cli(out, paths, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
-    for name, source, replaces in KERNELS:
-        if name == "mha_train_packed":
-            # forward + backward of one layer at the train path's shape
-            r = results[(name, "bfloat16", TRAIN_BATCHES[-1])]
-            f32 = results[(name, "float32", TRAIN_BATCHES[-1])]
-            n = (train_launches["mha_train_packed_fwd"]
-                 + train_launches["mha_train_packed_bwd"])
+    for name, source, replaces, path, shape in KERNELS:
+        r = results[(name, "bfloat16", *shape)]
+        f32 = results[(name, "float32", *shape)]
+        counts = launches[path]
+        if name in TRAIN_FNS:
+            # forward + backward of one layer at the path's shape
+            n = counts[f"{name}_fwd"] + counts[f"{name}_bwd"]
             extra = dict(
-                fwd_launches=train_launches["mha_train_packed_fwd"],
-                bwd_launches=train_launches["mha_train_packed_bwd"],
+                fwd_launches=counts[f"{name}_fwd"], bwd_launches=counts[f"{name}_bwd"],
                 **{k: r[k] for k in ("kernel_fwd", "kernel_bwd", "plain_fwd",
                                      "plain_bwd", "library_fwd", "library_bwd")},
                 fwd_bound_ms=r["fwd_bound"]["bound_ms"],
                 bwd_bound_ms=r["bwd_bound"]["bound_ms"])
         else:
-            r, f32, n, extra = (results[(name, "bfloat16")],
-                                results[(name, "float32")], launches[name], {})
+            n, extra = counts[name], {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -166,9 +166,12 @@ class TrainConfig:
     dtype: str = "float32"  # compute dtype; 'bfloat16' keeps f32 masters
     remat: bool = True  # recompute each GPT-2 block in the backward
     mesh_shape: Tuple[int, int] = (1, 1)  # (data, model); meshes not ported
-    # Train attention: "auto" / "kernel" = the hand-written
-    # mha_train_packed kernel pair (ops/train_attention.py; CPU tensors
-    # take its plain version), "plain" = the plain version on any device.
+    # Train attention: "auto" / "kernel" = the hand-written kernels on the
+    # standard slab (ops/train_attention.py: mha_train_packed, or
+    # mha_train_packed_seg on packed rows; CPU tensors take the plain
+    # versions), "kernel_padded" = mha_train on the head-major slab with
+    # heads padded to 128 lanes (the JAX package's "pallas"), "plain" = the
+    # plain version on any device.
     attn_impl: str = "auto"
     # Selective remat policies are not ported: the port re-runs the whole
     # block ("full"); "auto" resolves to it.

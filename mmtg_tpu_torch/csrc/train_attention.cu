@@ -1,13 +1,20 @@
 // Fused causal self-attention for the TRAIN step: forward and backward.
 //
-// Replaces the TPU kernel pair of mmtg_tpu/ops/train_attention.py
-// mha_train_packed (_fwd_kernel_packed launched by _fwd_call_packed,
-// _bwd_kernel_packed launched by _bwd_call_packed).
+// Replaces three TPU kernel pairs of mmtg_tpu/ops/train_attention.py:
+//   mha_train_packed      (_fwd_kernel_packed / _bwd_kernel_packed),
+//   mha_train_packed_seg  (_fwd_kernel_packed_seg / _bwd_kernel_packed_seg),
+//   mha_train             (_fwd_kernel / _bwd_kernel).
+// They are one computation with two options, both run-time fields of Dims:
+// where a head's q, k and v sit in the slab, and what masks a score.
 //
 // What it computes, for every batch row b and head h of the standard GPT-2
-// c_attn slab qkv [B, T, 3*H*hd] (q all heads | k all heads | v all heads):
+// c_attn slab qkv [B, T, 3*H*hd] (q all heads | k all heads | v all heads),
+// or of the head-major slab [B, T, H*384] (per head q | k | v, each 128 wide,
+// the true head width zero-padded; context [B, T, H*128]):
 //   q, k, v = slab slices + qkv_bias slices, rounded to the slab's type
-//   s       = (q . k^T) * scale + key_bias[b, j] + (j > i ? -1e30 : 0)   (f32)
+//   s       = (q . k^T) * scale + m(b, i, j) + (j > i ? -1e30 : 0)       (f32)
+//             m = key_bias[b, j]                       with a [B, T] f32 key bias
+//             m = seg[b, i] == seg[b, j] ? 0 : -1e30   with [B, T] int32 segment ids
 //   p       = softmax_j(s)                                               (f32)
 //   pd      = keep(b,h,i,j) ? p * inv_keep : 0        (only when rate > 0)
 //   ctx     = (pd rounded to the slab's type) . v, f32 accumulate
@@ -50,9 +57,19 @@
 //     output), computed by the dq kernel and handed on in a [B, H, T] buffer.
 //   * only dqb uses atomics (f32, one add per block and column), so its last
 //     bits change from run to run.
-// Semantics note: a causally masked score is skipped, not added as -1e30. The
-// two differ only for a query row whose every key j <= i is padded, which the
-// model never produces (key 0 is always live).
+//   * segment ids: the block keeps its batch row's ids in shared memory and
+//     tests equality beside the causal test, per element; no [T, T] bias
+//     matrix exists anywhere. It also takes the least and the greatest id of
+//     every 64-row tile and skips a (query tile, key tile) pair whose id
+//     ranges do not overlap: no id of one can equal an id of the other, so
+//     every score of the pair is masked. That test holds for arbitrary ids;
+//     it skips most when ids ascend along the row, as a packer writes them.
+// Semantics note: a key tile past the causal diagonal, or skipped by the
+// segment test, is skipped, not added as -1e30; a masked score inside a
+// visited tile is -1e30, so its p is exactly 0 in all three kernels. The two
+// differ only for a query row whose every key j <= i is masked: a key bias
+// never does that in the model (key 0 is always live) and segment ids never
+// can (a row always sees itself).
 // Known limits, left to later work: no tensor cores (the bf16 path could use
 // wgmma), 2-byte loads, one block per (b, h, tile) without persistence.
 
@@ -206,16 +223,64 @@ __device__ __forceinline__ void column_sums_to(float* dst, const float (&acc)[4]
 
 struct Dims {
   int B, T, H, hd;
+  int S;        // row stride of the slab and of dqkv; length of qkv_bias and dqb
+  int hs, ps;   // part p (q, k, v = 0, 1, 2) of head h starts at column h*hs + p*ps
+  int CS, chs;  // row stride of ctx and d(ctx); head h starts at column h*chs
+  int seg;      // the mask rows are int32 segment ids (else f32 key biases)
   float scale, inv_keep;
   uint32_t thr;
   int dropout;
 };
 
+__device__ __forceinline__ int col(const Dims& dm, int h, int part) {
+  return h * dm.hs + part * dm.ps;
+}
+
+// ---- the mask -------------------------------------------------------------
+// A block keeps its batch row's [T] mask words (key biases as f32 bits, or
+// segment ids) in shared memory as int32.
+__device__ __forceinline__ void load_mask_row(int* mrow, const void* mask, int b, int T, int n,
+                                              int tid) {
+  const int* src = static_cast<const int*>(mask) + static_cast<size_t>(b) * T;
+  for (int j = tid; j < n; j += kThreads) mrow[j] = src[j];
+}
+
+// The additive mask term of score (i, j) from the two mask words.
+__device__ __forceinline__ float mask_term(int seg, int wi, int wj) {
+  if (seg) return wi == wj ? 0.0f : kNegInf;
+  return __int_as_float(wj);
+}
+
+// lo[t], hi[t] = least and greatest segment id of the 64-row tile t, t0 <= t <= t1.
+__device__ __forceinline__ void seg_tile_ranges(const int* mrow, int t0, int t1, int* lo, int* hi,
+                                                int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  for (int t = t0 + warp; t <= t1; t += kThreads / 32) {
+    const int a = mrow[t * kTile + lane], c = mrow[t * kTile + 32 + lane];
+    int mn = min(a, c), mx = max(a, c);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    if (lane == 0) {
+      lo[t] = mn;
+      hi[t] = mx;
+    }
+  }
+}
+
+// May any query of tile qt attend any key of tile kt? (The causal order of
+// the tiles is the caller's loop bound.)
+__device__ __forceinline__ bool tile_live(int seg, const int* lo, const int* hi, int qt, int kt) {
+  return !seg || (hi[kt] >= lo[qt] && lo[kt] <= hi[qt]);
+}
+
 // ---- forward --------------------------------------------------------------
 template <typename E, int HDP>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
-               const float* __restrict__ key_bias, const int* __restrict__ seed_ptr,
+               const void* __restrict__ mask, const int* __restrict__ seed_ptr,
                E* __restrict__ ctx, float* __restrict__ lse, Dims dm) {
   constexpr int LD = HDP + 1;
   constexpr int NJ = HDP / 16;
@@ -225,23 +290,30 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   float* Qs = smem;                 // [64, LD]
   float* KVs = Qs + kTile * LD;     // [64, LD]   K tile, then V tile
   float* Ss = KVs + kTile * LD;     // [64, T + 1] scores, then probabilities
-  float* kbs = Ss + kTile * lds;    // [T] key bias of this batch row
+  int* mrow = reinterpret_cast<int*>(Ss + kTile * lds);  // [T] mask words of this batch row
+  int* tlo = mrow + T;              // [T / 64] segment-id ranges of the tiles
+  int* thi = tlo + T / kTile;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * hd;
-  const size_t S3 = static_cast<size_t>(3) * HD;
-  const E* slab = qkv + static_cast<size_t>(b) * T * S3;
+  const size_t S = dm.S;
+  const E* slab = qkv + static_cast<size_t>(b) * T * S;
   const int kv_len = (qt + 1) * kTile;
 
-  for (int j = tid; j < kv_len; j += kThreads) kbs[j] = key_bias[static_cast<size_t>(b) * T + j];
-  load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S3 + h * hd, S3,
-                    qkv_bias + h * hd, hd, tid);
+  load_mask_row(mrow, mask, b, T, kv_len, tid);
+  load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S,
+                    qkv_bias + col(dm, h, 0), hd, tid);
+  __syncthreads();
+  if (dm.seg) {
+    seg_tile_ranges(mrow, 0, qt, tlo, thi, tid);
+    __syncthreads();
+  }
 
   for (int kc = 0; kc <= qt; ++kc) {
-    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S3 + HD + h * hd, S3,
-                      qkv_bias + HD + h * hd, hd, tid);
+    if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its scores are never read
+    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 1), S,
+                      qkv_bias + col(dm, h, 1), hd, tid);
     __syncthreads();
     float acc[4][4] = {};
     gemm_nt<HDP>(acc, Qs, LD, KVs, LD, ty, tx);
@@ -253,16 +325,25 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
     __syncthreads();
   }
 
-  // softmax (+ dropout): warp w owns rows 8w .. 8w + 7
+  // softmax (+ dropout): warp w owns rows 8w .. 8w + 7. It walks the whole
+  // row, skipped tiles too: walking the live tiles only was measured and is
+  // slower (the loop nest costs more than the columns it leaves out).
   const int warp = tid / 32, lane = tid % 32;
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   for (int r = warp * 8; r < warp * 8 + 8; ++r) {
     const int ig = qt * kTile + r;
+    const int wi = mrow[ig];
     float* row = Ss + r * lds;
     float m = -INFINITY;
     for (int j = lane; j < kv_len; j += 32) {
-      float x = row[j] * dm.scale + kbs[j];
-      x += (j > ig) ? kNegInf : 0.0f;
+      float x;
+      if (dm.seg) {
+        // a select, not an add: a skipped tile's scores were never written
+        x = (mrow[j] == wi && j <= ig) ? row[j] * dm.scale : kNegInf;
+      } else {
+        x = row[j] * dm.scale + __int_as_float(mrow[j]);
+        x += (j > ig) ? kNegInf : 0.0f;
+      }
       row[j] = x;
       m = fmaxf(m, x);
     }
@@ -287,19 +368,20 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
 
   float out[4][NJ] = {};
   for (int kc = 0; kc <= qt; ++kc) {
-    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S3 + 2 * HD + h * hd, S3,
-                      qkv_bias + 2 * HD + h * hd, hd, tid);
+    if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its probabilities are all 0
+    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 2), S,
+                      qkv_bias + col(dm, h, 2), hd, tid);
     __syncthreads();
     gemm_nn<NJ>(out, Ss + kc * kTile, lds, KVs, LD, ty, tx);
     __syncthreads();
   }
-  E* dst = ctx + (static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile) * HD + h * hd;
+  E* dst = ctx + (static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile) * dm.CS + h * dm.chs;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) stf(dst + static_cast<size_t>(ty + 16 * i) * HD + d, out[i][j]);
+      if (d < hd) stf(dst + static_cast<size_t>(ty + 16 * i) * dm.CS + d, out[i][j]);
     }
 }
 
@@ -326,7 +408,7 @@ __device__ __forceinline__ float bwd_element(float s_dot, float dpd, float kb, i
 template <typename E, int HDP>
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
-                  const float* __restrict__ key_bias, const int* __restrict__ seed_ptr,
+                  const void* __restrict__ mask, const int* __restrict__ seed_ptr,
                   const E* __restrict__ ctx, const E* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ dsum,
                   E* __restrict__ dqkv, float* __restrict__ dqb, Dims dm) {
@@ -341,24 +423,28 @@ mha_bwd_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   float* dSs = Vs + kTile * LD;     // [64, 65]; later the column-sum scratch
   float* rowD = dSs + kTile * LD;   // [64]   (dSs sized as a [64, LD] tile)
   float* rowL = rowD + kTile;       // [64]
+  int* mrow = reinterpret_cast<int*>(rowL + kTile);  // [T] mask words of this batch row
+  int* tlo = mrow + T;              // [T / 64]
+  int* thi = tlo + T / kTile;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * hd;
-  const size_t S3 = static_cast<size_t>(3) * HD;
-  const E* slab = qkv + static_cast<size_t>(b) * T * S3;
+  const size_t S = dm.S, CS = dm.CS;
+  const E* slab = qkv + static_cast<size_t>(b) * T * S;
   const size_t row0 = static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * T + static_cast<size_t>(qt) * kTile;
 
-  load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S3 + h * hd, S3,
-                    qkv_bias + h * hd, hd, tid);
-  load_tile<E, HDP>(dOs, dout + row0 * HD + h * hd, HD, static_cast<const E*>(nullptr), hd, tid);
+  load_mask_row(mrow, mask, b, T, (qt + 1) * kTile, tid);
+  load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S,
+                    qkv_bias + col(dm, h, 0), hd, tid);
+  load_tile<E, HDP>(dOs, dout + row0 * CS + h * dm.chs, CS, static_cast<const E*>(nullptr), hd,
+                    tid);
   {  // D_i = sum_d do_id * ctx_id, one warp per 8 rows
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-      const E* c = ctx + (row0 + r) * HD + h * hd;
-      const E* g = dout + (row0 + r) * HD + h * hd;
+      const E* c = ctx + (row0 + r) * CS + h * dm.chs;
+      const E* g = dout + (row0 + r) * CS + h * dm.chs;
       float s = 0.0f;
       for (int d = lane; d < hd; d += 32) s = fmaf(ldf(g + d), ldf(c + d), s);
       s = warp_sum(s);
@@ -370,24 +456,31 @@ mha_bwd_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
     }
   }
   __syncthreads();
+  if (dm.seg) {
+    seg_tile_ranges(mrow, 0, qt, tlo, thi, tid);
+    __syncthreads();
+  }
 
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   uint32_t rkey[4];
   float li[4], di[4];
+  int wi[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     rkey[i] = row_key(seed, static_cast<uint32_t>((b * H + h) * T + qt * kTile + r));
     li[i] = rowL[r];
     di[i] = rowD[r];
+    wi[i] = mrow[qt * kTile + r];
   }
 
   float dq[4][NJ] = {};
   for (int kc = 0; kc <= qt; ++kc) {
-    load_tile<E, HDP>(Ks, slab + static_cast<size_t>(kc) * kTile * S3 + HD + h * hd, S3,
-                      qkv_bias + HD + h * hd, hd, tid);
-    load_tile<E, HDP>(Vs, slab + static_cast<size_t>(kc) * kTile * S3 + 2 * HD + h * hd, S3,
-                      qkv_bias + 2 * HD + h * hd, hd, tid);
+    if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // every p of the pair is 0
+    load_tile<E, HDP>(Ks, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 1), S,
+                      qkv_bias + col(dm, h, 1), hd, tid);
+    load_tile<E, HDP>(Vs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 2), S,
+                      qkv_bias + col(dm, h, 2), hd, tid);
     __syncthreads();
     float s[4][4] = {}, dpd[4][4] = {};
     gemm_nt<HDP>(s, Qs, LD, Ks, LD, ty, tx);
@@ -395,12 +488,13 @@ mha_bwd_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int jg = kc * kTile + tx + 16 * j;
-      const float kb = key_bias[static_cast<size_t>(b) * T + jg];
+      const int wj = mrow[jg];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float pd;
-        const float ds = bwd_element(s[i][j], dpd[i][j], kb, qt * kTile + ty + 16 * i, jg,
-                                     li[i], di[i], rkey[i], dm, &pd);
+        const float ds = bwd_element(s[i][j], dpd[i][j], mask_term(dm.seg, wi[i], wj),
+                                     qt * kTile + ty + 16 * i, jg, li[i], di[i], rkey[i], dm,
+                                     &pd);
         dSs[(ty + 16 * i) * kLdT + tx + 16 * j] = rnd<E>(ds);
       }
     }
@@ -409,22 +503,22 @@ mha_bwd_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
     __syncthreads();
   }
 
-  E* dst = dqkv + row0 * S3 + h * hd;
+  E* dst = dqkv + row0 * S + col(dm, h, 0);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) stf(dst + static_cast<size_t>(ty + 16 * i) * S3 + d, dq[i][j]);
+      if (d < hd) stf(dst + static_cast<size_t>(ty + 16 * i) * S + d, dq[i][j]);
     }
-  column_sums_to<NJ>(dqb + h * hd, dq, dSs, hd, ty, tx, tid);
+  column_sums_to<NJ>(dqb + col(dm, h, 0), dq, dSs, hd, ty, tx, tid);
 }
 
 // ---- backward, dk and dv: one block per (b, h, KEY tile) --------------------
 template <typename E, int HDP>
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_dkdv_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
-                    const float* __restrict__ key_bias, const int* __restrict__ seed_ptr,
+                    const void* __restrict__ mask, const int* __restrict__ seed_ptr,
                     const E* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ dsum, E* __restrict__ dqkv,
                     float* __restrict__ dqb, Dims dm) {
@@ -440,32 +534,40 @@ mha_bwd_dkdv_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   float* dSs = Ps + kTile * LD;     // [64, 65]  ds[i][j]   (both sized [64, LD])
   float* rowD = dSs + kTile * LD;   // [64]
   float* rowL = rowD + kTile;       // [64]
+  int* mrow = reinterpret_cast<int*>(rowL + kTile);  // [T] mask words of this batch row
+  int* tlo = mrow + T;              // [T / 64]
+  int* thi = tlo + T / kTile;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int kt = blockIdx.x;  // key tile 0 walks every query tile: first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * hd;
-  const size_t S3 = static_cast<size_t>(3) * HD;
-  const E* slab = qkv + static_cast<size_t>(b) * T * S3;
+  const size_t S = dm.S, CS = dm.CS;
+  const E* slab = qkv + static_cast<size_t>(b) * T * S;
   const int n_tiles = T / kTile;
 
-  load_tile<E, HDP>(Ks, slab + static_cast<size_t>(kt) * kTile * S3 + HD + h * hd, S3,
-                    qkv_bias + HD + h * hd, hd, tid);
-  load_tile<E, HDP>(Vs, slab + static_cast<size_t>(kt) * kTile * S3 + 2 * HD + h * hd, S3,
-                    qkv_bias + 2 * HD + h * hd, hd, tid);
-  float kb[4];
+  load_mask_row(mrow, mask, b, T, T, tid);
+  load_tile<E, HDP>(Ks, slab + static_cast<size_t>(kt) * kTile * S + col(dm, h, 1), S,
+                    qkv_bias + col(dm, h, 1), hd, tid);
+  load_tile<E, HDP>(Vs, slab + static_cast<size_t>(kt) * kTile * S + col(dm, h, 2), S,
+                    qkv_bias + col(dm, h, 2), hd, tid);
+  __syncthreads();
+  if (dm.seg) {
+    seg_tile_ranges(mrow, kt, n_tiles - 1, tlo, thi, tid);
+    __syncthreads();
+  }
+  int wj[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    kb[j] = key_bias[static_cast<size_t>(b) * T + kt * kTile + tx + 16 * j];
+  for (int j = 0; j < 4; ++j) wj[j] = mrow[kt * kTile + tx + 16 * j];
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
 
   float dk[4][NJ] = {}, dv[4][NJ] = {};
   for (int qt = kt; qt < n_tiles; ++qt) {
+    if (!tile_live(dm.seg, tlo, thi, qt, kt)) continue;  // every p of the pair is 0
     const size_t row0 = static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile;
     const size_t stat0 = (static_cast<size_t>(b) * H + h) * T + static_cast<size_t>(qt) * kTile;
-    load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S3 + h * hd, S3,
-                      qkv_bias + h * hd, hd, tid);
-    load_tile<E, HDP>(dOs, dout + row0 * HD + h * hd, HD, static_cast<const E*>(nullptr), hd,
+    load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S,
+                      qkv_bias + col(dm, h, 0), hd, tid);
+    load_tile<E, HDP>(dOs, dout + row0 * CS + h * dm.chs, CS, static_cast<const E*>(nullptr), hd,
                       tid);
     if (tid < kTile) {
       rowD[tid] = dsum[stat0 + tid];
@@ -481,11 +583,12 @@ mha_bwd_dkdv_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
       const int ig = qt * kTile + r;
       const uint32_t rkey = row_key(seed, static_cast<uint32_t>((b * H + h) * T + ig));
       const float li = rowL[r], di = rowD[r];
+      const int wi = mrow[ig];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float pd;
-        const float ds = bwd_element(s[i][j], dpd[i][j], kb[j], ig, kt * kTile + tx + 16 * j,
-                                     li, di, rkey, dm, &pd);
+        const float ds = bwd_element(s[i][j], dpd[i][j], mask_term(dm.seg, wi, wj[j]), ig,
+                                     kt * kTile + tx + 16 * j, li, di, rkey, dm, &pd);
         Ps[r * kLdT + tx + 16 * j] = rnd<E>(pd);
         dSs[r * kLdT + tx + 16 * j] = rnd<E>(ds);
       }
@@ -496,19 +599,19 @@ mha_bwd_dkdv_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
     __syncthreads();
   }
 
-  E* dst = dqkv + (static_cast<size_t>(b) * T + static_cast<size_t>(kt) * kTile) * S3 + h * hd;
+  E* dst = dqkv + (static_cast<size_t>(b) * T + static_cast<size_t>(kt) * kTile) * S;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d < hd) {
-        stf(dst + static_cast<size_t>(ty + 16 * i) * S3 + HD + d, dk[i][j]);
-        stf(dst + static_cast<size_t>(ty + 16 * i) * S3 + 2 * HD + d, dv[i][j]);
+        stf(dst + static_cast<size_t>(ty + 16 * i) * S + col(dm, h, 1) + d, dk[i][j]);
+        stf(dst + static_cast<size_t>(ty + 16 * i) * S + col(dm, h, 2) + d, dv[i][j]);
       }
     }
-  column_sums_to<NJ>(dqb + HD + h * hd, dk, Ps, hd, ty, tx, tid);
-  column_sums_to<NJ>(dqb + 2 * HD + h * hd, dv, Ps, hd, ty, tx, tid);
+  column_sums_to<NJ>(dqb + col(dm, h, 1), dk, Ps, hd, ty, tx, tid);
+  column_sums_to<NJ>(dqb + col(dm, h, 2), dv, Ps, hd, ty, tx, tid);
 }
 
 // ---- launchers ------------------------------------------------------------
@@ -518,57 +621,66 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// shared-memory words of the mask row and the tiles' segment-id ranges
+constexpr size_t mask_words(int T) { return static_cast<size_t>(T) + 2 * (T / kTile); }
+
 template <typename E, int HDP>
-int launch_fwd(const void* qkv, const void* qkv_bias, const void* key_bias, const void* seed,
+int launch_fwd(const void* qkv, const void* qkv_bias, const void* mask, const void* seed,
                void* ctx, void* lse, Dims dm, cudaStream_t stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(kTile) * (HDP + 1) + static_cast<size_t>(kTile) * (dm.T + 1) + dm.T) *
-      sizeof(float);
+  const size_t smem = (2 * static_cast<size_t>(kTile) * (HDP + 1) +
+                       static_cast<size_t>(kTile) * (dm.T + 1) + mask_words(dm.T)) *
+                      sizeof(float);
   cudaError_t err = allow_smem(mha_fwd_kernel<E, HDP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(dm.T / kTile, dm.H, dm.B);
   mha_fwd_kernel<E, HDP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias),
-      static_cast<const float*>(key_bias), static_cast<const int*>(seed),
-      static_cast<E*>(ctx), static_cast<float*>(lse), dm);
+      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias), mask,
+      static_cast<const int*>(seed), static_cast<E*>(ctx), static_cast<float*>(lse), dm);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename E, int HDP>
-int launch_bwd(const void* qkv, const void* qkv_bias, const void* key_bias, const void* seed,
+int launch_bwd(const void* qkv, const void* qkv_bias, const void* mask, const void* seed,
                const void* ctx, const void* dout, const void* lse, void* dsum, void* dqkv,
                void* dqb, Dims dm, cudaStream_t stream) {
   const size_t tile = static_cast<size_t>(kTile) * (HDP + 1);
-  const size_t smem_dq = (5 * tile + 2 * kTile) * sizeof(float);
-  const size_t smem_kv = (6 * tile + 2 * kTile) * sizeof(float);
+  const size_t smem_dq = (5 * tile + 2 * kTile + mask_words(dm.T)) * sizeof(float);
+  const size_t smem_kv = (6 * tile + 2 * kTile + mask_words(dm.T)) * sizeof(float);
   cudaError_t err = allow_smem(mha_bwd_dq_kernel<E, HDP>, smem_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem(mha_bwd_dkdv_kernel<E, HDP>, smem_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(dm.T / kTile, dm.H, dm.B);
   mha_bwd_dq_kernel<E, HDP><<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias),
-      static_cast<const float*>(key_bias), static_cast<const int*>(seed),
-      static_cast<const E*>(ctx), static_cast<const E*>(dout),
+      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias), mask,
+      static_cast<const int*>(seed), static_cast<const E*>(ctx), static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dsum), static_cast<E*>(dqkv),
       static_cast<float*>(dqb), dm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mha_bwd_dkdv_kernel<E, HDP><<<grid, kThreads, smem_kv, stream>>>(
-      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias),
-      static_cast<const float*>(key_bias), static_cast<const int*>(seed),
-      static_cast<const E*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dsum), static_cast<E*>(dqkv), static_cast<float*>(dqb), dm);
+      static_cast<const E*>(qkv), static_cast<const E*>(qkv_bias), mask,
+      static_cast<const int*>(seed), static_cast<const E*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<E*>(dqkv),
+      static_cast<float*>(dqb), dm);
   return static_cast<int>(cudaGetLastError());
 }
 
-Dims make_dims(int B, int T, int H, int hd, float scale, float inv_keep, unsigned thr,
-               int dropout) {
+// head_major == 0: the standard slab [B, T, 3*H*hd] and ctx [B, T, H*hd];
+// head_major != 0: the head-major slab [B, T, H*384], hd == 128, ctx [B, T, H*128].
+Dims make_dims(int B, int T, int H, int hd, int head_major, int seg, float scale,
+               float inv_keep, unsigned thr, int dropout) {
   Dims dm;
   dm.B = B;
   dm.T = T;
   dm.H = H;
   dm.hd = hd;
+  dm.S = 3 * H * hd;
+  dm.hs = head_major ? 3 * hd : hd;
+  dm.ps = head_major ? hd : H * hd;
+  dm.CS = H * hd;
+  dm.chs = hd;
+  dm.seg = seg;
   dm.scale = scale;
   dm.inv_keep = inv_keep;
   dm.thr = thr;
@@ -579,48 +691,50 @@ Dims make_dims(int B, int T, int H, int hd, float scale, float inv_keep, unsigne
 }  // namespace
 
 // C entry points (bound with ctypes). qkv [B, T, 3*H*hd] and qkv_bias
-// [3*H*hd] in float32 (dtype 0) or bfloat16 (dtype 1); key_bias [B, T] f32;
-// seed [1] int32 on the device; ctx [B, T, H*hd] in the slab's type; lse
-// [B, H, T] f32. T is a multiple of 64, hd <= 128. dropout != 0 applies
-// keep = hash >= thr and scales kept entries by inv_keep. Each returns the
-// CUDA error code of its launches (0 on success). The caller validates shapes.
-extern "C" int mmtg_mha_train_packed_fwd(const void* qkv, const void* qkv_bias,
-                                         const void* key_bias, const void* seed, void* ctx,
-                                         void* lse, int B, int T, int H, int hd, float scale,
-                                         float inv_keep, unsigned thr, int dropout, int dtype,
-                                         void* stream) {
-  const Dims dm = make_dims(B, T, H, hd, scale, inv_keep, thr, dropout);
+// [3*H*hd] in float32 (dtype 0) or bfloat16 (dtype 1), in the standard order
+// (q all heads | k all heads | v all heads) or, with head_major != 0, per head
+// q | k | v (the caller passes hd = 128, the padded width); mask [B, T]: f32
+// additive key biases or, with seg != 0, int32 segment ids; seed [1] int32 on
+// the device; ctx [B, T, H*hd] in the slab's type; lse [B, H, T] f32. T is a
+// multiple of 64, at most 512; hd <= 128. dropout != 0 applies keep = hash >=
+// thr and scales kept entries by inv_keep. Each returns the CUDA error code of
+// its launches (0 on success). The caller validates shapes.
+extern "C" int mmtg_mha_train_fwd(const void* qkv, const void* qkv_bias, const void* mask,
+                                  const void* seed, void* ctx, void* lse, int B, int T, int H,
+                                  int hd, int head_major, int seg, float scale, float inv_keep,
+                                  unsigned thr, int dropout, int dtype, void* stream) {
+  const Dims dm = make_dims(B, T, H, hd, head_major, seg, scale, inv_keep, thr, dropout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (hd <= 64)
-      return launch_fwd<__nv_bfloat16, 64>(qkv, qkv_bias, key_bias, seed, ctx, lse, dm, s);
-    return launch_fwd<__nv_bfloat16, 128>(qkv, qkv_bias, key_bias, seed, ctx, lse, dm, s);
+      return launch_fwd<__nv_bfloat16, 64>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
+    return launch_fwd<__nv_bfloat16, 128>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
   }
-  if (hd <= 64) return launch_fwd<float, 64>(qkv, qkv_bias, key_bias, seed, ctx, lse, dm, s);
-  return launch_fwd<float, 128>(qkv, qkv_bias, key_bias, seed, ctx, lse, dm, s);
+  if (hd <= 64) return launch_fwd<float, 64>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
+  return launch_fwd<float, 128>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
 }
 
-// Backward: dout and ctx [B, T, H*hd]; dsum [B, H, T] f32 scratch; dqkv
-// [B, T, 3*H*hd] (every element is written); dqb [3*H*hd] f32, ZEROED by the
-// caller, receives the bias gradient by atomic adds.
-extern "C" int mmtg_mha_train_packed_bwd(const void* qkv, const void* qkv_bias,
-                                         const void* key_bias, const void* seed,
-                                         const void* ctx, const void* dout, const void* lse,
-                                         void* dsum, void* dqkv, void* dqb, int B, int T, int H,
-                                         int hd, float scale, float inv_keep, unsigned thr,
-                                         int dropout, int dtype, void* stream) {
-  const Dims dm = make_dims(B, T, H, hd, scale, inv_keep, thr, dropout);
+// Backward: dout and ctx [B, T, H*hd]; dsum [B, H, T] f32 scratch; dqkv in the
+// slab's shape and layout (every element is written); dqb [3*H*hd] f32,
+// ZEROED by the caller, receives the bias gradient by atomic adds.
+extern "C" int mmtg_mha_train_bwd(const void* qkv, const void* qkv_bias, const void* mask,
+                                  const void* seed, const void* ctx, const void* dout,
+                                  const void* lse, void* dsum, void* dqkv, void* dqb, int B,
+                                  int T, int H, int hd, int head_major, int seg, float scale,
+                                  float inv_keep, unsigned thr, int dropout, int dtype,
+                                  void* stream) {
+  const Dims dm = make_dims(B, T, H, hd, head_major, seg, scale, inv_keep, thr, dropout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (hd <= 64)
-      return launch_bwd<__nv_bfloat16, 64>(qkv, qkv_bias, key_bias, seed, ctx, dout, lse, dsum,
+      return launch_bwd<__nv_bfloat16, 64>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum,
                                            dqkv, dqb, dm, s);
-    return launch_bwd<__nv_bfloat16, 128>(qkv, qkv_bias, key_bias, seed, ctx, dout, lse, dsum,
+    return launch_bwd<__nv_bfloat16, 128>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum,
                                           dqkv, dqb, dm, s);
   }
   if (hd <= 64)
-    return launch_bwd<float, 64>(qkv, qkv_bias, key_bias, seed, ctx, dout, lse, dsum, dqkv, dqb,
+    return launch_bwd<float, 64>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum, dqkv, dqb,
                                  dm, s);
-  return launch_bwd<float, 128>(qkv, qkv_bias, key_bias, seed, ctx, dout, lse, dsum, dqkv, dqb,
+  return launch_bwd<float, 128>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum, dqkv, dqb,
                                 dm, s);
 }

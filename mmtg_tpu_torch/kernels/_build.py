@@ -109,12 +109,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmtg_decode_attention_append.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mmtg_fused_gru.restype = i
-    lib.mmtg_mha_train_packed_fwd.argtypes = (
-        [p] * 6 + [i] * 4 + [f, f, u, i, i, p])
-    lib.mmtg_mha_train_packed_fwd.restype = i
-    lib.mmtg_mha_train_packed_bwd.argtypes = (
-        [p] * 10 + [i] * 4 + [f, f, u, i, i, p])
-    lib.mmtg_mha_train_packed_bwd.restype = i
+    lib.mmtg_mha_train_fwd.argtypes = (
+        [p] * 6 + [i] * 6 + [f, f, u, i, i, p])
+    lib.mmtg_mha_train_fwd.restype = i
+    lib.mmtg_mha_train_bwd.argtypes = (
+        [p] * 10 + [i] * 6 + [f, f, u, i, i, p])
+    lib.mmtg_mha_train_bwd.restype = i
     return lib
 
 

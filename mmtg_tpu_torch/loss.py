@@ -1,6 +1,5 @@
 """Rating-conditioned sequence-level unlikelihood loss + curriculum masks
-(:mod:`mmtg_tpu.loss`, parity rows only; the packed-row losses wait for the
-sequence-packing slice).
+(:mod:`mmtg_tpu.loss`), for parity rows and for packed rows.
 
 Vectorized rebuild of the reference ``MyLoss`` (``loss.py:39-74``) and the
 trainer's curriculum index-filtering (``train.py:159-186``): every sample
@@ -122,6 +121,87 @@ def sequence_unlikelihood_loss_from_hidden(
         else:
             total_nll = total_nll + chunk_nll_sum(h_c, y_c)
     return _unlikelihood(total_nll / T, y, sample_weights)
+
+
+def _packed_slot_loss(nll_sums: torch.Tensor, pbatch, stage):
+    """Per-slot summed label NLL ``[R·S]`` → CE → sequence-level
+    unlikelihood → weighted batch mean. Returns ``(loss, weights, denom)``.
+
+    NON-parity accounting (pack.py contract): CE divides by the slot's REAL
+    label count instead of the fixed 220; a PAD-free sample makes the two
+    coincide exactly (tested)."""
+    ratings = pbatch["slot_rating"].reshape(-1)
+    valid = pbatch["slot_valid"].reshape(-1)
+    nlab = pbatch["slot_nlabels"].reshape(-1)
+    ce = nll_sums / nlab.clamp_min(1.0)
+    # Empty slots carry ce == 0 → p == 1 → log(1 - p + eps) may come out as
+    # log(0) = -inf, which the ×0 slot weight then turns into NaN. Pin dead
+    # slots to a harmless ce BEFORE the logs (real slots keep the parity
+    # formula untouched).
+    ce = torch.where(valid > 0, ce, torch.ones_like(ce))
+    y = binarize_ratings(ratings, stage)
+    p = torch.exp(-ce)
+    per_slot = -y * torch.log(p + NEAR_0) - (1.0 - y) * torch.log(1.0 - p + NEAR_0)
+    weights = curriculum_sample_weights(ratings, stage) * valid
+    denom = weights.sum().clamp_min(1.0)
+    return (per_slot * weights).sum() / denom, weights, denom
+
+
+def _packed_flat_ids(pbatch) -> torch.Tensor:
+    """``[R, L]`` global slot id per token (``R·S`` = dump bucket for pads)."""
+    R, _ = pbatch["tokens"].shape
+    S = pbatch["slot_valid"].shape[1]
+    seg = pbatch["seg"].long()
+    base = torch.arange(R, device=seg.device)[:, None] * S
+    return torch.where(seg < S, base + seg, torch.full_like(seg, R * S))
+
+
+def _slot_nll_sums(logits, labels, label_w, flat_ids, n_slots: int):
+    """Label NLL of ``logits`` ``[R, l, V]`` (log-softmax in f32), weighted by
+    ``label_w`` and summed per slot: ``[n_slots]`` (the dump bucket cut)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0] * label_w
+    sums = torch.zeros(n_slots + 1, dtype=torch.float32, device=nll.device)
+    return sums.index_add(0, flat_ids.reshape(-1), nll.reshape(-1))[:n_slots]
+
+
+def packed_sequence_unlikelihood_loss(logits: torch.Tensor, pbatch, stage):
+    """Full-logits packed loss (``--pack_sequences``): ``logits`` ``[R, L,
+    V]``. Returns ``(loss, slot_weights, denom)`` — weights feed the KL
+    mean."""
+    sums = _slot_nll_sums(logits, pbatch["labels"], pbatch["label_w"],
+                          _packed_flat_ids(pbatch), pbatch["slot_valid"].numel())
+    return _packed_slot_loss(sums, pbatch, stage)
+
+
+def packed_sequence_unlikelihood_loss_from_hidden(
+    hidden: torch.Tensor,
+    wte: torch.Tensor,
+    pbatch,
+    stage,
+    chunk_size: int = 64,
+):
+    """Chunked-LM-head packed loss: ``hidden`` ``[R, L, D]``; each ``[R,
+    chunk, V]`` logit slice is computed under ``torch.utils.checkpoint``
+    (the same memory story as the parity chunked path)."""
+    L = hidden.shape[1]
+    n_slots = pbatch["slot_valid"].numel()
+    ids = _packed_flat_ids(pbatch)
+
+    def chunk_sums(h_c, y_c, w_c, f_c):
+        return _slot_nll_sums(h_c @ wte.T, y_c, w_c, f_c, n_slots)
+
+    sums = torch.zeros(n_slots, dtype=torch.float32, device=hidden.device)
+    for lo in range(0, L, chunk_size):
+        sl = slice(lo, lo + chunk_size)
+        args = (hidden[:, sl], pbatch["labels"][:, sl], pbatch["label_w"][:, sl],
+                ids[:, sl])
+        if torch.is_grad_enabled():
+            sums = sums + torch.utils.checkpoint.checkpoint(
+                chunk_sums, *args, use_reentrant=False)
+        else:
+            sums = sums + chunk_sums(*args)
+    return _packed_slot_loss(sums, pbatch, stage)
 
 
 def weighted_mean(values: torch.Tensor,

@@ -7,11 +7,12 @@ word embedding matrix, pre-LN blocks with fused QKV, ``gelu_new``, final LN,
 weight-tied head.
 
 The full-sequence forward (:func:`gpt2_forward`) serves training (dropout,
-per-block remat, attention through the hand-written train-attention kernel
-pair, :mod:`mmtg_tpu_torch.ops.train_attention`) and the prefill
-(:func:`prefill_cache`, plain PyTorch attention — the JAX package runs XLA
-attention there too). No tensor / pipeline parallelism, no segment ids, no
-int4 or merged caches, no selective remat policies. The one-token decode
+per-block remat, attention through the hand-written train-attention kernels,
+:mod:`mmtg_tpu_torch.ops.train_attention`, with a key-padding mask or, for
+packed rows, segment ids) and the prefill (:func:`prefill_cache`, plain
+PyTorch attention — the JAX package runs XLA attention there too). No tensor
+/ pipeline parallelism, no int4 or merged caches, no selective remat
+policies. The one-token decode
 step (:func:`gpt2_decode_step`) attends through the hand-written
 decode-attention kernel for CUDA tensors
 (:mod:`mmtg_tpu_torch.ops.decode_attention`).
@@ -36,8 +37,13 @@ from mmtg_tpu_torch.ops.decode_attention import (
     true_div,
 )
 from mmtg_tpu_torch.ops.train_attention import (
+    mha_train,
     mha_train_packed,
     mha_train_packed_plain,
+    mha_train_packed_seg,
+    mha_train_packed_seg_plain,
+    pad_proj_weights,
+    pad_qkv_weights,
 )
 
 __all__ = [
@@ -100,7 +106,11 @@ def _dropout(x, rate: float, seed):
     return torch.where(bits >= thr, x / keep_p, torch.zeros_like(x))
 
 
-_ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel", "plain": "plain"}
+_ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel",
+               "kernel_padded": "kernel_padded", "plain": "plain"}
+# the segment id of the slots that pad a packed row to a multiple of 128: they
+# see only themselves (finite softmax rows) and never mix with real tokens
+PAD_SEGMENT = 2 ** 15
 
 
 def gpt2_forward(
@@ -116,6 +126,7 @@ def gpt2_forward(
     remat: bool = False,
     attn_impl: str = "auto",
     lm_head: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward (train / prefill / teacher forcing).
 
@@ -133,13 +144,23 @@ def gpt2_forward(
         :func:`mmtg_tpu_torch.ops.train_attention.mha_train_packed` — the
         hand-written kernel pair for CUDA tensors, which raises on what it
         does not take (``head_dim > 128``) — on the sequence padded once to
-        a multiple of 128; ``"plain"`` runs its plain version on the same
-        padded sequence. Neither applies with ``return_kv``: the prefill
-        keeps each layer's k/v, has no dropout, and materializes the ``[B,
-        1, T, T]`` bias and soft-maxes in the activations' dtype, as the
-        JAX package's prefill does.
+        a multiple of 128; ``"kernel_padded"`` folds a per-head pad to 128
+        lanes into the QKV and output-projection weights and runs
+        :func:`~mmtg_tpu_torch.ops.train_attention.mha_train` on the
+        head-major slab (the JAX package's ``"pallas"``); ``"plain"`` runs
+        the packed kernel's plain version on the same padded sequence. None
+        applies with ``return_kv``: the prefill keeps each layer's k/v, has
+        no dropout, and materializes the ``[B, 1, T, T]`` bias and soft-maxes
+        in the activations' dtype, as the JAX package's prefill does.
       lm_head: ``False`` returns the final hidden states ``[B, T, D]``
         (for the chunked loss) instead of logits.
+      segment_ids: ``[B, T]`` ids of packed rows
+        (:mod:`mmtg_tpu_torch.pack`): attention is causal within equal ids
+        and blocked across them; replaces ``attention_mask``. Train path
+        only (raises with ``return_kv``). Both kernel values then run
+        :func:`~mmtg_tpu_torch.ops.train_attention.mha_train_packed_seg`
+        (only the standard slab takes segment ids, as in the JAX package),
+        ``"plain"`` its plain version.
     Returns:
       (logits ``[B, T, V]`` or hidden, per-layer (k, v) each ``[L, B, T,
       D]`` when ``return_kv``).
@@ -156,6 +177,9 @@ def gpt2_forward(
     dropout = dropout_gen is not None and not deterministic
     if return_kv and dropout:
         raise ValueError("gpt2_forward: return_kv (the prefill) has no dropout")
+    if return_kv and segment_ids is not None:
+        raise ValueError("gpt2_forward: segment_ids is train-path only (no "
+                         "return_kv)")
     embd_seed, layer_seeds, attn_seeds = None, [(None, None)] * L, None
     if dropout:
         draws = torch.randint(0, 2 ** 31 - 1, (1 + 3 * L,), generator=dropout_gen,
@@ -181,15 +205,27 @@ def gpt2_forward(
             bias = bias + pad[:, None, None, :]
     else:
         # the sequence is padded once to a multiple of 128 for the whole
-        # stack; padded keys get a -1e30 bias, padded query rows are cut
-        attend = mha_train_packed if attn_impl == "kernel" else mha_train_packed_plain
+        # stack; padded keys get a -1e30 bias (or their own segment), padded
+        # query rows are cut
         Tp = ((T + 127) // 128) * 128
-        mask = (attention_mask.to(torch.float32) if attention_mask is not None
-                else torch.ones(B, T, dtype=torch.float32, device=h.device))
         if Tp != T:
             h = torch.nn.functional.pad(h, (0, 0, 0, Tp - T))
+        if segment_ids is not None:
+            attend = (mha_train_packed_seg_plain if attn_impl == "plain"
+                      else mha_train_packed_seg)
+            if attn_impl == "kernel_padded":
+                attn_impl = "kernel"  # only the standard slab takes segments
+            bias = torch.nn.functional.pad(  # [B, Tp] segment ids
+                segment_ids.to(torch.int32), (0, Tp - T),
+                value=PAD_SEGMENT).contiguous()
+        else:
+            attend = {"kernel": mha_train_packed, "kernel_padded": mha_train,
+                      "plain": mha_train_packed_plain}[attn_impl]
+            mask = (attention_mask.to(torch.float32)
+                    if attention_mask is not None
+                    else torch.ones(B, T, dtype=torch.float32, device=h.device))
             mask = torch.nn.functional.pad(mask, (0, Tp - T))
-        bias = ((1.0 - mask) * NEG_INF).contiguous()  # [B, Tp] key bias
+            bias = ((1.0 - mask) * NEG_INF).contiguous()  # [B, Tp] key bias
         if attn_seeds is None:
             attn_seeds = torch.zeros(L, dtype=torch.int32, device=h.device)
         T = Tp
@@ -201,6 +237,7 @@ def gpt2_forward(
         k_resid1, k_resid2 = layer_seeds[l]
         a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], eps)
         k = v = None
+        w_proj = p["attn_proj_w"][l]
         if return_kv:
             q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D, dim=-1)
             qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
@@ -212,10 +249,13 @@ def gpt2_forward(
             ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D)
         else:
             # the projection bias is added inside the attention function
-            ctx = attend(a @ p["attn_w"][l], p["attn_b"][l], bias,
-                         attn_seeds[l:l + 1], n_head, attn_rate,
-                         1.0 / math.sqrt(hd))
-        attn_out = ctx @ p["attn_proj_w"][l] + p["attn_proj_b"][l]
+            w_qkv, b_qkv = p["attn_w"][l], p["attn_b"][l]
+            if attn_impl == "kernel_padded":
+                w_qkv, b_qkv = pad_qkv_weights(w_qkv, b_qkv, n_head, hd)
+                w_proj = pad_proj_weights(w_proj, n_head, hd)
+            ctx = attend(a @ w_qkv, b_qkv, bias, attn_seeds[l:l + 1], n_head,
+                         attn_rate, 1.0 / math.sqrt(hd))
+        attn_out = ctx @ w_proj + p["attn_proj_b"][l]
         h = h + _dropout(attn_out, cfg.resid_pdrop, k_resid1)
         m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], eps)
         m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])

@@ -1,7 +1,8 @@
 """Top-level MMTG model (:mod:`mmtg_tpu.models.mmtg`): encoder → LN →
 alpha ×2 → beta, the WenLan gather, the fused-window addition, the
 2048→512→768 projector, the type-id schemes, and the teacher-forced train
-forward :func:`mmtg_forward_train`."""
+forwards :func:`mmtg_forward_train` and, over packed rows,
+:func:`mmtg_forward_train_packed`."""
 
 from __future__ import annotations
 
@@ -165,3 +166,57 @@ def mmtg_forward_train(
         nll = -torch.gather(logp, -1, labels[:, 1:, None].long())
         lm_loss = nll.mean()
     return MMTGOutput(logits=out, kl_per_sample=kl, lm_loss=lm_loss)
+
+
+def mmtg_forward_train_packed(
+    params: Dict,
+    const: Dict,
+    mcfg: ModelConfig,
+    dcfg: DataConfig,
+    pbatch: Dict[str, torch.Tensor],
+    dropout_gen: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    remat: bool = False,
+    attn_impl: str = "auto",
+    lm_head: bool = True,
+) -> MMTGOutput:
+    """Teacher-forced forward over PACKED rows
+    (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train_packed`; the rows come
+    from :class:`mmtg_tpu_torch.pack.PackedBatcher`).
+
+    The encoder half runs per sample SLOT (``[R, S, ...]`` experience
+    tensors, flattened to ``R·S`` encoder rows — empty slots produce garbage
+    that ``slot_valid`` masks out of the loss); only the GPT-2 decoder runs
+    on the packed token rows, with original-grid position ids, data-provided
+    type ids, per-token fused-window gathers and segment-masked attention.
+    Explicitly NON-parity (see pack.py's token-accounting contract); the
+    parity path is :func:`mmtg_forward_train`. ``kl_per_sample`` is ``[R,
+    S]``."""
+    gen = dropout_gen if not deterministic else None
+    R, S, E = pbatch["topic_emb"].shape
+    flat = lambda x: x.reshape((R * S,) + x.shape[2:])  # noqa: E731
+    fused, kl = encode_experiences(
+        params, mcfg, flat(pbatch["topic_emb"]), flat(pbatch["img_embs"]),
+        flat(pbatch["r_embs"]), dropout_gen=gen)  # fused [R·S, W, E], kl [R·S]
+    W = fused.shape[1]
+    fused = fused.reshape(R, S, W, E)
+
+    token_wl = wenlan_embed(const["wenlan_table"], pbatch["tokens"])  # [R, L, E]
+    seg, win = pbatch["seg"], pbatch["win"]
+    valid = (seg < S) & (win < W)
+    rows = torch.arange(R, device=seg.device)[:, None]
+    gathered = fused[rows, seg.clamp(max=S - 1).long(),
+                     win.clamp(max=W - 1).long()]  # [R, L, E]
+    token_wl = token_wl + torch.where(valid[..., None], gathered,
+                                      torch.zeros_like(gathered))
+    embeds = project_to_gpt2(params, token_wl)
+
+    out, _ = gpt2_forward(
+        params["gpt2"], mcfg.gpt2, embeds, pbatch["positions"],
+        pbatch["type_ids"], attention_mask=None, dropout_gen=gen,
+        deterministic=deterministic, remat=remat, attn_impl=attn_impl,
+        lm_head=lm_head, segment_ids=seg)
+    kl = kl.reshape(R, S)
+    if not lm_head:
+        return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)
+    return MMTGOutput(logits=out, kl_per_sample=kl, lm_loss=None)

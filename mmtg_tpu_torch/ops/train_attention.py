@@ -1,20 +1,30 @@
 """Fused causal self-attention for the train step, forward and backward.
 
-PyTorch counterpart of :func:`mmtg_tpu.ops.train_attention.mha_train_packed`:
-causal multi-head attention over the standard GPT-2 ``c_attn`` slab
-``qkv [B, T, 3·H·hd]`` (q all heads | k all heads | v all heads), with the
-projection bias added inside, an additive ``[B, T]`` key bias, an f32
-softmax, seeded attention dropout, and a gradient that recomputes the
-probabilities and the same dropout bits and returns ``dqkv`` in the slab's
-layout plus the projection-bias gradient. The ``[B, H, T, T]`` probabilities
-never reach device memory.
+PyTorch counterparts of three functions of :mod:`mmtg_tpu.ops.train_attention`,
+one computation with two options (where a head sits in the slab, what masks
+a score):
 
-:func:`mha_train_packed` is a ``torch.autograd.Function``: for CUDA tensors
-its forward and its backward launch the hand-written kernels of
-``csrc/train_attention.cu`` (and raise if they cannot); for CPU tensors it
-runs :func:`mha_train_packed_plain`, the same math in plain differentiable
-PyTorch. ``mha_train_packed.fwd_launches`` / ``.bwd_launches`` count the
-kernel launches.
+* :func:`mha_train_packed` — the standard GPT-2 ``c_attn`` slab ``qkv [B, T,
+  3·H·hd]`` (q all heads | k all heads | v all heads) with an additive
+  ``[B, T]`` f32 key bias;
+* :func:`mha_train_packed_seg` — the same slab with ``[B, T]`` int32 segment
+  ids instead: ``i`` attends ``j`` iff ``seg[i] == seg[j]`` and ``j <= i``
+  (sequence packing, :mod:`mmtg_tpu_torch.pack`);
+* :func:`mha_train` — the head-major slab ``[B, T, H·384]`` (per head ``q | k
+  | v``, each zero-padded from the true head width to 128; made by
+  :func:`pad_qkv_weights`) with the key bias; context ``[B, T, H·128]``.
+
+Each adds the projection bias inside, soft-maxes in f32, applies seeded
+attention dropout, and has a gradient that recomputes the probabilities and
+the same dropout bits and returns ``dqkv`` in the slab's layout plus the
+projection-bias gradient. The ``[B, H, T, T]`` probabilities never reach
+device memory.
+
+Each is a ``torch.autograd.Function``: for CUDA tensors its forward and its
+backward launch the hand-written kernels of ``csrc/train_attention.cu`` (and
+raise if they cannot); for CPU tensors it runs its ``*_plain`` version, the
+same math in plain differentiable PyTorch. ``<function>.fwd_launches`` /
+``.bwd_launches`` count the kernel launches.
 
 Dropout bits. The TPU kernel draws from the core's own generator, whose bits
 depend on its launch grid. Here ``keep(b, h, i, j)`` is a pure function of
@@ -39,6 +49,8 @@ import torch
 from mmtg_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
+LANES = 128  # padded per-head width of the head-major slab
+SLAB = 3 * LANES  # one head's q | k | v
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
@@ -74,6 +86,34 @@ def _inv_keep(rate: float) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
 
 
+def _attend_plain(q, k, v, mask_term, seed, dropout_rate, scale, dt):
+    """``q``, ``k``, ``v`` ``[B, H, T, hd]`` f32 holding values of dtype
+    ``dt``; ``mask_term`` f32, broadcastable to the ``[B, H, T, T]`` scores
+    (the causal term is added here). Returns ctx ``[B, H, T, hd]`` f32."""
+    B, H, T, _ = q.shape
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale + mask_term
+    i = torch.arange(T, device=q.device)
+    s = s + torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF).to(s.dtype)
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(seed, B, H, T, dropout_rate)
+        p = torch.where(keep, p * _inv_keep(dropout_rate), torch.zeros_like(p))
+    return torch.matmul(p.to(dt).float(), v)
+
+
+def _split_packed(qkv, qkv_bias, n_head):
+    B, T, S = qkv.shape
+    hd = S // (3 * n_head)
+    # each [B, H, T, hd], slab-dtype values held in f32
+    return ((qkv + qkv_bias).view(B, T, 3, n_head, hd).permute(2, 0, 3, 1, 4)
+            .float())
+
+
+def _merge_heads(ctx, dt):
+    B, H, T, hd = ctx.shape
+    return ctx.transpose(1, 2).reshape(B, T, H * hd).to(dt)
+
+
 def mha_train_packed_plain(qkv, qkv_bias, bias, seed, n_head: int,
                            dropout_rate: float = 0.0, scale: float = 1.0):
     """Plain differentiable PyTorch version (any device): f32 scores and
@@ -81,53 +121,106 @@ def mha_train_packed_plain(qkv, qkv_bias, bias, seed, n_head: int,
     ``qkv`` ``[B, T, 3·H·hd]``, ``qkv_bias`` ``[3·H·hd]``, ``bias`` ``[B, T]``
     f32 additive key bias, ``seed`` int32 ``[1]``. Returns ctx ``[B, T,
     H·hd]`` in the slab's dtype."""
-    B, T, S = qkv.shape
-    hd = S // (3 * n_head)
-    dt = qkv.dtype
-    q, k, v = ((qkv + qkv_bias).view(B, T, 3, n_head, hd).permute(2, 0, 3, 1, 4)
-               .float())  # each [B, H, T, hd], slab-dtype values held in f32
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[:, None, None, :]
-    i = torch.arange(T, device=qkv.device)
-    s = s + torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF).to(s.dtype)
-    p = torch.softmax(s, dim=-1)
-    if dropout_rate > 0.0:
-        keep = dropout_keep_mask(seed, B, n_head, T, dropout_rate)
-        p = torch.where(keep, p * _inv_keep(dropout_rate), torch.zeros_like(p))
-    ctx = torch.matmul(p.to(dt).float(), v)
-    return ctx.transpose(1, 2).reshape(B, T, n_head * hd).to(dt)
+    q, k, v = _split_packed(qkv, qkv_bias, n_head)
+    ctx = _attend_plain(q, k, v, bias[:, None, None, :], seed, dropout_rate,
+                        scale, qkv.dtype)
+    return _merge_heads(ctx, qkv.dtype)
+
+
+def mha_train_packed_seg_plain(qkv, qkv_bias, seg, seed, n_head: int,
+                               dropout_rate: float = 0.0, scale: float = 1.0):
+    """Plain version of :func:`mha_train_packed_seg`: as
+    :func:`mha_train_packed_plain` with ``seg`` ``[B, T]`` int32 segment ids
+    (equality of arbitrary ids, no order assumed) instead of the key bias."""
+    q, k, v = _split_packed(qkv, qkv_bias, n_head)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    term = torch.where(same, 0.0, NEG_INF).to(torch.float32)
+    ctx = _attend_plain(q, k, v, term, seed, dropout_rate, scale, qkv.dtype)
+    return _merge_heads(ctx, qkv.dtype)
+
+
+def mha_train_plain(qkv, qkv_bias, bias, seed, n_head: int,
+                    dropout_rate: float = 0.0, scale: float = 1.0):
+    """Plain version of :func:`mha_train`: ``qkv`` ``[B, T, H·384]`` head-major
+    (per head ``q | k | v``, 128 lanes each), ``qkv_bias`` ``[H·384]``,
+    ``bias`` ``[B, T]`` f32. All 128 lanes take part, as in the kernel; with
+    zero pad lanes they add nothing. Returns ctx ``[B, T, H·128]``."""
+    B, T, _ = qkv.shape
+    q, k, v = ((qkv + qkv_bias).view(B, T, n_head, 3, LANES)
+               .permute(3, 0, 2, 1, 4).float())
+    ctx = _attend_plain(q, k, v, bias[:, None, None, :], seed, dropout_rate,
+                        scale, qkv.dtype)
+    return _merge_heads(ctx, qkv.dtype)
+
+
+def pad_qkv_weights(attn_w, attn_b, n_head: int, head_dim: int):
+    """``[D, 3·H·hd]`` QKV weight and ``[3·H·hd]`` bias → ``[D, H·384]`` /
+    ``[H·384]`` head-major with zero pad columns per head (``[q_h | k_h |
+    v_h]``, each ``hd`` → 128), so the projection emits :func:`mha_train`'s
+    slab directly. Differentiable."""
+    if head_dim > LANES:
+        raise ValueError(f"pad_qkv_weights: head_dim {head_dim} > {LANES}")
+    D = attn_w.shape[0]
+    pad = (0, LANES - head_dim)
+    w = torch.nn.functional.pad(attn_w.reshape(D, 3, n_head, head_dim), pad)
+    b = torch.nn.functional.pad(attn_b.reshape(3, n_head, head_dim), pad)
+    # [D, 3, H, 128] -> [D, H, 3, 128] -> [D, H*384]
+    return (w.transpose(1, 2).reshape(D, n_head * SLAB),
+            b.transpose(0, 1).reshape(n_head * SLAB))
+
+
+def pad_proj_weights(proj_w, n_head: int, head_dim: int):
+    """``[H·hd, D]`` attention output projection → ``[H·128, D]`` with zero
+    pad rows, consuming :func:`mha_train`'s padded context. Differentiable."""
+    if head_dim > LANES:
+        raise ValueError(f"pad_proj_weights: head_dim {head_dim} > {LANES}")
+    D = proj_w.shape[1]
+    w = torch.nn.functional.pad(proj_w.reshape(n_head, head_dim, D),
+                                (0, 0, 0, LANES - head_dim))
+    return w.reshape(n_head * LANES, D)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(qkv, qkv_bias, bias, seed, n_head):
-    """Raise on what the kernels do not take; returns (B, T, hd)."""
+def _check(fn, qkv, qkv_bias, mask, seed, n_head):
+    """Raise on what the kernels do not take; returns (B, T, hd), ``hd`` the
+    head width the kernel works on (128 for the head-major slab)."""
+    name = fn.__name__
     if qkv.dtype not in _DTYPE_CODE:
-        raise TypeError(f"mha_train_packed: qkv dtype {qkv.dtype} not f32/bf16")
-    if qkv.dim() != 3 or qkv.shape[-1] % (3 * n_head):
-        raise ValueError(f"mha_train_packed: qkv {tuple(qkv.shape)} is not "
-                         f"[B, T, 3*{n_head}*hd]")
+        raise TypeError(f"{name}: qkv dtype {qkv.dtype} not f32/bf16")
+    if fn.head_major:
+        if qkv.dim() != 3 or qkv.shape[-1] != n_head * SLAB:
+            raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not "
+                             f"[B, T, {n_head}*{SLAB}]")
+        hd = LANES
+    else:
+        if qkv.dim() != 3 or qkv.shape[-1] % (3 * n_head):
+            raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not "
+                             f"[B, T, 3*{n_head}*hd]")
+        hd = qkv.shape[-1] // (3 * n_head)
+        if hd > 128 or hd % 8:
+            raise ValueError(f"{name}: head_dim {hd} (needs a multiple of 8, "
+                             "at most 128)")
     B, T, S = qkv.shape
-    hd = S // (3 * n_head)
-    if hd > 128 or hd % 8:
-        raise ValueError(f"mha_train_packed: head_dim {hd} (needs a multiple "
-                         "of 8, at most 128)")
     if T % 128 or T > 512:
-        raise ValueError(f"mha_train_packed: T={T} (the caller pads to a "
-                         "multiple of 128, at most 512)")
+        # the forward keeps a [64, T] f32 score block in shared memory
+        raise ValueError(f"{name}: T={T} (the caller pads to a multiple of "
+                         "128, at most 512)")
     if B * n_head * T >= 2 ** 31:
-        raise ValueError("mha_train_packed: B*H*T must stay below 2**31")
+        raise ValueError(f"{name}: B*H*T must stay below 2**31")
     if qkv_bias.shape != (S,) or qkv_bias.dtype != qkv.dtype:
-        raise TypeError("mha_train_packed: qkv_bias must be [3*H*hd] in "
-                        "qkv's dtype")
-    if bias.shape != (B, T) or bias.dtype != torch.float32:
-        raise TypeError("mha_train_packed: bias must be [B, T] float32")
+        raise TypeError(f"{name}: qkv_bias must be [{S}] in qkv's dtype")
+    mask_dtype = torch.int32 if fn.seg else torch.float32
+    if mask.shape != (B, T) or mask.dtype != mask_dtype:
+        raise TypeError(f"{name}: {'seg' if fn.seg else 'bias'} must be "
+                        f"[B, T] {mask_dtype}")
     if seed.numel() != 1 or seed.dtype != torch.int32:
-        raise TypeError("mha_train_packed: seed must be one int32")
-    for t in (qkv, qkv_bias, bias, seed):
+        raise TypeError(f"{name}: seed must be one int32")
+    for t in (qkv, qkv_bias, mask, seed):
         if t.device != qkv.device or not t.is_contiguous():
-            raise ValueError("mha_train_packed: all tensors must be "
-                             "contiguous and on one CUDA device")
+            raise ValueError(f"{name}: all tensors must be contiguous and on "
+                             "one CUDA device")
     return B, T, hd
 
 
@@ -137,12 +230,14 @@ def _dropout_args(rate: float):
     return 1.0, 0, 0
 
 
-class _MhaTrainPacked(torch.autograd.Function):
-    """The kernel pair under autograd (CUDA tensors only)."""
+class _MhaTrain(torch.autograd.Function):
+    """The kernels under autograd (CUDA tensors only). ``fn`` is the public
+    function that was called: it names the slab layout (``fn.head_major``)
+    and the mask (``fn.seg``), and its launch counters are the ones bumped."""
 
     @staticmethod
-    def forward(ctx, qkv, qkv_bias, bias, seed, n_head, dropout_rate, scale):
-        B, T, hd = _check(qkv, qkv_bias, bias, seed, n_head)
+    def forward(ctx, fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale):
+        B, T, hd = _check(fn, qkv, qkv_bias, mask, seed, n_head)
         out = torch.empty((B, T, n_head * hd), dtype=qkv.dtype,
                           device=qkv.device)
         lse = torch.empty((B, n_head, T), dtype=torch.float32,
@@ -150,27 +245,26 @@ class _MhaTrainPacked(torch.autograd.Function):
         inv_keep, thr, drop = _dropout_args(dropout_rate)
         lib = _build.load()
         with torch.cuda.device(qkv.device):
-            err = lib.mmtg_mha_train_packed_fwd(
-                qkv.data_ptr(), qkv_bias.data_ptr(), bias.data_ptr(),
+            err = lib.mmtg_mha_train_fwd(
+                qkv.data_ptr(), qkv_bias.data_ptr(), mask.data_ptr(),
                 seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                B, T, n_head, hd, scale, inv_keep, thr, drop,
-                _DTYPE_CODE[qkv.dtype],
+                B, T, n_head, hd, int(fn.head_major), int(fn.seg), scale,
+                inv_keep, thr, drop, _DTYPE_CODE[qkv.dtype],
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "mmtg_mha_train_packed_fwd")
-        mha_train_packed.fwd_launches += 1
-        ctx.save_for_backward(qkv, qkv_bias, bias, seed, out, lse)
-        ctx.cfg = (n_head, dropout_rate, scale)
+        _build.check(err, f"{fn.__name__} forward")
+        fn.fwd_launches += 1
+        ctx.save_for_backward(qkv, qkv_bias, mask, seed, out, lse)
+        ctx.cfg = (fn, n_head, hd, dropout_rate, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, qkv_bias, bias, seed, out, lse = ctx.saved_tensors
-        n_head, dropout_rate, scale = ctx.cfg
+        qkv, qkv_bias, mask, seed, out, lse = ctx.saved_tensors
+        fn, n_head, hd, dropout_rate, scale = ctx.cfg
         B, T, S = qkv.shape
-        hd = S // (3 * n_head)
         dout = dout.contiguous()
         if dout.dtype != qkv.dtype or dout.device != qkv.device:
-            raise TypeError("mha_train_packed: d(ctx) must match qkv's dtype "
+            raise TypeError(f"{fn.__name__}: d(ctx) must match qkv's dtype "
                             "and device")
         dqkv = torch.empty_like(qkv)
         dsum = torch.empty_like(lse)
@@ -178,18 +272,30 @@ class _MhaTrainPacked(torch.autograd.Function):
         inv_keep, thr, drop = _dropout_args(dropout_rate)
         lib = _build.load()
         with torch.cuda.device(qkv.device):
-            err = lib.mmtg_mha_train_packed_bwd(
-                qkv.data_ptr(), qkv_bias.data_ptr(), bias.data_ptr(),
+            err = lib.mmtg_mha_train_bwd(
+                qkv.data_ptr(), qkv_bias.data_ptr(), mask.data_ptr(),
                 seed.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), dsum.data_ptr(), dqkv.data_ptr(),
-                dqb.data_ptr(), B, T, n_head, hd, scale, inv_keep, thr, drop,
+                dqb.data_ptr(), B, T, n_head, hd, int(fn.head_major),
+                int(fn.seg), scale, inv_keep, thr, drop,
                 _DTYPE_CODE[qkv.dtype],
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "mmtg_mha_train_packed_bwd")
-        mha_train_packed.bwd_launches += 1
-        # the key bias gets a zero gradient, the seed none (as the JAX VJP)
-        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[2] else None
-        return dqkv, dqb.to(qkv_bias.dtype), dbias, None, None, None, None
+        _build.check(err, f"{fn.__name__} backward")
+        fn.bwd_launches += 1
+        # a key bias gets a zero gradient, segment ids and the seed none (as
+        # the JAX VJPs)
+        dmask = (torch.zeros_like(mask)
+                 if not fn.seg and ctx.needs_input_grad[3] else None)
+        return None, dqkv, dqb.to(qkv_bias.dtype), dmask, None, None, None, None
+
+
+def _dispatch(fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale):
+    if qkv.device.type == "cpu":
+        return fn.plain(qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {qkv.device}")
+    return _MhaTrain.apply(fn, qkv, qkv_bias, mask, seed, n_head,
+                           float(dropout_rate), float(scale))
 
 
 def mha_train_packed(qkv, qkv_bias, bias, seed, n_head: int,
@@ -201,14 +307,40 @@ def mha_train_packed(qkv, qkv_bias, bias, seed, n_head: int,
     additive key bias (0 live, -1e30 padded), ``seed`` one int32 on qkv's
     device (read only when ``dropout_rate > 0``). T is a multiple of 128.
     Returns ctx ``[B, T, H·hd]``. Differentiable in ``qkv`` and ``qkv_bias``."""
-    if qkv.device.type == "cpu":
-        return mha_train_packed_plain(qkv, qkv_bias, bias, seed, n_head,
-                                      dropout_rate, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"mha_train_packed: unsupported device {qkv.device}")
-    return _MhaTrainPacked.apply(qkv, qkv_bias, bias, seed, n_head,
-                                 float(dropout_rate), float(scale))
+    return _dispatch(mha_train_packed, qkv, qkv_bias, bias, seed, n_head,
+                     dropout_rate, scale)
 
 
-mha_train_packed.fwd_launches = 0
-mha_train_packed.bwd_launches = 0
+def mha_train_packed_seg(qkv, qkv_bias, seg, seed, n_head: int,
+                         dropout_rate: float = 0.0, scale: float = 1.0):
+    """:func:`mha_train_packed` with segment masking instead of a key bias:
+    ``seg`` is ``[B, T]`` int32; token ``i`` attends token ``j`` iff ``seg[i]
+    == seg[j]`` and ``j <= i``. The ids are arbitrary (equality is all that
+    is tested); ``seg`` is data and gets no gradient."""
+    return _dispatch(mha_train_packed_seg, qkv, qkv_bias, seg, seed, n_head,
+                     dropout_rate, scale)
+
+
+def mha_train(qkv, qkv_bias, bias, seed, n_head: int,
+              dropout_rate: float = 0.0, scale: float = 1.0):
+    """Fused causal multi-head attention over a head-major qkv slab.
+
+    ``qkv`` ``[B, T, H·384]``: head ``h`` owns columns ``[h·384, (h+1)·384)``
+    as ``[q_h | k_h | v_h]``, each zero-padded from the true head width to
+    128 (fold the padding into the QKV weights with :func:`pad_qkv_weights`);
+    ``qkv_bias`` ``[H·384]`` in the same layout; ``bias`` ``[B, T]`` f32 key
+    bias; ``scale`` normally ``1/sqrt(true head width)``. Returns ctx ``[B,
+    T, H·128]``, whose pad lanes are zero whenever v's are; the gradient
+    writes every element of ``dqkv``, pad lanes too (zero when the pad lanes
+    of the slab, the bias and ``d(ctx)`` are zero)."""
+    return _dispatch(mha_train, qkv, qkv_bias, bias, seed, n_head,
+                     dropout_rate, scale)
+
+
+for _fn, _plain, _head_major, _seg in (
+        (mha_train_packed, mha_train_packed_plain, False, False),
+        (mha_train_packed_seg, mha_train_packed_seg_plain, False, True),
+        (mha_train, mha_train_plain, True, False)):
+    _fn.plain, _fn.head_major, _fn.seg = _plain, _head_major, _seg
+    _fn.fwd_launches = 0
+    _fn.bwd_launches = 0

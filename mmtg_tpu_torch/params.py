@@ -101,6 +101,38 @@ class _Init:
         return {"layers": layers}
 
 
+def _gpt2_tree(init: _Init, g) -> Dict:
+    D, L, std = g.n_embd, g.n_layer, g.initializer_range
+    proj_std = std / math.sqrt(2 * L)
+    return {
+        "wte": init.normal((g.vocab_size, D), std),
+        "wpe": init.normal((g.n_positions, D), std),
+        "h": {
+            "ln1_g": torch.ones(L, D),
+            "ln1_b": torch.zeros(L, D),
+            "attn_w": init.normal((L, D, 3 * D), std),
+            "attn_b": torch.zeros(L, 3 * D),
+            "attn_proj_w": init.normal((L, D, D), proj_std),
+            "attn_proj_b": torch.zeros(L, D),
+            "ln2_g": torch.ones(L, D),
+            "ln2_b": torch.zeros(L, D),
+            "mlp_fc_w": init.normal((L, D, 4 * D), std),
+            "mlp_fc_b": torch.zeros(L, 4 * D),
+            "mlp_proj_w": init.normal((L, 4 * D, D), proj_std),
+            "mlp_proj_b": torch.zeros(L, D),
+        },
+        "lnf_g": torch.ones(D),
+        "lnf_b": torch.zeros(D),
+    }
+
+
+def init_gpt2_params(cfg, seed: int = 0, dtype: torch.dtype = torch.float32,
+                     device="cpu") -> Dict:
+    """Seeded random GPT-2 parameters alone (the ``"gpt2"`` subtree of
+    :func:`init_params`), for the phase-1 LM pretraining."""
+    return tree_to(_gpt2_tree(_Init(seed), cfg), device, dtype)
+
+
 def init_params(mcfg: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.float32, device="cpu") -> Dict:
     """Seeded random parameters with the shapes and distributions of
@@ -111,9 +143,6 @@ def init_params(mcfg: ModelConfig, seed: int = 0,
             raise NotImplementedError(f"channel type {ch.type!r} is not ported")
     init = _Init(seed)
     H = mcfg.topic.hidden_dim
-    g = mcfg.gpt2
-    D, L, std = g.n_embd, g.n_layer, g.initializer_range
-    proj_std = std / math.sqrt(2 * L)
     ln = lambda n: {"g": torch.ones(n), "b": torch.zeros(n)}  # noqa: E731
     beta_steps = [init.linear(H, mcfg.mm_att_dim) for _ in range(mcfg.seq_len)]
     tree = {
@@ -139,27 +168,8 @@ def init_params(mcfg: ModelConfig, seed: int = 0,
             "out": init.linear(H, mcfg.mm_att_out_dim),
         },
         "projector1": init.linear(mcfg.mm_att_out_dim, 512),
-        "projector2": init.linear(512, D),
-        "gpt2": {
-            "wte": init.normal((g.vocab_size, D), std),
-            "wpe": init.normal((g.n_positions, D), std),
-            "h": {
-                "ln1_g": torch.ones(L, D),
-                "ln1_b": torch.zeros(L, D),
-                "attn_w": init.normal((L, D, 3 * D), std),
-                "attn_b": torch.zeros(L, 3 * D),
-                "attn_proj_w": init.normal((L, D, D), proj_std),
-                "attn_proj_b": torch.zeros(L, D),
-                "ln2_g": torch.ones(L, D),
-                "ln2_b": torch.zeros(L, D),
-                "mlp_fc_w": init.normal((L, D, 4 * D), std),
-                "mlp_fc_b": torch.zeros(L, 4 * D),
-                "mlp_proj_w": init.normal((L, 4 * D, D), proj_std),
-                "mlp_proj_b": torch.zeros(L, D),
-            },
-            "lnf_g": torch.ones(D),
-            "lnf_b": torch.zeros(D),
-        },
+        "projector2": init.linear(512, mcfg.gpt2.n_embd),
+        "gpt2": _gpt2_tree(init, mcfg.gpt2),
     }
     return tree_to(tree, device, dtype)
 

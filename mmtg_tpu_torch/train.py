@@ -7,8 +7,11 @@ global-norm grad clip 1.0), identical curriculum semantics (stage-by-epoch
 with a 2× batch in stage 1 and rating-based filtering) — with one shape for
 every stage and batch: filtering is a 0/1 sample-weight mask.
 
-The GPT-2 stack attends through the hand-written ``mha_train_packed`` kernel
-pair (:mod:`mmtg_tpu_torch.ops.train_attention`) for CUDA tensors. Master
+The GPT-2 stack attends through the hand-written train-attention kernels
+(:mod:`mmtg_tpu_torch.ops.train_attention`) for CUDA tensors:
+``mha_train_packed`` on parity rows, ``mha_train_packed_seg`` on the packed
+rows of ``--pack_sequences`` (:mod:`mmtg_tpu_torch.pack`; a NON-parity
+objective, see there; eval stays unpacked). Master
 parameters and AdamW moments are f32; ``--dtype bfloat16`` computes in bf16
 through a differentiable cast. The train state is UPDATED IN PLACE by a step
 (the JAX step donates its input state).
@@ -18,8 +21,8 @@ through a differentiable cast. The train state is UPDATED IN PLACE by a step
         --token_emb_path token_id2emb_dict.pkl --save_model --save_path ckpt
 
 Not ported yet (the flags exist and raise): meshes (``--mesh_*``),
-``--zero1``, ``--multihost``, ``--pack_sequences``, ``--profile_dir``;
-selective remat policies; Orbax and safetensors checkpoints.
+``--zero1``, ``--multihost``, ``--profile_dir``; selective remat policies;
+Orbax and safetensors checkpoints.
 """
 
 from __future__ import annotations
@@ -36,12 +39,17 @@ import torch
 from mmtg_tpu_torch.configs import DataConfig, ModelConfig, TrainConfig
 from mmtg_tpu_torch.loss import (
     curriculum_sample_weights,
+    packed_sequence_unlikelihood_loss,
+    packed_sequence_unlikelihood_loss_from_hidden,
     sequence_unlikelihood_loss,
     sequence_unlikelihood_loss_from_hidden,
     stage_for_epoch,
     weighted_mean,
 )
-from mmtg_tpu_torch.models.mmtg import mmtg_forward_train
+from mmtg_tpu_torch.models.mmtg import (
+    mmtg_forward_train,
+    mmtg_forward_train_packed,
+)
 from mmtg_tpu_torch.params import init_params, tree_leaves, tree_map
 from mmtg_tpu_torch.utils.logging import StepTimer, format_time, setup_logger
 
@@ -154,7 +162,7 @@ def _resolve_loss_impl(impl: str, batch: Dict[str, torch.Tensor], vocab: int) ->
     the JAX package's, kept for parity."""
     if impl != "auto":
         return impl
-    B, T = batch["targets"].shape
+    B, T = (batch["tokens"] if "tokens" in batch else batch["targets"]).shape
     return "full" if 6 * B * T * vocab < 5e9 else "chunked"
 
 
@@ -186,6 +194,25 @@ def loss_and_metrics(
         fwd_params, fwd_const = params, const
     chunked = _resolve_loss_impl(tcfg.loss_impl, batch,
                                  mcfg.gpt2.vocab_size) == "chunked"
+    if "seg" in batch:
+        # --pack_sequences: segment-packed rows (mmtg_tpu_torch.pack). The
+        # NON-parity objective — per-slot CE over real labels only — is the
+        # whole point; see pack.py's token-accounting contract.
+        out = mmtg_forward_train_packed(
+            fwd_params, fwd_const, mcfg, dcfg, batch,
+            dropout_gen=dropout_gen, deterministic=deterministic,
+            remat=tcfg.remat and not deterministic, attn_impl=tcfg.attn_impl,
+            lm_head=not chunked)
+        if chunked:
+            loss, weights, _ = packed_sequence_unlikelihood_loss_from_hidden(
+                out.hidden, fwd_params["gpt2"]["wte"], batch, stage)
+        else:
+            loss, weights, _ = packed_sequence_unlikelihood_loss(
+                out.logits, batch, stage)
+        kl = weighted_mean(out.kl_per_sample.float().reshape(-1), weights)
+        total = loss + tcfg.alpha * kl
+        return total, {"loss": loss.detach(), "kl": kl.detach(),
+                       "total": total.detach(), "kept": weights.sum()}
     out = mmtg_forward_train(
         fwd_params, fwd_const, mcfg, dcfg, batch,
         dropout_gen=dropout_gen, deterministic=deterministic,
@@ -236,6 +263,7 @@ def make_train_step(mcfg, dcfg, tcfg, tx: AdamW):
             total, metrics = loss_and_metrics(params, const, mcfg, dcfg, tcfg,
                                               batch, stage, rng, False)
             return grad_of(total), metrics
+        # every batch leaf is batch-leading (parity rows or packed rows)
         B = next(iter(batch.values())).shape[0]
         if B % N:
             raise ValueError(f"batch {B} not divisible by grad_accum {N}")
@@ -342,13 +370,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(exact recombination under curriculum weights)")
     p.add_argument("--zero1", action="store_true", help="not ported yet")
     p.add_argument("--pack_sequences", action="store_true",
-                   help="not ported yet (sequence packing)")
+                   help="EXPLICITLY NON-PARITY throughput mode: drop PAD "
+                        "tokens, pack samples into segment-masked rows "
+                        "(mmtg_tpu_torch.pack). Changes the objective's token "
+                        "accounting (per-sample CE over real labels, not "
+                        "the fixed 220 grid); eval stays parity/unpacked.")
     p.add_argument("--pack_row_len", default=512, type=int,
-                   help="parity flag of --pack_sequences")
+                   help="packed row length (a multiple of 128, at most 512, "
+                        "for the attention kernel). Longer rows pack more "
+                        "samples each (less dead tail) but pay quadratic "
+                        "in-row attention")
     p.add_argument("--pack_slots", default=8, type=int,
-                   help="parity flag of --pack_sequences")
+                   help="max samples per packed row")
     p.add_argument("--pack_rows", default=0, type=int,
-                   help="parity flag of --pack_sequences")
+                   help="rows per packed step (0 = auto: about the token "
+                        "budget of --batch_size parity rows)")
     p.add_argument("--profile_dir", default="", type=str,
                    help="not ported yet (profiler trace of steps 10-30)")
     p.add_argument("--debug_nans", action="store_true",
@@ -459,7 +495,6 @@ def _reject_unported(args) -> None:
         ("--mesh_pipe", args.mesh_pipe != 1),
         ("--zero1", args.zero1),
         ("--multihost", args.multihost),
-        ("--pack_sequences", args.pack_sequences),
         ("--profile_dir", bool(args.profile_dir)),
     ]
     for flag, used in unported:
@@ -575,22 +610,47 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
     val_loss = float("inf")
     rng_np = np.random.default_rng(tcfg.seed)
 
+    packer = None
+    if args.pack_sequences:
+        from mmtg_tpu_torch.pack import PackedBatcher
+
+        packer = PackedBatcher(train_data.arrays(), dcfg,
+                               row_len=args.pack_row_len,
+                               max_slots=args.pack_slots)
+        logger.info(
+            "Sequence packing ON (non-parity objective): density %.3f "
+            "(real/grid tokens), row_len %d, ≤%d samples/row",
+            packer.density, args.pack_row_len, args.pack_slots)
+    grid_len = dcfg.topic_prompt_length + dcfg.target_length
+
     for epoch in range(start_epoch, tcfg.epochs):
         t1 = time.time()
         stage = stage_for_epoch(epoch, curriculums)
         # stage 1 runs 2× batch then filters (reference train.py:128-135)
         bs = 2 * tcfg.batch_size if stage == 1 else tcfg.batch_size
         vbs = 2 * tcfg.val_batch_size if stage == 1 else tcfg.val_batch_size
-        steps_per_epoch = math.ceil(len(train_data) / bs)
+        if packer is not None:
+            # rows per step: about the token budget of bs parity rows
+            rows = args.pack_rows or max(
+                8, 8 * round(bs * grid_len * packer.density
+                             / args.pack_row_len / 8))
+            est_rows = math.ceil(len(train_data) * grid_len * packer.density
+                                 / args.pack_row_len)
+            steps_per_epoch = max(1, math.ceil(est_rows / rows))
+            batch_iter = packer.batches(rows, shuffle=True, rng=rng_np)
+        else:
+            steps_per_epoch = math.ceil(len(train_data) / bs)
+            batch_iter = train_data.batches(bs, shuffle=True, rng=rng_np)
         val_every = max(int(steps_per_epoch * tcfg.val_interval_ratio), 1)
         logger.info("Epoch %d/%d (stage %d)", epoch + 1, tcfg.epochs, stage)
 
-        avg_loss, seen_steps = 0.0, 0
-        for step, batch in enumerate(train_data.batches(bs, shuffle=True, rng=rng_np)):
+        avg_loss, seen_steps, kept_total = 0.0, 0, 0.0
+        for step, batch in enumerate(batch_iter):
             tb = _to_device(batch, device)
             timer.start()
             state, metrics = train_step(state, const, tb, stage)
             avg_loss += float(metrics["loss"])  # waits for the device
+            kept_total += float(metrics["kept"])
             timer.stop()
             seen_steps += 1
             if step > 0 and (step + 1) % tcfg.log_interval == 0:
@@ -598,7 +658,10 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
                     "Epoch: %d, Step: %d/%d, Average loss: %.6f, "
                     "p50 step: %.1f ms, samples/s: %.1f",
                     epoch + 1, step + 1, steps_per_epoch,
-                    avg_loss / seen_steps, timer.p50_ms, timer.throughput(bs))
+                    avg_loss / seen_steps, timer.p50_ms,
+                    # a packed step holds a varying number of real samples
+                    timer.throughput(kept_total / seen_steps
+                                     if packer is not None else bs))
             if step > 0 and (step + 1) % val_every == 0:
                 val_loss, _ = evaluate(eval_step, state.params, const,
                                        valid_data, vbs, stage, device)

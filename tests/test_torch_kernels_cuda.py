@@ -92,7 +92,8 @@ def _train_attention_case(gen, B, T, H, hd, dtype):
     (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("H,hd,T", [(2, 64, 128), (3, 32, 256), (2, 128, 128),
-                                    (2, 40, 128)])
+                                    (2, 40, 128), (2, 64, 384), (2, 64, 512),
+                                    (2, 128, 512)])
 def test_mha_train_packed_kernel_matches_plain(cuda, dtype, tols, rate, H, hd, T):
     B = 3
     qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
@@ -115,6 +116,91 @@ def test_mha_train_packed_kernel_matches_plain(cuda, dtype, tols, rate, H, hd, T
         assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
+def _segment_ids(gen, B, T, kind):
+    if kind == "random":  # arbitrary ids in no order: equality is all that counts
+        return torch.randint(0, 4, (B, T), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    # as a packer writes them: ascending ids, then the pad slots' own segment
+    seg = torch.full((B, T), 2 ** 15, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        cuts = sorted(torch.randint(1, T - 10, (3,), generator=gen, device="cuda").tolist())
+        for s, (lo, hi) in enumerate(zip([0] + cuts[:-1], cuts)):
+            seg[b, lo:hi] = s
+    return seg
+
+
+def _compare(fn, plain, args, co, tols, expect_launch=True):
+    """Forward and gradients of ``fn`` (the kernels) vs ``plain`` on the same
+    inputs; ``args`` = (qkv, qb, mask, seed, H, rate, scale)."""
+    qkv, qb = args[:2]
+    results = []
+    for f in (fn, plain):
+        a = qkv.clone().requires_grad_(True)
+        b = qb.clone().requires_grad_(True)
+        fwd0, bwd0 = fn.fwd_launches, fn.bwd_launches
+        ctx = f(a, b, *args[2:])
+        da_, db_ = torch.autograd.grad((ctx.float() * co.float()).sum(), (a, b))
+        torch.cuda.synchronize()
+        launched = (fn.fwd_launches - fwd0, fn.bwd_launches - bwd0)
+        assert launched == ((1, 1) if f is fn else (0, 0))
+        results.append((ctx, da_, db_))
+    for got, ref, tol in zip(results[0], results[1], tols):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+    return results
+
+
+@pytest.mark.parametrize("dtype,tols", [
+    (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["random", "packer"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("T", [128, 256, 384, 512])
+def test_mha_train_packed_seg_kernel_matches_plain(cuda, dtype, tols, rate, kind, hd, T):
+    B, H = 2, 2
+    qkv, qb, _, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    seg = _segment_ids(cuda, B, T, kind)
+    before = (ta.mha_train_packed.fwd_launches, ta.mha_train.fwd_launches)
+    _compare(ta.mha_train_packed_seg, ta.mha_train_packed_seg_plain,
+             (qkv, qb, seg, seed, H, rate, hd ** -0.5), co, tols)
+    # each function counts its own launches
+    assert before == (ta.mha_train_packed.fwd_launches, ta.mha_train.fwd_launches)
+
+
+def _pad_heads(t, H, hd):
+    """``[..., 3*H*hd]`` standard order -> ``[..., H*384]`` head-major, zero pad."""
+    x = torch.nn.functional.pad(t.reshape(t.shape[:-1] + (3, H, hd)), (0, 128 - hd))
+    return x.transpose(-3, -2).reshape(t.shape[:-1] + (H * 384,)).contiguous()
+
+
+@pytest.mark.parametrize("dtype,tols", [
+    (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("T", [128, 256, 384, 512])
+def test_mha_train_kernel_matches_plain(cuda, dtype, tols, rate, hd, T):
+    B, H = 2, 3
+    qkv, qb, bias, _, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    slab, slab_b = _pad_heads(qkv, H, hd), _pad_heads(qb, H, hd)
+    co = torch.randn(B, T, H, 128, generator=cuda, device="cuda")
+    co[..., hd:] = 0.0  # as the padded output projection hands it back
+    co = co.reshape(B, T, H * 128).to(dtype)
+    (ctx, dqkv, dqb), _ = _compare(ta.mha_train, ta.mha_train_plain,
+                                   (slab, slab_b, bias, seed, H, rate, hd ** -0.5),
+                                   co, tols)
+    assert ctx.shape == (B, T, H * 128) and dqkv.shape == slab.shape
+    # every element is written, pad lanes too: zero where the inputs' are zero
+    assert hd == 128 or ctx.view(B, T, H, 128)[..., hd:].abs().max().item() == 0.0
+    assert hd == 128 or dqkv.view(B, T, H, 3, 128)[..., hd:].abs().max().item() == 0.0
+    assert hd == 128 or dqb.view(H, 3, 128)[..., hd:].abs().max().item() == 0.0
+    # and the live lanes are the standard-slab kernel's numbers
+    ref = ta.mha_train_packed(qkv, qb, bias, seed, H, rate, hd ** -0.5)
+    torch.cuda.synchronize()
+    live = ctx.view(B, T, H, 128)[..., :hd].reshape(B, T, H * hd)
+    assert (live.float() - ref.float()).abs().max().item() <= tols[0]
+
+
 def test_mha_train_packed_dqkv_is_reproducible(cuda):
     qkv, qb, bias, co, seed = _train_attention_case(cuda, 2, 128, 2, 64,
                                                     torch.bfloat16)
@@ -125,6 +211,45 @@ def test_mha_train_packed_dqkv_is_reproducible(cuda):
         runs.append((ctx, torch.autograd.grad((ctx * co).sum(), a)[0]))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("fn", ["mha_train_packed_seg", "mha_train"])
+def test_new_kernels_dqkv_is_reproducible(cuda, fn):
+    B, T, H, hd = 2, 256, 2, 64
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, torch.bfloat16)
+    if fn == "mha_train":
+        qkv, qb = _pad_heads(qkv, H, hd), _pad_heads(qb, H, hd)
+        co = torch.randn(B, T, H * 128, generator=cuda, device="cuda").bfloat16()
+        mask = bias
+    else:
+        mask = _segment_ids(cuda, B, T, "packer")
+    runs = []
+    for _ in range(2):
+        a = qkv.clone().requires_grad_(True)
+        ctx = getattr(ta, fn)(a, qb, mask, seed, H, 0.1, 0.125)
+        runs.append((ctx, torch.autograd.grad((ctx * co).sum(), a)[0]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_new_kernels_reject_bad_input(cuda):
+    qkv = torch.zeros(1, 128, 3 * 2 * 64, device="cuda")
+    qb = torch.zeros(3 * 2 * 64, device="cuda")
+    seg = torch.zeros(1, 128, dtype=torch.int32, device="cuda")
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):  # a float mask where segment ids belong
+        ta.mha_train_packed_seg(qkv, qb, seg.float(), seed, 2)
+    with pytest.raises(TypeError):  # int64 ids
+        ta.mha_train_packed_seg(qkv, qb, seg.long(), seed, 2)
+    with pytest.raises(ValueError):  # T = 640 > 512
+        ta.mha_train_packed_seg(torch.zeros(1, 640, 384, device="cuda"), qb,
+                                torch.zeros(1, 640, dtype=torch.int32, device="cuda"),
+                                seed, 2)
+    with pytest.raises(ValueError):  # not a head-major slab
+        ta.mha_train(qkv, qb, seg.float(), seed, 2)
+    with pytest.raises(TypeError):  # bias of the standard order's length
+        ta.mha_train(torch.zeros(1, 128, 2 * 384, device="cuda"), qb, seg.float(),
+                     seed, 2)
 
 
 def test_mha_train_packed_rejects_bad_input(cuda):

@@ -1,6 +1,7 @@
 """The port's train CLI end to end on the CPU with a tiny model: one epoch
-writes a train-state checkpoint, --resume continues from it, the unported
-flags raise, and without --device a machine with no GPU gets an error."""
+writes a train-state checkpoint, --resume continues from it (on parity rows
+and with --pack_sequences), the unported flags raise, and without --device a
+machine with no GPU gets an error."""
 
 import os
 import pickle
@@ -95,9 +96,53 @@ def test_train_one_epoch_then_resume(files, reference_vocab_path, cfgs, monkeypa
     assert sorted(os.listdir(os.path.join(save, "train_state"))) == ckpts
 
 
+def test_train_packed_one_epoch_then_resume(files, reference_vocab_path, cfgs,
+                                            monkeypatch, caplog):
+    """--pack_sequences through an epoch and --resume: 8 samples pack into
+    rows of 256 (at most 4 per row), two rows per step."""
+    import logging
+
+    _SmallVocab(monkeypatch, cfgs)
+    save = str(files[0] / "ckpt_packed")
+    pack = ("--pack_sequences", "--pack_row_len", "256", "--pack_slots", "4",
+            "--pack_rows", "2")
+    with caplog.at_level(logging.INFO, logger="mmtg_tpu_torch"):
+        val = cli.main(_args(files, reference_vocab_path, save, "--epochs", "1",
+                             "--dtype", "float32", *pack), mcfg=cfgs[0], dcfg=cfgs[1])
+    assert np.isfinite(val)
+    assert any("Sequence packing ON" in r.getMessage() for r in caplog.records)
+    first = sorted(os.listdir(os.path.join(save, "train_state")))
+    assert len(first) == 1
+    steps = int(first[0][len("step_"):-len(".pt")])
+    assert 1 <= steps <= 4  # 8 samples, at least 2 and at most 8 per step
+    val2 = cli.main(_args(files, reference_vocab_path, save, "--epochs", "2",
+                          "--dtype", "bfloat16", "--grad_accum", "2", "--resume",
+                          *pack), mcfg=cfgs[0], dcfg=cfgs[1])
+    assert np.isfinite(val2)
+    second = sorted(os.listdir(os.path.join(save, "train_state")))
+    assert len(second) == 2 and second[0] == first[0]
+
+
+def test_train_packed_rows_default_follows_the_token_budget(files, reference_vocab_path,
+                                                            cfgs, monkeypatch, caplog):
+    """--pack_rows 0: rows per step come from the batch's token budget (at
+    least 8, a multiple of 8), and a row too short for a sample raises."""
+    _SmallVocab(monkeypatch, cfgs)
+    save = str(files[0] / "ckpt_packed_auto")
+    val = cli.main(_args(files, reference_vocab_path, save, "--epochs", "1",
+                         "--dtype", "float32", "--pack_sequences"),
+                   mcfg=cfgs[0], dcfg=cfgs[1])
+    assert np.isfinite(val)
+    # one step of 8 rows holds all 8 samples
+    assert sorted(os.listdir(os.path.join(save, "train_state"))) == ["step_00000001.pt"]
+    with pytest.raises(ValueError, match="pack_row_len"):
+        cli.main(_args(files, reference_vocab_path, save, "--pack_sequences",
+                       "--pack_row_len", "32"), mcfg=cfgs[0], dcfg=cfgs[1])
+
+
 @pytest.mark.parametrize("extra", [
     ("--mesh_data", "2"), ("--mesh_model", "2"), ("--mesh_pipe", "2"),
-    ("--zero1",), ("--multihost",), ("--pack_sequences",),
+    ("--zero1",), ("--multihost",), ("--pack_sequences", "--mesh_model", "2"),
     ("--profile_dir", "trace"),
 ])
 def test_train_cli_unported_flags_raise(files, reference_vocab_path, cfgs, extra):

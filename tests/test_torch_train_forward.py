@@ -101,7 +101,7 @@ def test_gpt2_forward_auto_reaches_the_wrapper(setup, monkeypatch):
                       torch.arange(x.shape[1])[None], attn_impl="auto")
     assert calls == [cfg.head_dim] * cfg.n_layer
     with pytest.raises(ValueError, match="head_dim 136"):
-        ta._check(torch.zeros(1, 128, 3 * 136), torch.zeros(3 * 136),
+        ta._check(ta.mha_train_packed, torch.zeros(1, 128, 3 * 136), torch.zeros(3 * 136),
                   torch.zeros(1, 128), torch.zeros(1, dtype=torch.int32), 1)
 
 
