@@ -10,8 +10,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
   1. build the CUDA kernels from mmtg_tpu_torch/csrc/ (nvcc, sm_90a) and
      print the build time and the card's name and power limit;
   2. every kernel against its plain PyTorch version on the card, at its
-     main path's shapes: the decode kernels (caches and scales bit-exact,
-     ctx / GRU output within the stated tolerance) and the train-attention
+     main path's shapes: the decode-attention kernel through its seven
+     wrappers (fp / int8 / int4 / merged caches, with and without the append:
+     caches and scales bit-exact, ctx within the stated tolerance), the
+     whole-step decode kernel (hidden state, appended codes and scales within
+     the stated tolerance), the GRU kernel, and the train-attention
      kernels, forward + backward (ctx, dqkv, dqb at rate 0 and rate 0.1 with
      the same dropout hash, f32 and bf16): mha_train_packed at B=8 and B=64,
      T=256; mha_train_packed_seg at 32 rows of 512 with the segment ids of a
@@ -25,7 +28,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
      weights) in bf16: B=64 with the int8 cache, then B=8 with the bf16
      cache; the kernel launch counters prove the kernels ran;
   4. teacher-forced logits through the kernels vs through the plain
-     versions, full width, f32;
+     versions, full width, f32: fp, int8, int4 and merged caches, and the
+     whole-step kernel;
   5. the generate CLI on a synthetic .pth checkpoint;
   6. the train path, train.make_train_step, at full width: bf16 compute /
      f32 masters, B=64, dropout on, remat on, 1 warm-up + 5 timed steps on
@@ -44,7 +48,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
      and gradients vs the standard-slab path;
  10. the train CLI with --pack_sequences (2 layers, --resume) and the
      pretrain CLI (2 layers), whose file the train CLI's --gpt2_ckpt loads.
-It then prints the kernels' JSON line and, last, the device JSON line.
+ 11. the read-only decode kernels as oracles: append, then read the cache
+     just written with the read-only kernel of its kind: the same context;
+ 12. decoding.generate through the serving decode paths at full width, B=64,
+     bf16: int4 cache, merged k||v cache, the whole-step kernel
+     (attn_impl="fused"), beside the int8 per-layer path; launch counts
+     asserted (2640 per-layer launches, or 220 of the whole-step kernel);
+ 13. generate_stream with per-row seeds at B=64 vs generate with the same
+     seeds (equal token for token), and the time to the first block;
+ 14. the service as `python -m mmtg_tpu_torch.serve` builds it (default
+     device: the card), full width: concurrent requests through submit, one
+     streamed over HTTP on a local port, /reload, a clean stop; every
+     response held against generate with the same seeds.
+(Phases 11-14 run after phase 4.) It then prints the kernels' JSON line and,
+last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
 and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
@@ -172,7 +189,23 @@ def phase_build(out, serial=False):
     out["ptxas"] = regs
 
 
-def _attention_case(dtype, int8, gen):
+# (wrapper, cache kind, append stage) of the seven decode-attention wrappers:
+# one kernel, csrc/decode_attention.cu
+DECODE_WRAPPERS = (
+    ("decode_attention_int8_append", "int8", True),
+    ("decode_attention_fp_append", "fp", True),
+    ("decode_attention_int4_append", "int4", True),
+    ("decode_attention_int8_append_merged", "merged", True),
+    ("decode_attention", "fp", False),
+    ("decode_attention_int8", "int8", False),
+    ("decode_attention_int4", "int4", False),
+)
+
+
+def _attention_case(dtype, kind, gen):
+    """q, k_new, v_new, a key mask with holes, and a cache of ``kind`` (fp /
+    int8 / int4 / merged) filled everywhere: (q, k_new, v_new, mask, caches,
+    scales) with caches = [k, v] or [kv]."""
     import torch
 
     dev = DEVICE
@@ -181,15 +214,164 @@ def _attention_case(dtype, int8, gen):
     mask = torch.randint(0, 2, (B_ATT, T_CAP), generator=gen, device=dev,
                          dtype=torch.int32)
     mask[:, 0] = 1
-    if int8:
-        caches = [torch.randint(-127, 128, (L, B_ATT, T_CAP, D), generator=gen,
-                                device=dev, dtype=torch.int8) for _ in range(2)]
-        caches += [torch.rand(L, B_ATT, T_CAP, generator=gen, device=dev) * 0.02
-                   + 0.005 for _ in range(2)]
-    else:
-        caches = [torch.randn(L, B_ATT, T_CAP, D, generator=gen, device=dev)
-                  .to(dtype) for _ in range(2)]
-    return q, k_new, v_new, mask, caches
+    if kind == "fp":
+        return q, k_new, v_new, mask, [
+            torch.randn(L, B_ATT, T_CAP, D, generator=gen, device=dev).to(dtype)
+            for _ in range(2)], []
+    row = {"int8": D, "int4": D // 2, "merged": 2 * D}[kind]
+    caches = [torch.randint(-127, 128, (L, B_ATT, T_CAP, row), generator=gen,
+                            device=dev, dtype=torch.int8)
+              for _ in range(1 if kind == "merged" else 2)]
+    scales = [torch.rand(L, B_ATT, T_CAP, generator=gen, device=dev) * 0.02 + 0.005
+              for _ in range(2)]
+    return q, k_new, v_new, mask, caches, scales
+
+
+def _decode_calls(da, name, kind, append, q, k_new, v_new, mask):
+    """(kernel call, plain call) of one wrapper, each taking (caches, scales,
+    position, layer)."""
+    kernel = getattr(da, name)
+    new = (k_new, v_new) if append else ()
+
+    def run_kernel(caches, scales, pos, layer):
+        return kernel(q, *new, *caches, *scales, mask, pos, layer, n_head=H)
+
+    def run_plain(caches, scales, pos, layer):
+        if append:
+            return da.decode_attention_append_plain(
+                q, k_new, v_new, caches[0], None if kind == "merged" else caches[1],
+                mask, pos, layer, H, *scales)
+        return da.decode_attention_plain(q, *caches, mask, pos, layer, H, *scales)
+
+    return run_kernel, run_plain
+
+
+# decode_block_fused vs its plain version (the per-layer loop). The kernel's
+# products sum in another order than torch.matmul, so a k/v entry differs in
+# its last bits (f32) or by one rounding of the stream type (bf16). In layer
+# 0, whose k/v depend on LN1 and the QKV product alone, an entry on a rounding
+# boundary is appended as a code 1 apart (bf16: up to 2, the entry's and the
+# row maximum's rounding) and a scale differs by the summation order (1e-5)
+# or one bf16 step (1e-2). A v code 1 apart moves a context entry by one
+# quantization step, 1/127 of the row's largest entry, times that slot's
+# probability (position 0: one live slot, probability 1). So h is held to
+# 5e-3 of its largest entry in f32 (the JAX package's tests hold the TPU
+# kernel's logits to 5e-3 for the same reason) and 4e-2 in bf16 (12 layers of
+# 2^-8 steps); the later layers' scales inherit h's difference and are held as
+# h is, their codes to 1 + 127 x that (2 in f32, 6 in bf16).
+FUSED_TOL = {
+    "float32": dict(h_rel=5e-3, codes0=1, codes=2, scale0_rel=1e-5, scale_rel=5e-3),
+    "bfloat16": dict(h_rel=4e-2, codes0=2, codes=6, scale0_rel=1e-2, scale_rel=4e-2)}
+
+# f32 logits of the whole engine over 60 teacher-forced steps at full width,
+# max-abs. Kernels against the plain versions per cache form, and the
+# whole-step kernel against the per-layer kernels. A quantized code on a
+# rounding boundary moves the logits, most with int4's 15 levels.
+TEACHER_FORCED_TOL = {"model": 1e-3, "int8": 2e-3, "merged": 2e-3, "int4": 5e-3,
+                      "fused": 2e-3, "fused_vs_per_layer": 2e-3}
+
+
+def _fused_weight_bytes_and_ops(p):
+    from mmtg_tpu_torch.ops.decode_megakernel import PARAM_KEYS
+
+    nbytes = sum(p[k].numel() * p[k].element_size() for k in PARAM_KEYS)
+    macs = sum(p[k].numel() for k in ("attn_w", "attn_proj_w", "mlp_fc_w", "mlp_proj_w"))
+    return nbytes, macs
+
+
+def phase_block_fused(results, gen):
+    """decode_block_fused (all 12 layers of one step in one launch) vs its plain
+    version at the full model width, B=64, T=256, position 235; timed beside
+    the plain version and the port's own per-layer step."""
+    import torch
+
+    from mmtg_tpu_torch.models import gpt2
+    from mmtg_tpu_torch.ops import decode_megakernel as mk
+    from mmtg_tpu_torch.params import init_gpt2_params
+
+    mcfg, _ = model_configs()
+    cfg = mcfg.gpt2
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = FUSED_TOL[dname]
+        p = init_gpt2_params(cfg, seed=4, dtype=dtype, device=DEVICE)["h"]
+        # biases and gains off their init values, so that each one matters
+        p = {k: (v + 0.05 * torch.randn(v.shape, generator=gen, device=DEVICE).to(dtype)
+                 if v.dim() == 2 else v) for k, v in p.items()}
+        h = (torch.randn(B_ATT, D, generator=gen, device=DEVICE) * 0.5).to(dtype)
+        _, _, _, mask, base_c, base_s = _attention_case(dtype, "int8", gen)
+        base = base_c + base_s
+        errs = {k: 0.0 for k in tol}
+        by_pos = {}
+        for pos in POSITIONS:
+            kc = [c.clone() for c in base]
+            pc = [c.clone() for c in base]
+            got = mk.decode_block_fused(h, p, *kc, mask, pos, n_head=H,
+                                        eps=cfg.layer_norm_epsilon)
+            ref = mk.decode_block_fused_plain(h, p, *pc, mask, pos, n_head=H,
+                                              eps=cfg.layer_norm_epsilon)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"decode_block_fused {dname} pos {pos}: h not finite")
+            e = dict(h_rel=((got.float() - ref.float()).abs().max()
+                            / ref.float().abs().max()).item(),
+                     codes0=0.0, codes=0.0, scale0_rel=0.0, scale_rel=0.0)
+            for a, b, orig in zip(kc[:2], pc[:2], base[:2]):
+                d = (a[:, :, pos].int() - b[:, :, pos].int()).abs()
+                e["codes"] = max(e["codes"], d.max().item())
+                e["codes0"] = max(e["codes0"], d[0].max().item())
+            for a, b, orig in zip(kc[2:], pc[2:], base[2:]):
+                rel = (a[:, :, pos] - b[:, :, pos]).abs() / b[:, :, pos]
+                e["scale_rel"] = max(e["scale_rel"], rel.max().item())
+                e["scale0_rel"] = max(e["scale0_rel"], rel[0].max().item())
+            for a, orig in zip(kc, base):  # nothing but slot `position` written
+                a[:, :, pos] = orig[:, :, pos]
+                check(torch.equal(a, orig), f"decode_block_fused {dname} pos {pos}: "
+                      "a slot other than `position` was written")
+            by_pos[pos] = e
+            errs = {k: max(errs[k], e[k]) for k in errs}
+            del kc, pc
+        summary = (f"h {errs['h_rel']:.3g} of its largest entry (by position: "
+                   + ", ".join(f"{k}: {v['h_rel']:.2g}" for k, v in by_pos.items())
+                   + f"), codes within {errs['codes']:.0f} (layer 0: {errs['codes0']:.0f}),"
+                   f" scales {errs['scale_rel']:.3g} (layer 0: {errs['scale0_rel']:.3g})")
+        for k in tol:
+            check(errs[k] <= tol[k], f"decode_block_fused {dname}: {k} {errs[k]:.3g} > "
+                  f"{tol[k]}; {summary}")
+        errs["by_position"] = by_pos
+        state = [c.clone() for c in base]
+        cache = gpt2.KVCache(*state)
+        args = (h, p, *state, mask, TIMED_POSITION)
+        ms = device_ms(lambda: mk.decode_block_fused(
+            *args, n_head=H, eps=cfg.layer_norm_epsilon), reps=11, warmup=2)
+        plain_ms = device_ms(lambda: mk.decode_block_fused_plain(
+            *args, n_head=H, eps=cfg.layer_norm_epsilon), reps=11, warmup=2)
+        # no one PyTorch call computes a decode step; the yardstick is the
+        # port's own per-layer step: cuBLAS products, eager elementwise ops
+        # and the per-layer decode-attention kernel, 12 layers
+        per_layer_ms = device_ms(lambda: gpt2._decode_layers(
+            p, cfg, cache, h, TIMED_POSITION, mask, True, "int8", H), reps=11, warmup=2)
+        n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
+        w_bytes, macs = _fused_weight_bytes_and_ops(p)
+        e = h.element_size()
+        nbytes = (w_bytes + 2 * B_ATT * D * e                 # weights, h in and out
+                  + L * (2 * n_live * D + 2 * 4 * n_live      # live k/v rows, scales
+                         + 2 * B_ATT * D + 2 * 4 * B_ATT)     # appended rows, scales
+                  + 4 * B_ATT * (TIMED_POSITION + 1))         # mask
+        ops = 2.0 * B_ATT * macs + L * 4.0 * n_live * D
+        results[("decode_block_fused", dname)] = dict(
+            max_abs_err=errs["h_rel"], errs=errs, ms=ms, plain_ms=plain_ms,
+            library_ms=None, per_layer_step_ms=per_layer_ms,
+            **bound(nbytes, ops, dname))
+        lines.append(
+            f"decode_block_fused[{dname}] {summary}; kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms per-layer step (the port's own: cuBLAS "
+            f"+ eager ops + attention kernel) {per_layer_ms:.4f} ms bound "
+            f"{results[('decode_block_fused', dname)]['bound_ms']:.4f} ms")
+        del p, state, cache, base, base_c, base_s
+        torch.cuda.empty_cache()
+    return lines
 
 
 def phase_kernels(out):
@@ -201,73 +383,72 @@ def phase_kernels(out):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     results = {}
     lines = []
-    for name, int8 in (("decode_attention_int8_append", True),
-                       ("decode_attention_fp_append", False)):
-        kernel = da.decode_attention_int8_append if int8 else da.decode_attention_fp_append
+    for name, kind, append in DECODE_WRAPPERS:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
-            q, k_new, v_new, mask, base = _attention_case(dtype, int8, gen)
+            q, k_new, v_new, mask, base_c, base_s = _attention_case(dtype, kind, gen)
+            run_kernel, run_plain = _decode_calls(da, name, kind, append, q, k_new,
+                                                  v_new, mask)
             err = 0.0
             for pos in POSITIONS:
                 layer = pos % L
-                kc = [c.clone() for c in base]
-                pc = [c.clone() for c in base]
-                ctx_k = kernel(q, k_new, v_new, *kc, mask, pos, layer, n_head=H)
-                ctx_p = da.decode_attention_append_plain(
-                    q, k_new, v_new, pc[0], pc[1], mask, pos, layer, H,
-                    *(pc[2:] if int8 else ()))
+                kc = [c.clone() for c in base_c + base_s]
+                pc = [c.clone() for c in base_c + base_s]
+                n = len(base_c)
+                ctx_k = run_kernel(kc[:n], kc[n:], pos, layer)
+                ctx_p = run_plain(pc[:n], pc[n:], pos, layer)
                 torch.cuda.synchronize()
-                for a, b, what in zip(kc, pc, ("k", "v", "k_scale", "v_scale")):
-                    check(torch.equal(a, b), f"{name} {dname} pos {pos}: "
-                          f"{what} cache differs from the plain version")
+                # appended bytes and scales bit for bit (read-only: untouched)
+                for a, b, orig in zip(kc, pc, base_c + base_s):
+                    check(torch.equal(a, b), f"{name} {dname} pos {pos}: a cache "
+                          "or scale tensor differs from the plain version")
+                    check(append or torch.equal(a, orig),
+                          f"{name} {dname} pos {pos}: a read-only call wrote")
                 e = (ctx_k.float() - ctx_p.float()).abs().max().item()
                 check(e <= TOL[dname][0], f"{name} {dname} pos {pos}: ctx "
                       f"max-abs {e:.3g} > {TOL[dname][0]}")
                 err = max(err, e)
                 del kc, pc
-            caches = [c.clone() for c in base]
-
-            def run_kernel():
-                return kernel(q, k_new, v_new, *caches, mask, TIMED_POSITION,
-                              run_kernel.layer, n_head=H)
-
-            def run_plain():
-                return da.decode_attention_append_plain(
-                    q, k_new, v_new, caches[0], caches[1], mask,
-                    TIMED_POSITION, run_kernel.layer, H,
-                    *(caches[2:] if int8 else ()))
+            caches, scales = [c.clone() for c in base_c], [c.clone() for c in base_s]
+            state = {"layer": 0}
 
             def rotate(r):  # a different layer per call: the cache is cold
-                run_kernel.layer = r % L
+                state["layer"] = r % L
 
-            run_kernel.layer = 0
-            ms = device_ms(run_kernel, between=rotate)
-            plain_ms = device_ms(run_plain, between=rotate)
+            ms = device_ms(lambda: run_kernel(caches, scales, TIMED_POSITION,
+                                              state["layer"]), between=rotate)
+            plain_ms = device_ms(lambda: run_plain(caches, scales, TIMED_POSITION,
+                                                   state["layer"]), between=rotate)
             library_ms = None
-            if not int8:
-                # the library yardstick: write the row, then one SDPA call
-                # over the live prefix (no PyTorch call reads an int8 cache)
+            if kind == "fp":
+                # the library yardstick: (write the row, then) one SDPA call
+                # over the live prefix (no PyTorch call reads a quantized cache)
                 W = TIMED_POSITION + 1
                 slot = torch.tensor([TIMED_POSITION], device=DEVICE)
                 live = (mask[:, :W] != 0)[:, None, None, :]
 
                 def run_library():
-                    kc, vc = caches[0][run_kernel.layer], caches[1][run_kernel.layer]
-                    kc.index_copy_(1, slot, k_new[:, None])
-                    vc.index_copy_(1, slot, v_new[:, None])
+                    kc, vc = caches[0][state["layer"]], caches[1][state["layer"]]
+                    if append:
+                        kc.index_copy_(1, slot, k_new[:, None])
+                        vc.index_copy_(1, slot, v_new[:, None])
                     heads = lambda t: t[:, :W].view(B_ATT, W, H, D // H).transpose(1, 2)  # noqa: E731
                     return torch.nn.functional.scaled_dot_product_attention(
                         q.view(B_ATT, H, 1, D // H), heads(kc), heads(vc),
                         attn_mask=live)
 
                 library_ms = device_ms(run_library, between=rotate)
-            # the bound counts what this mask needs: live slots only
+            # the bound counts what this mask needs: live slots only, each
+            # stored k and v row once (D, or D/2 bytes for int4)
             n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
             e, c = q.element_size(), caches[0].element_size()
-            nbytes = (3 * B_ATT * D * e + 2 * n_live * D * c
-                      + 4 * B_ATT * (TIMED_POSITION + 1)
-                      + 2 * B_ATT * D * c + B_ATT * D * e
-                      + (2 * 4 * (n_live + B_ATT) if int8 else 0))
+            row = D // 2 if kind == "int4" else D
+            nbytes = (B_ATT * D * e + 2 * n_live * row * c   # q, live k/v rows
+                      + 4 * B_ATT * (TIMED_POSITION + 1) + B_ATT * D * e  # mask, ctx
+                      + (2 * 4 * n_live if kind != "fp" else 0))  # live scales
+            if append:  # k_new / v_new in, the appended rows (and scales) out
+                nbytes += 2 * B_ATT * D * e + 2 * B_ATT * row * c
+                nbytes += 2 * 4 * B_ATT if kind != "fp" else 0
             results[(name, dname)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 **bound(nbytes, 4.0 * n_live * D, dname))
@@ -275,8 +456,9 @@ def phase_kernels(out):
                          f"plain {plain_ms:.4f} ms library "
                          f"{'none' if library_ms is None else format(library_ms, '.4f') + ' ms'}"
                          f" bound {results[(name, dname)]['bound_ms']:.4f} ms")
-            del base, caches
+            del base_c, base_s, caches, scales
             torch.cuda.empty_cache()
+    lines += phase_block_fused(results, gen)
 
     s = GRU_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
@@ -598,31 +780,29 @@ def _full_width_inputs(dtype, seed):
 TRAIN_FNS = ("mha_train_packed", "mha_train_packed_seg", "mha_train")
 
 
-def _counts():
+def _counted():
+    """name -> (object, attribute) of every launch count the port keeps."""
     from mmtg_tpu_torch.ops import decode_attention as da
+    from mmtg_tpu_torch.ops import decode_megakernel as mk
     from mmtg_tpu_torch.ops import fused_gru as fg
     from mmtg_tpu_torch.ops import train_attention as ta
 
-    counts = {"decode_attention_int8_append": da.decode_attention_int8_append.launches,
-              "decode_attention_fp_append": da.decode_attention_fp_append.launches,
-              "fused_gru": fg.fused_gru.launches}
+    counted = {fn.__name__: (fn, "launches") for fn in da.WRAPPERS}
+    counted["decode_block_fused"] = (mk.decode_block_fused, "launches")
+    counted["fused_gru"] = (fg.fused_gru, "launches")
     for name in TRAIN_FNS:
-        counts[f"{name}_fwd"] = getattr(ta, name).fwd_launches
-        counts[f"{name}_bwd"] = getattr(ta, name).bwd_launches
-    return counts
+        counted[f"{name}_fwd"] = (getattr(ta, name), "fwd_launches")
+        counted[f"{name}_bwd"] = (getattr(ta, name), "bwd_launches")
+    return counted
+
+
+def _counts():
+    return {name: getattr(obj, attr) for name, (obj, attr) in _counted().items()}
 
 
 def _reset_counts():
-    from mmtg_tpu_torch.ops import decode_attention as da
-    from mmtg_tpu_torch.ops import fused_gru as fg
-    from mmtg_tpu_torch.ops import train_attention as ta
-
-    da.decode_attention_int8_append.launches = 0
-    da.decode_attention_fp_append.launches = 0
-    fg.fused_gru.launches = 0
-    for name in TRAIN_FNS:
-        getattr(ta, name).fwd_launches = 0
-        getattr(ta, name).bwd_launches = 0
+    for obj, attr in _counted().values():
+        setattr(obj, attr, 0)
 
 
 def _only(launches, expected, what):
@@ -684,10 +864,274 @@ def phase_generate(out, gpu):
         tps = b * LENGTH / wall
         out[f"generate_{what.replace(' ', '_')}"] = dict(
             wall_s=wall, tok_per_s=tps, launches=got)
-        lines.append(f"{what}: {wall:.3f} s, {tps:.1f} tok/s, launches {got}")
+        lines.append(f"{what}: {wall:.3f} s, {tps:.1f} tok/s, launches "
+                     f"{ {k: v for k, v in got.items() if v} }")
     launches = _counts()  # ---- read just after the main path ---------------
     print(f"phase 3 generate (full width, bf16, {LENGTH} tokens, on {gpu}): ok; "
           + "; ".join(lines))
+    return launches
+
+
+def phase_oracle(out):
+    """The read-only kernels in the role the JAX package gives them: after an
+    append kernel has written slot `position`, the read-only kernel of the same
+    cache kind, on the cache just written, gives the same context bit for bit
+    (both run the same attend stage). A kernel against a kernel: no plain
+    version is involved. Full width, B=64, T=256."""
+    import torch
+
+    from mmtg_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    pairs = (("fp", da.decode_attention_fp_append, da.decode_attention),
+             ("int8", da.decode_attention_int8_append, da.decode_attention_int8),
+             ("int4", da.decode_attention_int4_append, da.decode_attention_int4),
+             ("merged", da.decode_attention_int8_append_merged, da.decode_attention_int8))
+    _reset_counts()  # ---- this path starts here ------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, append, read in pairs:
+            q, k_new, v_new, mask, caches, scales = _attention_case(dtype, kind, gen)
+            for pos in POSITIONS:
+                layer = pos % L
+                ctx = append(q, k_new, v_new, *caches, *scales, mask, pos, layer, n_head=H)
+                split = caches
+                if kind == "merged":  # the read-only kernel takes the split halves
+                    split = [caches[0][layer:layer + 1, ..., :D].contiguous(),
+                             caches[0][layer:layer + 1, ..., D:].contiguous()]
+                    again = read(q, *split, *(s[layer:layer + 1] for s in scales), mask,
+                                 pos, 0, n_head=H)
+                else:
+                    again = read(q, *split, *scales, mask, pos, layer, n_head=H)
+                torch.cuda.synchronize()
+                check(torch.equal(ctx, again), f"oracle {kind} {dtype} pos {pos}: the "
+                      "read-only kernel disagrees with the append kernel")
+            del caches, scales
+            torch.cuda.empty_cache()
+    launches = _counts()  # ---- read just after ---------------------------------
+    n = 2 * len(POSITIONS)
+    _only(launches, {"decode_attention_fp_append": n, "decode_attention": n,
+                     "decode_attention_int8_append": n, "decode_attention_int8": 2 * n,
+                     "decode_attention_int4_append": n, "decode_attention_int4": n,
+                     "decode_attention_int8_append_merged": n}, "oracle")
+    out["oracle"] = dict(launches=launches)
+    print(f"phase 11 read-only kernels as oracles (append, then read the cache just "
+          f"written: same ctx bit for bit; fp / int8 / int4 / merged, f32 and bf16, "
+          f"{len(POSITIONS)} positions): ok")
+    return launches
+
+
+def phase_generate_serving(out, gpu):
+    """The serving decode paths of decoding.generate at full width, B=64, bf16,
+    220 tokens: int4 cache, merged k||v cache, the whole-step kernel, beside
+    the int8 per-layer path of the same run; launch counts asserted."""
+    import torch
+
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.decoding import generate
+
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
+    steps = mcfg.gpt2.n_layer * LENGTH  # per-layer kernels: one launch a layer and step
+    base = dict(weight_dtype="model")
+    runs = [("int8 per-layer", GenerateConfig(cache_dtype="int8", **base),
+             {"decode_attention_int8_append": steps}),
+            ("int4 cache", GenerateConfig(cache_dtype="int4", **base),
+             {"decode_attention_int4_append": steps}),
+            ("merged kv", GenerateConfig(cache_dtype="int8", merged_kv=True, **base),
+             {"decode_attention_int8_append_merged": steps}),
+            ("fused", GenerateConfig(cache_dtype="int8", attn_impl="fused", **base),
+             {"decode_block_fused": LENGTH})]
+    batch = make_batch(64)
+    for _, gcfg, _ in runs:  # warm-up
+        generate(params, const, mcfg, dcfg, gcfg, batch,
+                 torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+
+    _reset_counts()  # ---- the main path starts here --------------------------
+    lines, before, res = [], _counts(), {}
+    for what, gcfg, expected in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(params, const, mcfg, dcfg, gcfg, batch,
+                        torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        now = _counts()
+        got = {k: now[k] - before[k] for k in now}
+        before = now
+        _only(got, {**expected, "fused_gru": 2}, what)
+        _check_tokens(toks, mcfg, dcfg, what)
+        res[what] = dict(wall_s=wall, tok_per_s=64 * LENGTH / wall, launches=got)
+        lines.append(f"{what}: {wall:.3f} s, {64 * LENGTH / wall:.1f} tok/s, "
+                     f"launches {expected}")
+    launches = _counts()  # ---- read just after the main path ---------------
+    out["generate_serving_b64"] = res
+    print(f"phase 12 generate, serving decode paths (full width, bf16, B=64, {LENGTH} "
+          f"tokens, weights bf16, on {gpu}): ok; " + "; ".join(lines))
+    return launches
+
+
+def phase_stream(out, gpu):
+    """generate_stream with per-row seeds at B=64 vs generate with the same
+    seeds: equal token for token; the time to the first block."""
+    import torch
+
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.decoding import generate, generate_stream
+    from mmtg_tpu_torch.ops import prng
+
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
+    gcfg = GenerateConfig(cache_dtype="int8", weight_dtype="model")
+    batch = make_batch(64)
+    key = prng.PRNGKey(11, device=DEVICE)
+    seeds = torch.arange(64, dtype=torch.int32, device=DEVICE) * 7 - 100
+    _reset_counts()
+    full = generate(params, const, mcfg, dcfg, gcfg, batch, key, row_seeds=seeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks, first_s = [], None
+    for blk in generate_stream(params, const, mcfg, dcfg, gcfg, batch, key,
+                               row_seeds=seeds):
+        host = blk.cpu()  # a client reads the block: wait for the device
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        blocks.append(host)
+    total_s = time.perf_counter() - t0
+    check([b.shape[1] for b in blocks] == [22] * 10, "stream: blocks are not 10 x 22")
+    check(torch.equal(torch.cat(blocks, dim=1), full[:, 1:].cpu()),
+          "stream: the blocks differ from generate with the same seeds")
+    _check_tokens(full, mcfg, dcfg, "stream")
+    # another companion set, the same seeds: row 0's tokens do not move
+    alone = generate(params, const, mcfg, dcfg, gcfg,
+                     {k: v[:8] for k, v in batch.items()}, key, row_seeds=seeds[:8])
+    same = bool(torch.equal(alone[0], full[0]))
+    launches = _counts()
+    # three decodes (one-shot, streamed, the batch of 8), per-layer kernels
+    _only(launches, {"decode_attention_int8_append": 3 * mcfg.gpt2.n_layer * LENGTH,
+                     "fused_gru": 6}, "stream")
+    out["stream_b64"] = dict(first_block_s=first_s, total_s=total_s,
+                             row0_same_in_a_batch_of_8=same)
+    print(f"phase 13 generate_stream with row_seeds (full width, bf16, B=64, on {gpu}): "
+          f"ok; 10 blocks of 22 equal generate token for token; first block after "
+          f"{first_s:.3f} s, all after {total_s:.3f} s; row 0 in a batch of 8 with the "
+          f"same seed: {'the same tokens' if same else 'other tokens (bf16 products differ by batch shape)'}")
+    return launches
+
+
+def phase_serve(out, gpu, paths, model):
+    """The service as its CLI builds it (serve.build_service from parsed flags,
+    default device: the card) at full width: concurrent requests through
+    submit, one streamed over HTTP on a local port, each held against generate
+    with the same seeds; /reload once; a clean stop."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mmtg_tpu_torch import decoding, serve
+    from mmtg_tpu_torch.data import MMTGDataset, make_synthetic_records
+    from mmtg_tpu_torch.ops import prng
+    from mmtg_tpu_torch.tokenizer import WordPieceTokenizer
+
+    mcfg, dcfg = model_configs()
+    args = serve.build_arg_parser().parse_args([
+        "--model_path", model, "--tokenizer_path", paths["vocab"],
+        "--token_emb_path", paths["emb"], "--buckets", "4,8", "--max_wait_ms", "200",
+        "--seed", "5", "--cache_dtype", "int8", "--weight_dtype", "model",
+        "--attn_impl", "fused"])
+    t0 = time.perf_counter()
+    service, tok = serve.build_service(args)
+    check(service.device.type == DEVICE, f"service on {service.device}")
+    service.warmup(bucket=4)
+    warm_s = time.perf_counter() - t0
+    records = make_synthetic_records(5, np.random.default_rng(3),
+                                     emb_size=dcfg.wenlan_emb_size)
+    for r in records:
+        r.pop("rating")
+    ds = MMTGDataset.from_records(records, WordPieceTokenizer.from_file(paths["vocab"]),
+                                  dcfg, if_train=False)
+    samples = [{k: np.asarray(ds[i][k]) for k in serve.SAMPLE_KEYS} for i in range(5)]
+
+    def direct(rows, seeds):
+        # the window as the service packs it: the rows, then pad rows that
+        # repeat row 0 with seed 0, up to the bucket
+        reqs = [serve._Pending(s, seed, None) for s, seed in zip(rows, seeds)]
+        batch, seed_t = service._pack(reqs, service._bucket_for(len(reqs)))
+        return decoding.generate(service.params, service.const, mcfg, dcfg,
+                                 service.gcfg, batch, prng.PRNGKey(5, device=DEVICE),
+                                 row_seeds=seed_t).cpu().numpy()[:len(rows)]
+
+    httpd = serve.serve_http(service, port=0, tokenizer=tok)
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        _reset_counts()  # ---- the main path starts here ----------------------
+        t0 = time.perf_counter()
+        futs = [service.submit(samples[i], seed=40 + i) for i in range(4)]
+        got = [f.result(timeout=300) for f in futs]
+        batch_s = time.perf_counter() - t0
+        body = serve.encode_request_npz(samples[4], seed=77)
+        req = urllib.request.Request(
+            f"http://localhost:{port}/generate_stream", data=body,
+            headers={"Content-Type": serve.NPZ_CONTENT_TYPE})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            first_s, raw = None, b""
+            while True:
+                line = r.readline()
+                if not line:
+                    break
+                if first_s is None and line.startswith(b"data: "):
+                    first_s = time.perf_counter() - t0
+                raw += line
+        stream_s = time.perf_counter() - t0
+        launches = _counts()  # ---- read just after the main path -----------
+        events = [_json.loads(ev[len("data: "):]) for ev in raw.decode().split("\n\n")
+                  if ev.startswith("data: ")]
+        check(events[-1].get("done") is True and events[-1]["tokens_total"] == LENGTH,
+              f"serve stream: last event {events[-1]}")
+        streamed = [t for ev in events[:-1] for t in ev["tokens"]]
+        want = direct(samples[:4], [40, 41, 42, 43])
+        for i in range(4):
+            check(np.array_equal(got[i], want[i]), f"serve: response {i} differs from "
+                  "generate with the same seeds")
+        _check_tokens(torch.from_numpy(np.stack(got)), mcfg, dcfg, "serve")
+        want_s = direct([samples[4]], [77])[0]
+        check(np.array_equal(np.asarray([int(want_s[0])] + streamed), want_s),
+              "serve: the streamed response differs from generate with the same seed")
+        # 4 one-shot rows in one window (1 launch a step), the stream's window
+        # in 10 blocks (1 launch a step); the encoder's two GRUs per window
+        _only(launches, {"decode_block_fused": 2 * LENGTH, "fused_gru": 4}, "serve")
+        req = urllib.request.Request(
+            f"http://localhost:{port}/reload", data=_json.dumps({"model_path": model}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            check(_json.loads(r.read())["ok"] is True, "serve: /reload failed")
+        again = service.generate_sync(samples[0], seed=40, timeout=300)
+        check(np.array_equal(again, direct([samples[0]], [40])[0]),
+              "serve: after /reload the response differs from generate")
+        with urllib.request.urlopen(f"http://localhost:{port}/healthz", timeout=30) as r:
+            check(_json.loads(r.read()) == {"ok": True}, "serve: /healthz")
+        stats = service.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(60)
+        service.stop()
+    check(not th.is_alive() and service._thread is None, "serve: a thread is left")
+    check(stats["batches"] == 3 and stats["served"] == 6 and stats["errors"] == 0,
+          f"serve: stats {stats}")
+    out["serve"] = dict(build_and_warmup_s=warm_s, window_of_4_s=batch_s,
+                        stream_first_event_s=first_s, stream_total_s=stream_s,
+                        stats=stats, launches=launches)
+    print(f"phase 14 serve (build_service from CLI flags, full width, f32, buckets 4,8, "
+          f"attn_impl=fused, on {gpu}): ok; started and warmed in {warm_s:.1f} s; 4 "
+          f"concurrent requests in one window {batch_s:.3f} s; 1 request streamed over "
+          f"HTTP: first sentence after {first_s:.3f} s, all after {stream_s:.3f} s; every "
+          f"response equals generate with the same seeds; /reload ok; stopped cleanly; "
+          f"{launches['decode_block_fused']} launches of decode_block_fused")
     return launches
 
 
@@ -710,22 +1154,36 @@ def phase_teacher_forced(out):
             tokens[:, j] = sp.eos_id
         elif j and j % 22 == 0:
             tokens[:, j] = sp.start_id
-    errs = {}
-    for cache in ("model", "int8"):
-        gcfg = GenerateConfig(cache_dtype=cache)
+    errs, kernel_logits = {}, {}
+    forms = {"model": dict(cache_dtype="model"), "int8": dict(cache_dtype="int8"),
+             "int4": dict(cache_dtype="int4"),
+             "merged": dict(cache_dtype="int8", merged_kv=True),
+             "fused": dict(cache_dtype="int8", attn_impl="fused")}
+    for form, kw in forms.items():
+        gcfg = GenerateConfig(**kw)
         a = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, batch,
                                          tokens, use_kernels=True)
         b = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, batch,
                                          tokens, use_kernels=False)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(a).all()), f"teacher-forced {cache}: non-finite")
-        errs[cache] = (a - b).abs().max().item()
-    check(errs["model"] <= 1e-3, f"teacher-forced f32 logits, kernels vs plain: "
-          f"max-abs {errs['model']:.3g} > 1e-3")
+        check(bool(torch.isfinite(a).all()), f"teacher-forced {form}: non-finite")
+        errs[form] = (a - b).abs().max().item()
+        kernel_logits[form] = a
+    # the whole-step kernel against the per-layer kernels, both on the card
+    errs["fused_vs_per_layer"] = (
+        kernel_logits["fused"] - kernel_logits["int8"]).abs().max().item()
+    for form, tol in TEACHER_FORCED_TOL.items():
+        check(errs[form] <= tol, f"teacher-forced f32 logits over {K} steps, {form}: "
+              f"max-abs {errs[form]:.3g} > {tol}")
+    # the merged layout is the split one bit for bit, through the whole engine
+    check(torch.equal(kernel_logits["merged"], kernel_logits["int8"]),
+          "teacher-forced: merged cache logits differ from the split cache's")
     out["teacher_forced_max_abs"] = errs
     print(f"phase 4 teacher-forced logits (full width, f32, B=8, {K} tokens), "
-          f"kernels vs plain: ok; fp cache max-abs {errs['model']:.3g} (<= 1e-3); "
-          f"int8 cache max-abs {errs['int8']:.3g} (reported, not bounded)")
+          f"kernels vs plain, max-abs: ok; "
+          + "; ".join(f"{k} {errs[k]:.3g} (<= {tol})"
+                      for k, tol in TEACHER_FORCED_TOL.items())
+          + "; merged equals split bit for bit")
 
 
 def _train_batch(b, dcfg, seed):
@@ -1011,16 +1469,23 @@ def _cli_fixtures(tmp, dcfg):
     return paths
 
 
-def phase_cli(out, paths, tmp):
-    import torch
-
-    from mmtg_tpu_torch import generate as cli
+def _reference_checkpoint(tmp):
+    """A full-width reference .pth of seeded random weights."""
     from mmtg_tpu_torch.checkpoint import save_reference_checkpoint
     from mmtg_tpu_torch.params import init_params
 
-    mcfg, dcfg = model_configs()
+    mcfg, _ = model_configs()
     model = os.path.join(tmp, "model.pth")
     save_reference_checkpoint(model, init_params(mcfg, seed=5), mcfg)
+    return model
+
+
+def phase_cli(out, paths, tmp, model):
+    import torch
+
+    from mmtg_tpu_torch import generate as cli
+
+    mcfg, dcfg = model_configs()
     samples = os.path.join(tmp, "samples.txt")
     t0 = time.perf_counter()
     cli.main(["--data_path", paths["test"], "--model_path", model,
@@ -1034,7 +1499,6 @@ def phase_cli(out, paths, tmp):
         lines = f.read().splitlines()
     check(len(lines) == 4, f"CLI wrote {len(lines)} lines for 4 samples")
     check(all(ln.strip() for ln in lines), "CLI wrote an empty sample")
-    os.remove(model)
     out["cli"] = dict(seconds=secs, samples=len(lines))
     print(f"phase 5 CLI: ok; {len(lines)} samples in {secs:.1f} s, first: "
           f"{lines[0][:40]!r}")
@@ -1155,19 +1619,27 @@ def phase_packed_cli(out, paths, tmp):
 # (name, source, the TPU kernel it replaces, the phase whose run counts its
 # launches, the key of its phase-2 result at its main path's shape)
 _TA = "mmtg_tpu_torch/csrc/train_attention.cu"
+_DA = "mmtg_tpu_torch/csrc/decode_attention.cu"
+_JDA = "mmtg_tpu/ops/decode_attention.py"
 KERNELS = [
-    ("decode_attention_int8_append", "mmtg_tpu_torch/csrc/decode_attention.cu",
-     "mmtg_tpu/ops/decode_attention.py:169", "generate", ()),
-    ("decode_attention_fp_append", "mmtg_tpu_torch/csrc/decode_attention.cu",
-     "mmtg_tpu/ops/decode_attention.py:137", "generate", ()),
+    ("decode_attention_int8_append", _DA, f"{_JDA}:169", "generate", ()),
+    ("decode_attention_fp_append", _DA, f"{_JDA}:137", "generate", ()),
     ("fused_gru", "mmtg_tpu_torch/csrc/fused_gru.cu",
      "mmtg_tpu/ops/fused_gru.py:60", "generate", ()),
+    # the read-only kernels' path is the oracle cross-check (phase 11)
+    ("decode_attention", _DA, f"{_JDA}:50", "oracle", ()),
+    ("decode_attention_int8", _DA, f"{_JDA}:78", "oracle", ()),
+    ("decode_attention_int4", _DA, f"{_JDA}:106", "oracle", ()),
+    ("decode_attention_int4_append", _DA, f"{_JDA}:211", "generate_serving", ()),
+    ("decode_attention_int8_append_merged", _DA, f"{_JDA}:243", "generate_serving", ()),
+    ("mha_train", _TA, "mmtg_tpu/ops/train_attention.py:283", "train_head_major",
+     (TRAIN_BATCHES[-1],)),
     ("mha_train_packed", _TA, "mmtg_tpu/ops/train_attention.py:723", "train",
      (TRAIN_BATCHES[-1],)),
     ("mha_train_packed_seg", _TA, "mmtg_tpu/ops/train_attention.py:694",
      "train_packed", (PACK_ROWS,)),
-    ("mha_train", _TA, "mmtg_tpu/ops/train_attention.py:283", "train_head_major",
-     (TRAIN_BATCHES[-1],)),
+    ("decode_block_fused", "mmtg_tpu_torch/csrc/decode_block_fused.cu",
+     "mmtg_tpu/ops/decode_megakernel.py:360", "generate_serving", ()),
 ]
 
 
@@ -1200,11 +1672,17 @@ def main(argv=None) -> int:
     # each main path's run, the counts set to 0 before it and read after it
     launches = {"generate": phase_generate(out, gpu)}
     phase_teacher_forced(out)
+    launches["oracle"] = phase_oracle(out)
+    launches["generate_serving"] = phase_generate_serving(out, gpu)
+    launches["stream"] = phase_stream(out, gpu)
     mcfg, dcfg = model_configs()
     tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
     try:
         paths = _cli_fixtures(tmp, dcfg)
-        phase_cli(out, paths, tmp)
+        model = _reference_checkpoint(tmp)
+        phase_cli(out, paths, tmp, model)
+        launches["serve"] = phase_serve(out, gpu, paths, model)
+        os.remove(model)
         launches["train"] = phase_train(out, gpu, args.profile)
         phase_train_cli(out, paths, tmp)
         launches["train_packed"] = phase_train_packed(out, gpu, args.profile)
@@ -1229,6 +1707,12 @@ def main(argv=None) -> int:
                 bwd_bound_ms=r["bwd_bound"]["bound_ms"])
         else:
             n, extra = counts[name], {}
+            if name == "decode_block_fused":
+                # also driven by the service (phase 14); no one PyTorch call
+                # computes a decode step: the port's per-layer step beside it
+                extra = dict(serve_launches=launches["serve"][name],
+                             per_layer_step_ms=r["per_layer_step_ms"])
+        check(n > 0, f"{name} was not launched on its path ({path})")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -207,19 +207,26 @@ class GenerateConfig:
     # per-sentence scheme the reference rebuilds at inference
     # (model.py:296-306). See SURVEY.md §3.3 for the inconsistency.
     type_id_scheme: str = "train"
-    # Decode attention, kept for flag parity with the JAX package: the
-    # port attends through its CUDA kernel for CUDA tensors and through the
-    # plain version for CPU tensors; 'fused' (the whole-step megakernel) is
-    # not ported.
+    # Decode attention: 'auto' | 'pallas' | 'xla' all mean the per-layer
+    # path (the JAX package's names, kept for flag parity: the port attends
+    # through its CUDA kernel for CUDA tensors and through the plain version
+    # for CPU tensors); 'fused' runs all layers of a step in the whole-step
+    # kernel (ops/decode_megakernel) where its scope holds — int8 split
+    # cache, full-precision weights — and the per-layer path elsewhere
+    # (decoding.resolve_attn_impl).
     attn_impl: str = "auto"
     # KV cache precision: 'model' (= param dtype, reference-exact
     # numerics), 'int8' (per-row abs-max quantization — halves the decode
     # loop's cache traffic at a small sampling-distribution perturbation),
-    # 'int4' (not ported), or 'auto' (decoding.resolve_cache_dtype: 'int8'
-    # at decode batch >= 2, 'model' at batch 1). The CLIs default to
-    # 'auto', the library default stays 'model'.
+    # 'int4' (two codes a byte, a quarter of the bf16 traffic, a coarser
+    # perturbation), or 'auto' (decoding.resolve_cache_dtype: 'int8' at
+    # decode batch >= 2, 'model' at batch 1). The CLIs default to 'auto',
+    # the library default stays 'model'.
     cache_dtype: str = "model"
-    # Merged k||v cache storage (not ported; must stay False).
+    # Merged k||v cache storage: k and v of the int8 cache in one
+    # [L, B, T, 2D] buffer, built once after the prefill; bit-identical to
+    # the split layout. Int8 per-layer path only (ignored elsewhere, as in
+    # the JAX package).
     merged_kv: bool = False
     # top-k implementation: 'exact' (reference semantics); 'approx' is not
     # ported.

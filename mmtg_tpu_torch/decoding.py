@@ -5,26 +5,42 @@ loop of ``gcfg.length`` (220) steps forces frame tokens, samples (repetition
 penalty, bans, top-k / top-p), embeds the token with its WenLan vector plus
 the fused experience window, and runs one cached GPT-2 step. For CUDA
 tensors that step attends through the hand-written decode-attention kernel
-and the encoder runs the fused GRU kernel; for CPU tensors both are their
-plain PyTorch versions. That is the only switch.
+(full-precision, int8, int4 or merged k‖v cache) or, with
+``attn_impl="fused"``, runs all its layers in the whole-step kernel, and the
+encoder runs the fused GRU kernel; for CPU tensors each is its plain PyTorch
+version. That is the only switch.
+
+:func:`generate` returns the whole batch at once; :func:`generate_stream`
+yields it in blocks of ``chunk`` steps. Both drive one step function keyed on
+the GLOBAL step index, so any chunking equals the one-shot loop bit for bit.
+
+Random draws come from a ``torch.Generator`` (one stream for the batch) or,
+given a threefry key of :mod:`mmtg_tpu_torch.ops.prng`, from JAX's own
+counter-based streams: ``fold_in(rng, step)`` for the batch, or with
+``row_seeds`` ``fold_in(fold_in(rng, row_seeds[b]), step)`` per row — a row's
+tokens then depend on nothing batch-shaped, which is what lets the serving
+layer (:mod:`mmtg_tpu_torch.serve`) re-batch requests freely.
 
 Same frame / PAD / penalty / mask / type-id semantics as the JAX engine.
-Not ported yet (they raise ``NotImplementedError``): per-row seeds
-(``row_seeds``), merged k‖v caches, the int4 cache and the whole-step
-megakernel (``attn_impl="fused"``), and approximate top-k. The TPU layout
-work (sublane padding, ``layer_unroll``, ``score_dtype``) has no
-counterpart here.
+Without a counterpart here: approximate top-k (raises); the TPU layout work
+(sublane padding of the batch, ``layer_unroll``, ``score_dtype``, the Mosaic
+``% 128`` lane gate of ``resolve_attn_impl``) and the B = 1 switch to XLA
+attention. ``generate_sharded`` / ``generate_stream_sharded`` wait for the
+parallelism slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
 from mmtg_tpu_torch.configs import DataConfig, GenerateConfig, ModelConfig, SpecialTokens
 from mmtg_tpu_torch.models.gpt2 import (
+    KVCache,
     gpt2_decode_step,
+    merge_kv,
     prefill_cache,
     quantize_decode_weights,
 )
@@ -36,9 +52,12 @@ from mmtg_tpu_torch.models.mmtg import (
     train_scheme_type_ids,
     wenlan_embed,
 )
+from mmtg_tpu_torch.ops import prng
 from mmtg_tpu_torch.ops.sampling import frame_forced_token, sample_next_token
 
 SPECIAL = SpecialTokens()
+_CACHE_DTYPES = ("model", "int8", "int4")
+_ATTN_IMPLS = ("auto", "pallas", "xla", "fused")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,20 +75,56 @@ def resolve_weight_dtype(gcfg: GenerateConfig, batch_size: int) -> str:
 
 def resolve_cache_dtype(gcfg: GenerateConfig, batch_size: int) -> str:
     """``'auto'`` → int8 KV cache at B ≥ 2, the model dtype at B = 1 (the
-    JAX package's threshold, kept for parity until measured on the H100)."""
+    JAX package's threshold, kept for parity until measured on the H100).
+    Like ``weight_dtype='auto'`` the resolution changes the sampling
+    numerics with the batch size, so callers that promise one answer per
+    (request, seed) pin it once: ``serve.GenerationService`` from its
+    largest bucket, the generate CLI from the nominal ``--batch_size``."""
     if gcfg.cache_dtype != "auto":
         return gcfg.cache_dtype
     return "model" if batch_size <= 1 else "int8"
 
 
-def _check_scope(gcfg: GenerateConfig, cache_dtype: str) -> None:
-    if cache_dtype not in ("model", "int8"):
-        raise NotImplementedError(f"cache_dtype={cache_dtype!r} is not ported")
-    if gcfg.merged_kv:
-        raise NotImplementedError("merged_kv is not ported")
-    if gcfg.attn_impl == "fused":
-        raise NotImplementedError(
-            "attn_impl='fused' (the whole-step megakernel) is not ported")
+def resolve_attn_impl(gcfg: GenerateConfig, d_kv: int,
+                      tp_axis: Optional[str] = None,
+                      batch_size: Optional[int] = None) -> str:
+    """The EFFECTIVE decode implementation: ``"fused"`` (the whole-step
+    kernel) or ``"kernel"`` (the per-layer loop, which ``auto`` / ``pallas``
+    / ``xla`` all mean here). ``fused`` holds only inside its scope — int8
+    split cache (``merged_kv`` off), full-precision weights, ``d_kv`` a
+    multiple of 8 for the kernel's 16-byte weight loads — and resolves to
+    the per-layer kernels elsewhere, as in the JAX package. ``'auto'`` cache
+    / weights resolve per batch; without a batch (config-only reporting) the
+    large-batch resolutions (int8 / model) are assumed. Of the JAX gates,
+    the Mosaic ``% 128`` lane rule, the sublane rule and the B = 1 switch to
+    XLA attention are the TPU's and have no counterpart."""
+    if tp_axis is not None:
+        raise NotImplementedError("tensor parallelism is not ported (the "
+                                  "parallelism slice)")
+    if gcfg.attn_impl not in _ATTN_IMPLS:
+        raise ValueError(f"attn_impl {gcfg.attn_impl!r}: one of {_ATTN_IMPLS}")
+    if gcfg.attn_impl != "fused":
+        return "kernel"
+    if batch_size is not None:
+        cd = resolve_cache_dtype(gcfg, batch_size)
+        wd = resolve_weight_dtype(gcfg, batch_size)
+    else:
+        cd = "int8" if gcfg.cache_dtype == "auto" else gcfg.cache_dtype
+        wd = "model" if gcfg.weight_dtype == "auto" else gcfg.weight_dtype
+    in_scope = (cd == "int8" and not gcfg.merged_kv and wd != "int8"
+                and d_kv % 8 == 0)
+    return "fused" if in_scope else "kernel"
+
+
+def _resolved(gcfg: GenerateConfig, batch_size: int):
+    """``gcfg`` with its cache dtype pinned, and the effective (attn_impl,
+    weight dtype) for this batch."""
+    gcfg = dataclasses.replace(
+        gcfg, cache_dtype=resolve_cache_dtype(gcfg, batch_size))
+    if gcfg.cache_dtype not in _CACHE_DTYPES:
+        raise ValueError(f"cache_dtype {gcfg.cache_dtype!r}: one of "
+                         f"{_CACHE_DTYPES} or 'auto'")
+    return gcfg, resolve_weight_dtype(gcfg, batch_size)
 
 
 def _scheme(gcfg: GenerateConfig):
@@ -77,10 +132,12 @@ def _scheme(gcfg: GenerateConfig):
             else train_scheme_type_ids)
 
 
-def _prefill(params, table, mcfg, dcfg, batch, fused, first_tok, capacity,
-             cache_dtype):
+def _prefill(params, table, mcfg, dcfg, gcfg, batch, fused, first_tok,
+             capacity, attn_impl):
     """Topic prompt + first target token through the prefill; returns
-    (last-position logits, cache, key_mask)."""
+    (last-position logits, cache, key_mask). ``gcfg.cache_dtype`` is
+    resolved. With ``merged_kv`` the int8 cache of the per-layer path is
+    packed into one k‖v buffer here, once per call."""
     B = first_tok.shape[0]
     P = dcfg.topic_prompt_length
     dev = first_tok.device
@@ -92,7 +149,9 @@ def _prefill(params, table, mcfg, dcfg, batch, fused, first_tok, capacity,
                            torch.ones(B, 1, dtype=torch.int32, device=dev)], 1)
     logits, cache = prefill_cache(
         params["gpt2"], mcfg.gpt2, embeds, torch.arange(P + 1, device=dev),
-        type_ids, attn_mask, capacity, cache_dtype)
+        type_ids, attn_mask, capacity, gcfg.cache_dtype)
+    if gcfg.merged_kv and gcfg.cache_dtype == "int8" and attn_impl == "kernel":
+        cache = merge_kv(cache)
     key_mask = torch.zeros(B, capacity, dtype=torch.int32, device=dev)
     key_mask[:, :P + 1] = attn_mask
     return logits[:, -1], cache, key_mask
@@ -110,6 +169,111 @@ def _step_embed(params, table, dcfg, fused, gcfg, tok, j):
     return x, _scheme(gcfg)(pos, tok, dcfg).to(torch.int64)
 
 
+def _row_keys(rng: torch.Tensor, row_seeds: Optional[torch.Tensor]):
+    """Per-row streams: key(b, i) = fold_in(fold_in(rng, row_seeds[b]), i)
+    depends on nothing batch-shaped, so a row's sample path does not change
+    with the rows it is batched with."""
+    if row_seeds is None:
+        return None
+    return prng.fold_in(rng, row_seeds.to(rng.device))
+
+
+@dataclasses.dataclass
+class _DecodeState:
+    """What the decode loop carries from step to step (updated in place)."""
+
+    cache: KVCache
+    key_mask: torch.Tensor
+    tokens: torch.Tensor  # [B, 1 + length] int32, position 0 = [#START#]
+    seen: torch.Tensor  # [B, V] int16 occurrence counts
+    last_logits: torch.Tensor
+
+
+def _step_keys(generator, row_seeds, B: int, length: int, dev):
+    """The draw source of every step. A ``torch.Generator`` / ``None`` is
+    passed through (one stream, consumed in step order). A threefry key
+    gives ``[length, 2]`` keys ``fold_in(rng, i)`` or, with ``row_seeds``,
+    ``[B, length, 2]`` keys ``fold_in(row_key_b, i)``: every step's key is a
+    function of the GLOBAL step index, made here once for all steps."""
+    if not isinstance(generator, torch.Tensor):
+        if row_seeds is not None:
+            raise ValueError(
+                "row_seeds needs a threefry key as `generator` "
+                "(mmtg_tpu_torch.ops.prng.PRNGKey(seed)): a torch.Generator "
+                "is one stream for the whole batch")
+        return generator
+    rng = generator.to(dev)
+    if rng.shape != (2,) or rng.dtype != torch.int64:
+        raise ValueError(f"a threefry key is an int64 tensor [2], got "
+                         f"{tuple(rng.shape)} {rng.dtype}")
+    steps = torch.arange(length, dtype=torch.int64, device=dev)
+    if row_seeds is None:
+        return prng.fold_in(rng[None, :], steps)
+    if row_seeds.shape != (B,) or row_seeds.dtype.is_floating_point:
+        raise ValueError(f"row_seeds must be [B={B}] integers, got "
+                         f"{tuple(row_seeds.shape)} {row_seeds.dtype}")
+    return prng.fold_in(_row_keys(rng, row_seeds)[:, None, :], steps[None, :])
+
+
+def _decode_setup(params, const, mcfg, dcfg, gcfg, batch, generator, row_seeds):
+    """Encoder + prefill + decode-weight preparation: everything before the
+    per-token loop, shared by :func:`generate` and :func:`generate_stream`.
+    Returns (state, step) where ``step(i)`` decodes GLOBAL step ``i`` (target
+    position ``i + 1``) and updates ``state`` in place."""
+    table = const["wenlan_table"]
+    B = batch["topic_ids"].shape[0]
+    dev = batch["topic_ids"].device
+    V = mcfg.gpt2.vocab_size
+    P = dcfg.topic_prompt_length
+    attn_impl = resolve_attn_impl(gcfg, mcfg.gpt2.n_embd, batch_size=B)
+    gcfg, weight_dtype = _resolved(gcfg, B)
+    capacity = _round_up(P + gcfg.length + 1, 128)
+    keys = _step_keys(generator, row_seeds, B, gcfg.length, dev)
+    per_row = row_seeds is not None
+
+    fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
+                                  batch["img_embs"], batch["r_embs"],
+                                  use_fused_gru=True)
+    start = torch.full((B,), SPECIAL.start_id, dtype=torch.int64, device=dev)
+    last_logits, cache, key_mask = _prefill(
+        params, table, mcfg, dcfg, gcfg, batch, fused, start, capacity,
+        attn_impl)
+    gpt2_params = params["gpt2"]
+    if weight_dtype == "int8":
+        gpt2_params = quantize_decode_weights(gpt2_params)
+
+    tokens = torch.zeros(B, gcfg.length + 1, dtype=torch.int32, device=dev)
+    tokens[:, 0] = SPECIAL.start_id
+    # per-row occurrence counts (the penalty applies once per occurrence)
+    seen = torch.zeros(B, V, dtype=torch.int16, device=dev)
+    seen[:, SPECIAL.start_id] = 1
+    state = _DecodeState(cache, key_mask, tokens, seen, last_logits)
+    rows = torch.arange(B, device=dev)
+
+    def step(i: int) -> None:
+        is_forced, forced_id = frame_forced_token(i, dcfg.sent_frame_length)
+        if is_forced:
+            tok = torch.full((B,), forced_id, dtype=torch.int64, device=dev)
+        else:
+            key = keys[..., i, :] if isinstance(keys, torch.Tensor) else keys
+            tok = sample_next_token(
+                key, state.last_logits, state.seen, state.tokens[:, i],
+                temperature=gcfg.temperature, top_k=gcfg.top_k,
+                top_p=gcfg.top_p, repetition_penalty=gcfg.repetition_penalty,
+                topk_impl=gcfg.topk_impl, per_row_keys=per_row,
+            ).to(torch.int64)
+        j = i + 1
+        state.tokens[:, j] = tok.to(torch.int32)
+        state.seen[rows, tok] += 1
+        x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
+        state.key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
+        state.last_logits = gpt2_decode_step(
+            gpt2_params, mcfg.gpt2, state.cache, x, P + j, tt, state.key_mask,
+            attn_impl=attn_impl)
+
+    return state, step
+
+
 @torch.no_grad()
 def generate(
     params: Dict,
@@ -118,7 +282,7 @@ def generate(
     dcfg: DataConfig,
     gcfg: GenerateConfig,
     batch: Dict[str, torch.Tensor],
-    generator: Optional[torch.Generator] = None,
+    generator: Union[torch.Generator, torch.Tensor, None] = None,
     row_seeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Generate lyrics for a whole batch.
@@ -127,57 +291,60 @@ def generate(
       batch: ``topic_ids``, ``tpw_attention_mask``, ``tpw_type_ids``
         ``[B, 15]``; ``topic_emb`` ``[B, 2048]``; ``img_embs`` / ``r_embs``
         ``[B, 5, 2048]`` — tensors on the device the params live on.
-      generator: the ``torch.Generator`` (on that device) every draw comes
-        from; ``None`` uses PyTorch's default generator.
+      generator: where the draws come from. A ``torch.Generator`` on that
+        device (``None``: PyTorch's default generator), or a threefry key
+        (``ops.prng.PRNGKey(seed)``, the JAX engine's ``rng``): step ``i``
+        then draws from ``fold_in(rng, i)``, as the JAX engine does.
+      row_seeds: optional ``[B]`` integers (needs a threefry key). Row ``b``
+        then samples from its own stream, derived ONLY from ``(rng,
+        row_seeds[b], step)``: its tokens are the same whichever rows share
+        the batch.
     Returns:
       ``[B, 1 + length]`` int32 token ids, position 0 = ``[#START#]``.
     """
-    if row_seeds is not None:
-        raise NotImplementedError("per-row seeds (row_seeds) are not ported")
-    table = const["wenlan_table"]
-    B = batch["topic_ids"].shape[0]
-    dev = batch["topic_ids"].device
-    V = mcfg.gpt2.vocab_size
-    P = dcfg.topic_prompt_length
-    cache_dtype = resolve_cache_dtype(gcfg, B)
-    _check_scope(gcfg, cache_dtype)
-    capacity = _round_up(P + gcfg.length + 1, 128)
-
-    fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
-                                  batch["img_embs"], batch["r_embs"],
-                                  use_fused_gru=True)
-    start = torch.full((B,), SPECIAL.start_id, dtype=torch.int64, device=dev)
-    last_logits, cache, key_mask = _prefill(
-        params, table, mcfg, dcfg, batch, fused, start, capacity, cache_dtype)
-    gpt2_params = params["gpt2"]
-    if resolve_weight_dtype(gcfg, B) == "int8":
-        gpt2_params = quantize_decode_weights(gpt2_params)
-
-    tokens = torch.zeros(B, gcfg.length + 1, dtype=torch.int32, device=dev)
-    tokens[:, 0] = SPECIAL.start_id
-    # per-row occurrence counts (the penalty applies once per occurrence)
-    seen = torch.zeros(B, V, dtype=torch.int16, device=dev)
-    seen[:, SPECIAL.start_id] = 1
-    rows = torch.arange(B, device=dev)
+    state, step = _decode_setup(params, const, mcfg, dcfg, gcfg, batch,
+                                generator, row_seeds)
     for i in range(gcfg.length):
-        is_forced, forced_id = frame_forced_token(i, dcfg.sent_frame_length)
-        if is_forced:
-            tok = torch.full((B,), forced_id, dtype=torch.int64, device=dev)
-        else:
-            tok = sample_next_token(
-                generator, last_logits, seen, tokens[:, i],
-                temperature=gcfg.temperature, top_k=gcfg.top_k,
-                top_p=gcfg.top_p, repetition_penalty=gcfg.repetition_penalty,
-                topk_impl=gcfg.topk_impl,
-            ).to(torch.int64)
-        j = i + 1
-        tokens[:, j] = tok.to(torch.int32)
-        seen[rows, tok] += 1
-        x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
-        key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
-        last_logits = gpt2_decode_step(gpt2_params, mcfg.gpt2, cache, x, P + j,
-                                       tt, key_mask)
-    return tokens
+        step(i)
+    return state.tokens
+
+
+def generate_stream(
+    params: Dict,
+    const: Dict,
+    mcfg: ModelConfig,
+    dcfg: DataConfig,
+    gcfg: GenerateConfig,
+    batch: Dict[str, torch.Tensor],
+    generator: Union[torch.Generator, torch.Tensor, None] = None,
+    row_seeds: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None,
+) -> Iterator[torch.Tensor]:
+    """Streaming generation: yield ``[B, n]`` int32 token blocks as they are
+    decoded, bit-identical to :func:`generate`.
+
+    The encoder and the prefill run once, on the first ``next()``; then
+    blocks of ``chunk`` steps (default ``dcfg.sent_frame_length`` = 22, one
+    lyric sentence a block; ``n == chunk`` except possibly for the last).
+    Concatenated, the blocks equal ``generate(...)[:, 1:]`` (the one-shot
+    output without the seeded ``[#START#]`` column): both run the same step,
+    keyed on the global step index. ``generator`` / ``row_seeds`` as in
+    :func:`generate`. Each block is a fresh tensor on the batch's device;
+    nothing waits for the device before the caller reads it."""
+    chunk = dcfg.sent_frame_length if chunk is None else chunk
+    chunk = max(1, min(int(chunk), gcfg.length))
+    with torch.no_grad():
+        state, step = _decode_setup(params, const, mcfg, dcfg, gcfg, batch,
+                                    generator, row_seeds)
+    start = 0
+    while start < gcfg.length:
+        n = min(chunk, gcfg.length - start)
+        with torch.no_grad():  # not held across the yield
+            for i in range(start, start + n):
+                step(i)
+            block = state.tokens[:, start + 1:start + n + 1].clone()
+        yield block
+        start += n
 
 
 @torch.no_grad()
@@ -193,31 +360,36 @@ def teacher_forced_decode_logits(
 ) -> torch.Tensor:
     """Per-step logits of the cached decode engine under teacher forcing:
     ``tokens`` ``[B, K]`` (position 0 = ``[#START#]``) go through the same
-    prefill + per-token cached step the sampler uses; returns ``[B, K, V]``
-    where row ``j`` predicts the token after ``tokens[:, :j+1]``.
+    prefill + per-token cached step the sampler uses (the cache form and
+    ``attn_impl`` of ``gcfg`` included; the weights stay full precision);
+    returns ``[B, K, V]`` where row ``j`` predicts the token after
+    ``tokens[:, :j+1]``.
 
     ``use_kernels=False`` runs the plain PyTorch versions of the kernels on
     any device — the reference the kernel path is held against."""
     table = const["wenlan_table"]
     B, K = tokens.shape
     P = dcfg.topic_prompt_length
-    cache_dtype = resolve_cache_dtype(gcfg, B)
-    _check_scope(gcfg, cache_dtype)
+    attn_impl = resolve_attn_impl(
+        dataclasses.replace(gcfg, weight_dtype="model"), mcfg.gpt2.n_embd,
+        batch_size=B)
+    gcfg, _ = _resolved(gcfg, B)
     capacity = _round_up(P + K + 1, 128)
     tokens = tokens.to(torch.int64)
     fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
                                   batch["img_embs"], batch["r_embs"],
                                   use_fused_gru=use_kernels)
     logits, cache, key_mask = _prefill(
-        params, table, mcfg, dcfg, batch, fused, tokens[:, 0], capacity,
-        cache_dtype)
+        params, table, mcfg, dcfg, gcfg, batch, fused, tokens[:, 0], capacity,
+        attn_impl)
     out = [logits]
     for j in range(1, K):
         tok = tokens[:, j]
         x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
         key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
         out.append(gpt2_decode_step(params["gpt2"], mcfg.gpt2, cache, x, P + j,
-                                    tt, key_mask, use_kernels=use_kernels))
+                                    tt, key_mask, use_kernels=use_kernels,
+                                    attn_impl=attn_impl))
     return torch.stack(out, dim=1)
 
 

@@ -57,7 +57,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["auto", "model", "int8", "int4"],
                    help="KV cache precision; 'auto' resolves once per run "
                         "from the nominal decode batch (model at 1, int8 "
-                        "above); int4 is not ported")
+                        "above); int4 packs two codes a byte")
+    p.add_argument("--merged_kv", action="store_true",
+                   help="keep k and v of the int8 cache in one k||v buffer "
+                        "(GenerateConfig.merged_kv; per-layer path only)")
     p.add_argument("--weight_dtype", default="auto",
                    choices=["auto", "model", "int8"],
                    help="decode-matmul weight precision; 'auto' resolves "
@@ -66,9 +69,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="top-k sampling; 'approx' is not ported")
     p.add_argument("--attn_impl", default="auto",
                    choices=["auto", "pallas", "fused", "xla"],
-                   help="parity flag: the port attends through its CUDA "
-                        "kernel on a GPU and the plain version on the CPU; "
-                        "'fused' is not ported")
+                   help="decode step: 'fused' runs all layers in the "
+                        "whole-step kernel (int8 split cache, full-precision "
+                        "weights; the per-layer path elsewhere); auto / "
+                        "pallas / xla all mean the per-layer path, which "
+                        "attends through its CUDA kernel on a GPU and the "
+                        "plain version on the CPU")
     p.add_argument("--variant", default="chinese", choices=["chinese", "english"],
                    help="'english' = CLIP embeddings + byte-level-BPE GPT-2; "
                         "--tokenizer_path then points at a directory")
@@ -97,6 +103,19 @@ def resolve_device(name: str | None) -> torch.device:
     return torch.device(name)
 
 
+def load_params(model_path: str, mcfg: ModelConfig, device="cpu") -> Dict:
+    """The model's parameters from ``--model_path`` on ``device``: a
+    reference ``.pth`` / ``.ckpt`` / ``.pt`` checkpoint (Orbax directories
+    are not ported)."""
+    from mmtg_tpu_torch.checkpoint import load_reference_checkpoint
+
+    if not model_path.endswith((".pth", ".ckpt", ".pt")):
+        raise NotImplementedError(
+            f"--model_path {model_path!r}: only reference .pth "
+            "checkpoints load in the port (Orbax restore is not ported)")
+    return tree_to(load_reference_checkpoint(model_path, mcfg), device)
+
+
 def replicate_batch(rows: List[Dict[str, np.ndarray]], n_samples: int,
                     device) -> Dict[str, torch.Tensor]:
     """Stack test rows, each repeated ``n_samples`` times."""
@@ -118,7 +137,6 @@ def main(argv=None, mcfg: ModelConfig | None = None,
                                   "--mesh_data 1 --mesh_model 1)")
     from mmtg_tpu_torch.bpe import load_tokenizer
     from mmtg_tpu_torch.data import MMTGDataset, load_token_embedding_table
-    from mmtg_tpu_torch.checkpoint import load_reference_checkpoint
 
     logger = setup_logger()
     device = resolve_device(args.device)
@@ -147,6 +165,7 @@ def main(argv=None, mcfg: ModelConfig | None = None,
         length=dcfg.max_seq_length, type_id_scheme=args.type_id_scheme,
         cache_dtype=cache_dtype, weight_dtype=weight_dtype,
         topk_impl=args.topk_impl, attn_impl=args.attn_impl,
+        merged_kv=args.merged_kv,
     )
 
     tokenizer = load_tokenizer(args.tokenizer_path)
@@ -156,11 +175,7 @@ def main(argv=None, mcfg: ModelConfig | None = None,
     if len(test_data) == 0:
         logger.warning("Empty test set %s — nothing to generate.", args.data_path)
         return
-    if not args.model_path.endswith((".pth", ".ckpt", ".pt")):
-        raise NotImplementedError(
-            f"--model_path {args.model_path!r}: only reference .pth "
-            "checkpoints load in the port (Orbax restore is not ported)")
-    params = tree_to(load_reference_checkpoint(args.model_path, mcfg), device)
+    params = load_params(args.model_path, mcfg, device)
     logger.info("Loaded model from %s on %s", args.model_path, device)
     table = torch.from_numpy(load_token_embedding_table(
         args.token_emb_path, len(tokenizer), dcfg.wenlan_emb_size)).to(device)

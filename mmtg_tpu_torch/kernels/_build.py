@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``mmtg_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
-process (all started together) and the objects are linked into ONE shared
+process (all started together; ``*.cuh`` headers are shared between them) and the objects are linked into ONE shared
 library with a plain C interface, ``build/kernels/libmmtg_kernels_<hash>.so``
 under the repository root (``build/`` is git-ignored), loaded with
 ``ctypes``. The hash covers the sources and the flags, so an edited source
@@ -56,7 +56,8 @@ def sources() -> list:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for src in sources() + headers:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libmmtg_kernels_{h.hexdigest()[:16]}.so")
@@ -103,10 +104,14 @@ def build() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.mmtg_decode_attention_append.argtypes = (
-        [p] * 9 + [i] * 6 + [f, i, i, p]
+    lib.mmtg_decode_attention.argtypes = (
+        [p] * 9 + [i] * 6 + [f, i, i, i, i, p]
     )
-    lib.mmtg_decode_attention_append.restype = i
+    lib.mmtg_decode_attention.restype = i
+    lib.mmtg_decode_block_fused.argtypes = (
+        [p] * 8 + [i] * 6 + [f, f, i, p]
+    )
+    lib.mmtg_decode_block_fused.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mmtg_fused_gru.restype = i
     lib.mmtg_mha_train_fwd.argtypes = (

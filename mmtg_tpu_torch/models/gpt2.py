@@ -11,11 +11,12 @@ per-block remat, attention through the hand-written train-attention kernels,
 :mod:`mmtg_tpu_torch.ops.train_attention`, with a key-padding mask or, for
 packed rows, segment ids) and the prefill (:func:`prefill_cache`, plain
 PyTorch attention — the JAX package runs XLA attention there too). No tensor
-/ pipeline parallelism, no int4 or merged caches, no selective remat
-policies. The one-token decode
-step (:func:`gpt2_decode_step`) attends through the hand-written
-decode-attention kernel for CUDA tensors
-(:mod:`mmtg_tpu_torch.ops.decode_attention`).
+/ pipeline parallelism, no selective remat policies. The one-token decode
+step (:func:`gpt2_decode_step`) attends, for CUDA tensors, through the
+hand-written decode-attention kernel
+(:mod:`mmtg_tpu_torch.ops.decode_attention`: full-precision, int8, int4 and
+merged k‖v caches) or, with ``attn_impl="fused"``, runs all its layers in
+the whole-step kernel (:mod:`mmtg_tpu_torch.ops.decode_megakernel`).
 """
 
 from __future__ import annotations
@@ -32,9 +33,17 @@ from mmtg_tpu_torch.ops.decode_attention import (
     NEG_INF,
     decode_attention_append_plain,
     decode_attention_fp_append,
+    decode_attention_int4_append,
     decode_attention_int8_append,
+    decode_attention_int8_append_merged,
     quantize_rows,
+    quantize_rows_int4,
     true_div,
+    unpack_int4,
+)
+from mmtg_tpu_torch.ops.decode_megakernel import (
+    decode_block_fused,
+    decode_block_fused_plain,
 )
 from mmtg_tpu_torch.ops.train_attention import (
     mha_train,
@@ -47,23 +56,29 @@ from mmtg_tpu_torch.ops.train_attention import (
 )
 
 __all__ = [
-    "KVCache", "quantize_rows", "layer_norm", "gelu_new", "gpt2_forward",
+    "KVCache", "quantize_rows", "quantize_rows_int4", "unpack_int4",
+    "layer_norm", "gelu_new", "gpt2_forward", "init_cache", "merge_kv",
     "prefill_cache", "gpt2_decode_step", "import_hf_gpt2",
     "quantize_decode_weights",
 ]
 
 
 class KVCache(NamedTuple):
-    """Fixed-capacity KV cache ``[L, B, T_max, D]`` (heads merged into D).
+    """Fixed-capacity KV cache ``[L, B, T_max, row]`` (heads merged into D).
 
-    int8 when ``k_scale`` / ``v_scale`` (``[L, B, T_max]`` f32 per-row
-    abs-max scales) are set, else in the model dtype. Unlike the JAX
-    version the tensors are updated IN PLACE by :func:`gpt2_decode_step`."""
+    Quantized when ``k_scale`` / ``v_scale`` (``[L, B, T_max]`` f32 per-row
+    abs-max scales) are set — int8 (``row = D``) or int4 (``row = D/2``, two
+    codes a byte) — else in the model dtype. ``merged``: ``k`` is the
+    ``[L, B, T_max, 2D]`` int8 k‖v buffer (k in the low lane half) and ``v``
+    is ``None`` (the JAX package marks this form by a zero-size ``v``).
+    Unlike the JAX version the tensors are updated IN PLACE by
+    :func:`gpt2_decode_step`."""
 
     k: torch.Tensor
-    v: torch.Tensor
+    v: Optional[torch.Tensor]
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    merged: bool = False
 
     @property
     def capacity(self) -> int:
@@ -72,6 +87,44 @@ class KVCache(NamedTuple):
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    def kind(self, n_embd: int) -> str:
+        """``"model"``, ``"int8"`` or ``"int4"`` (told by the packed row)."""
+        if not self.quantized:
+            return "model"
+        return "int4" if not self.merged and self.k.shape[-1] * 2 == n_embd else "int8"
+
+
+_CACHE_KINDS = ("model", "int8", "int4")
+
+
+def init_cache(cfg: GPT2Config, batch: int, capacity: int,
+               dtype: torch.dtype = torch.float32, cache_dtype: str = "model",
+               device="cpu") -> KVCache:
+    """An empty cache of ``capacity`` slots (:func:`mmtg_tpu.models.gpt2.
+    init_cache`): ``cache_dtype`` ``"model"`` (``dtype``), ``"int8"`` or
+    ``"int4"`` (rows of ``n_embd / 2`` bytes)."""
+    if cache_dtype not in _CACHE_KINDS:
+        raise ValueError(f"unknown cache kind {cache_dtype!r}")
+    D = cfg.n_embd // 2 if cache_dtype == "int4" else cfg.n_embd
+    shape = (cfg.n_layer, batch, capacity, D)
+    if cache_dtype == "model":
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+    return KVCache(*(torch.zeros(shape, dtype=torch.int8, device=device)
+                     for _ in range(2)),
+                   *(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                     for _ in range(2)))
+
+
+def merge_kv(cache: KVCache) -> KVCache:
+    """The int8 split cache as one ``[L, B, T, 2D]`` k‖v buffer (one
+    concatenation, made once per ``generate`` call after the prefill)."""
+    if not cache.quantized or cache.merged or cache.k.shape != cache.v.shape \
+            or cache.k.dtype != torch.int8:
+        raise ValueError("merge_kv: an int8 split cache is needed")
+    return KVCache(torch.cat([cache.k, cache.v], dim=-1), None, cache.k_scale,
+                   cache.v_scale, merged=True)
 
 
 def layer_norm(x, g, b, eps):
@@ -294,10 +347,10 @@ def prefill_cache(
     cache_dtype: str = "model",
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt once; return its logits and a cache of ``capacity``
-    slots holding the prompt's k/v (``cache_dtype`` ``"model"`` or
-    ``"int8"``)."""
-    if cache_dtype not in ("model", "int8"):
-        raise NotImplementedError(f"cache_dtype {cache_dtype!r} is not ported")
+    slots holding the prompt's k/v (``cache_dtype`` ``"model"``, ``"int8"``
+    or ``"int4"``)."""
+    if cache_dtype not in _CACHE_KINDS:
+        raise ValueError(f"unknown cache kind {cache_dtype!r}")
     logits, (k, v) = gpt2_forward(params, cfg, inputs_embeds, position_ids,
                                   token_type_ids, attention_mask,
                                   return_kv=True)
@@ -309,9 +362,10 @@ def prefill_cache(
         out[:, :, :T] = x
         return out
 
-    if cache_dtype == "int8":
-        kq, ks = quantize_rows(k)
-        vq, vs = quantize_rows(v)
+    if cache_dtype != "model":
+        quant = quantize_rows_int4 if cache_dtype == "int4" else quantize_rows
+        kq, ks = quant(k)
+        vq, vs = quant(v)
         return logits, KVCache(padded(kq), padded(vq), padded(ks), padded(vs))
     return logits, KVCache(padded(k), padded(v))
 
@@ -334,42 +388,74 @@ def gpt2_decode_step(
     token_type_id: torch.Tensor,
     key_mask: torch.Tensor,
     use_kernels: bool = True,
+    attn_impl: str = "kernel",
 ) -> torch.Tensor:
     """One-token KV-cached decode step; returns logits ``[B, V]``.
 
     The new token's k/v are written into the cache at ``position`` (in
     place) before attending over slots ``<= position`` with ``key_mask``
-    ``[B, T_max]`` int32 != 0. ``use_kernels=False`` runs the attention's
-    plain PyTorch version on any device (a reference for the kernel path).
+    ``[B, T_max]`` int32 != 0. The cache's form picks the attention: full
+    precision, int8, int4, or the merged int8 k‖v buffer.
+    ``attn_impl="fused"`` runs all layers in the whole-step kernel instead
+    of the per-layer loop; it needs an int8 split cache and full-precision
+    weights and raises otherwise (``decoding.resolve_attn_impl`` gates it).
+    ``use_kernels=False`` runs the plain PyTorch versions on any device (a
+    reference for the kernel path).
     """
+    if attn_impl not in ("kernel", "fused"):
+        raise ValueError(f"attn_impl {attn_impl!r}: 'kernel' or 'fused'")
     D = x_embed.shape[-1]
     n_head = D // cfg.head_dim
     p = params["h"]
+    kind = cache.kind(D)
     h = x_embed + params["wpe"][position] + params["wte"][token_type_id]
-    if not use_kernels:
-        attend = functools.partial(decode_attention_append_plain,
-                                   k_scale=cache.k_scale,
-                                   v_scale=cache.v_scale)
-    elif cache.quantized:
-        attend = functools.partial(decode_attention_int8_append,
-                                   k_scale=cache.k_scale,
-                                   v_scale=cache.v_scale)
+    if attn_impl == "fused":
+        if kind != "int8" or cache.merged or "attn_w_q" in p:
+            raise ValueError("attn_impl='fused' needs an int8 split cache and "
+                             "full-precision weights")
+        block = decode_block_fused if use_kernels else decode_block_fused_plain
+        h = block(h.contiguous(), p, cache.k, cache.v, cache.k_scale,
+                  cache.v_scale, key_mask, position, n_head=n_head,
+                  eps=cfg.layer_norm_epsilon)
     else:
-        attend = decode_attention_fp_append
-    for l in range(cfg.n_layer):
-        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
-        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D, dim=-1)
-        ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
-                     k_cache=cache.k, v_cache=cache.v, key_mask=key_mask,
-                     position=position, layer=l, n_head=n_head)
-        h = h + _mm(ctx, p, l, "attn_proj_w") + p["attn_proj_b"][l]
-        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
-        m = gelu_new(_mm(m, p, l, "mlp_fc_w") + p["mlp_fc_b"][l])
-        h = h + _mm(m, p, l, "mlp_proj_w") + p["mlp_proj_b"][l]
+        h = _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels,
+                           kind, n_head)
     h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
     if "wte_q" in params:
         return ((h @ params["wte_q"].T.to(h.dtype)) * params["wte_s"].T).to(h.dtype)
     return h @ params["wte"].T
+
+
+def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
+                   n_head):
+    """The per-layer decode loop: one append + attention call a layer."""
+    D = h.shape[-1]
+    scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    if not use_kernels:
+        attend = functools.partial(decode_attention_append_plain,
+                                   k_cache=cache.k, v_cache=cache.v, **scales)
+    elif cache.merged:
+        attend = functools.partial(decode_attention_int8_append_merged,
+                                   kv_cache=cache.k, **scales)
+    elif kind == "model":
+        attend = functools.partial(decode_attention_fp_append,
+                                   k_cache=cache.k, v_cache=cache.v)
+    else:
+        attend = functools.partial(
+            decode_attention_int4_append if kind == "int4"
+            else decode_attention_int8_append,
+            k_cache=cache.k, v_cache=cache.v, **scales)
+    for l in range(cfg.n_layer):
+        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
+        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D, dim=-1)
+        ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                     key_mask=key_mask, position=position, layer=l,
+                     n_head=n_head)
+        h = h + _mm(ctx, p, l, "attn_proj_w") + p["attn_proj_b"][l]
+        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
+        m = gelu_new(_mm(m, p, l, "mlp_fc_w") + p["mlp_fc_b"][l])
+        h = h + _mm(m, p, l, "mlp_proj_w") + p["mlp_proj_b"][l]
+    return h
 
 
 def quantize_decode_weights(params: Dict) -> Dict:

@@ -1,19 +1,25 @@
 """Batched repetition penalty / ban / top-k / top-p sampling
-(:mod:`mmtg_tpu.ops.sampling`), drawing from a ``torch.Generator``.
+(:mod:`mmtg_tpu.ops.sampling`).
 
 The draw is Gumbel-max over the filtered logits, the method of
-``jax.random.categorical``; the bits differ from JAX's, so sampled tokens
-match the JAX package only in distribution (greedy ``top_k=1`` decodes match
-token for token).
+``jax.random.categorical``, from one of two sources. A ``torch.Generator``
+(or ``None``, PyTorch's default generator): one stream for the batch, bits
+that differ from JAX's, so sampled tokens match the JAX package only in
+distribution (greedy ``top_k=1`` decodes match token for token). Or a
+threefry key of :mod:`mmtg_tpu_torch.ops.prng` — one key ``[2]`` for the
+batch, or with ``per_row_keys`` one key a row ``[B, 2]``: JAX's own bits, so
+float32 decodes sample the JAX engine's tokens, and a row's draw depends on
+its key alone.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from mmtg_tpu_torch.configs import SpecialTokens
+from mmtg_tpu_torch.ops import prng
 
 NEG_INF = -1e30
 SPECIAL = SpecialTokens()
@@ -66,9 +72,19 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
     return logits
 
 
-def _draw(logits: torch.Tensor, generator: Optional[torch.Generator]
+def _draw(logits: torch.Tensor, generator, per_row_keys: bool = False
           ) -> torch.Tensor:
     """Categorical draw over the last axis by Gumbel-max."""
+    if isinstance(generator, torch.Tensor):  # a threefry key, or one a row
+        if per_row_keys != (generator.dim() == 2):
+            raise ValueError(
+                f"sampling: key of shape {tuple(generator.shape)} with "
+                f"per_row_keys={per_row_keys} (one key is [2], per-row keys "
+                "are [B, 2])")
+        return prng.categorical(generator, logits)
+    if per_row_keys:
+        raise ValueError("sampling: per_row_keys needs threefry keys [B, 2] "
+                         "(ops.prng), not a torch.Generator")
     u = torch.rand(logits.shape, generator=generator, device=logits.device,
                    dtype=torch.float32)
     tiny = torch.finfo(torch.float32).tiny
@@ -77,7 +93,7 @@ def _draw(logits: torch.Tensor, generator: Optional[torch.Generator]
 
 
 def sample_next_token(
-    generator: Optional[torch.Generator],
+    generator: Union[torch.Generator, torch.Tensor, None],
     logits: torch.Tensor,
     seen_counts: torch.Tensor,
     last_token: torch.Tensor,
@@ -86,11 +102,15 @@ def sample_next_token(
     top_p: float = 0.0,
     repetition_penalty: float = 1.0,
     topk_impl: str = "exact",
+    per_row_keys: bool = False,
 ) -> torch.Tensor:
     """One sampling step over a batch (reference ``generate.py:124-142``
     order): penalty, temperature, bans, top-k (in the ``[B, k]`` subspace),
-    nucleus, draw; a row whose previous token is PAD stays PAD. Returns
-    ``[B]`` int32 token ids."""
+    nucleus, draw; a row whose previous token is PAD stays PAD.
+    ``generator``: a ``torch.Generator`` / ``None``, or a threefry key
+    (``[2]``; with ``per_row_keys`` a batch of keys ``[B, 2]``, each row
+    drawing over its candidates from its own key). Returns ``[B]`` int32
+    token ids."""
     if topk_impl != "exact":
         raise NotImplementedError(
             f"topk_impl={topk_impl!r}: the TPU's approximate top-k has no "
@@ -103,10 +123,11 @@ def sample_next_token(
         vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
         if top_p > 0.0:
             vals = _nucleus_mask_sorted(vals, top_p)
-        j = _draw(vals, generator)
+        j = _draw(vals, generator, per_row_keys)
         sampled = idx.gather(-1, j[:, None])[:, 0]
     else:
-        sampled = _draw(top_k_top_p_filter(logits, top_k, top_p), generator)
+        sampled = _draw(top_k_top_p_filter(logits, top_k, top_p), generator,
+                        per_row_keys)
     sampled = sampled.to(torch.int32)
     return torch.where(last_token == SPECIAL.pad_id,
                        torch.full_like(sampled, SPECIAL.pad_id), sampled)

@@ -37,6 +37,20 @@ def from_jax_numpy(tree: Any, device="cpu", dtype: torch.dtype | None = None):
     return t.to(device)
 
 
+def kv_cache_from_jax_numpy(k, v, k_scale=None, v_scale=None, device="cpu"):
+    """A JAX ``KVCache`` given as numpy arrays → the port's
+    :class:`~mmtg_tpu_torch.models.gpt2.KVCache`: full precision, int8, int4
+    (rows of D/2 bytes) or merged k‖v, which the JAX package marks by a
+    zero-size ``v`` (here: ``v=None``, ``merged=True``)."""
+    from mmtg_tpu_torch.models.gpt2 import KVCache
+
+    conv = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.array(a)).to(device)
+    merged = v is not None and np.ndim(v) == 1
+    return KVCache(conv(k), None if merged else conv(v), conv(k_scale),
+                   conv(v_scale), merged=merged)
+
+
 def to_numpy(tree: Any):
     """A tree of torch tensors → the same tree of numpy arrays on the host
     (bfloat16 leaves come back as float32)."""

@@ -63,10 +63,52 @@ def test_cli_writes_one_line_per_sample(files, reference_vocab_path,
 ])
 def test_cli_unported_flags_raise(files, reference_vocab_path, tiny_model_cfg,
                                   tiny_data_cfg, extra):
-    with pytest.raises(NotImplementedError):
-        cli.main(_args(files, reference_vocab_path, "--batch_size", "2",
-                       "--n_samples", "1", *extra),
-                 mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+    """Meshes and approximate top-k are not ported and raise; the int4 cache
+    and the whole-step kernel are, and write their samples."""
+    out = str(files[0] / f"samples_{extra[1]}.txt")
+    run = lambda: cli.main(  # noqa: E731
+        _args(files, reference_vocab_path, "--batch_size", "2", "--n_samples", "1",
+              "--save_samples", "--save_samples_path", out, *extra),
+        mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+    if extra[0] in ("--mesh_data", "--topk_impl"):
+        with pytest.raises(NotImplementedError):
+            run()
+        return
+    run()
+    with open(out, encoding="utf-8") as f:
+        assert len(f.read().splitlines()) == 3
+
+
+@pytest.mark.parametrize("extra", [
+    ("--cache_dtype", "int4"), ("--cache_dtype", "int8", "--merged_kv"),
+    ("--attn_impl", "fused", "--cache_dtype", "int8", "--weight_dtype", "model"),
+], ids=["int4", "merged_kv", "fused"])
+def test_cli_serving_decode_flags_run(files, reference_vocab_path, tiny_model_cfg,
+                                      tiny_data_cfg, extra, monkeypatch):
+    """--cache_dtype int4, --merged_kv and --attn_impl fused reach their
+    paths: the cache handed to the decode step has the form asked for."""
+    from mmtg_tpu_torch import decoding
+
+    seen = []
+    real = decoding.gpt2_decode_step
+
+    def spy(params, cfg, cache, *args, **kw):
+        seen.append((cache.kind(cfg.n_embd), cache.merged, kw.get("attn_impl")))
+        return real(params, cfg, cache, *args, **kw)
+
+    monkeypatch.setattr(decoding, "gpt2_decode_step", spy)
+    out = str(files[0] / "samples_flags.txt")
+    cli.main(_args(files, reference_vocab_path, "--batch_size", "2", "--n_samples",
+                   "2", "--save_samples", "--save_samples_path", out, *extra),
+             mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+    with open(out, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 6 and all(line.strip() for line in lines)
+    want = {"int4": ("int4", False, "kernel"), "merged_kv": ("int8", True, "kernel"),
+            "fused": ("int8", False, "fused")}
+    key = "merged_kv" if "--merged_kv" in extra else (
+        "fused" if "fused" in extra else "int4")
+    assert set(seen) == {want[key]}
 
 
 def test_cli_rejects_orbax_dirs(files, reference_vocab_path, tiny_model_cfg,

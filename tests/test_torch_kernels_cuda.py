@@ -279,3 +279,184 @@ def test_wrapper_rejects_bad_input(cuda):
     with pytest.raises(TypeError):
         da.decode_attention_fp_append(q, q, q, cache.half(), cache.half(), mask,
                                       3, 0, n_head=2)
+
+
+# ---- the serving decode path's kernels --------------------------------------
+
+DECODE_POSITIONS = [0, 5, 63, 64, 200, 255]
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _decode_case(gen, kind, dtype, B, H, hd, L=3, T=256):
+    """q, k_new, v_new, a key mask with holes, and a cache of ``kind`` filled
+    everywhere (so whatever lies beyond ``position`` is garbage): returns
+    (q, k_new, v_new, mask, [k, v] or [kv], [k_scale, v_scale] or [])."""
+    D = H * hd
+    q, k_new, v_new = (torch.randn(B, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+    mask = torch.randint(0, 2, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mask[:, 0] = 1
+    if kind == "fp":
+        return q, k_new, v_new, mask, [
+            torch.randn(L, B, T, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2)], []
+    row = {"int8": D, "int4": D // 2, "merged": 2 * D}[kind]
+    caches = [torch.randint(-127, 128, (L, B, T, row), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(1 if kind == "merged" else 2)]
+    scales = [torch.rand(L, B, T, generator=gen, device="cuda") * 0.02 + 0.005
+              for _ in range(2)]
+    return q, k_new, v_new, mask, caches, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("B,H,hd", [(1, 4, 32), (3, 2, 64), (64, 2, 128), (3, 3, 32)])
+@pytest.mark.parametrize("position", DECODE_POSITIONS)
+def test_decode_attention_readonly_kernel_matches_plain(cuda, dtype, kind, B, H, hd,
+                                                        position):
+    q, _, _, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd)
+    kernel = {"fp": da.decode_attention, "int8": da.decode_attention_int8,
+              "int4": da.decode_attention_int4}[kind]
+    keep = [c.clone() for c in caches + scales]
+    before = kernel.launches
+    ctx = kernel(q, *caches, *scales, mask, position, 1, n_head=H)
+    ref = da.decode_attention_plain(q, *caches, mask, position, 1, H, *scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for a, b in zip(caches + scales, keep):  # nothing was written
+        assert torch.equal(a, b)
+    assert (ctx.float() - ref.float()).abs().max().item() <= DECODE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int4", "merged"])
+@pytest.mark.parametrize("B,H,hd", [(1, 4, 32), (3, 2, 64), (64, 2, 128), (3, 3, 32)])
+@pytest.mark.parametrize("position", DECODE_POSITIONS)
+def test_decode_attention_int4_and_merged_append_match_plain(cuda, dtype, kind, B, H,
+                                                             hd, position):
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd)
+    kernel = (da.decode_attention_int4_append if kind == "int4"
+              else da.decode_attention_int8_append_merged)
+    kc = [c.clone() for c in caches + scales]
+    pc = [c.clone() for c in caches + scales]
+    before = kernel.launches
+    ctx = kernel(q, k_new, v_new, *kc, mask, position, 1, n_head=H)
+    ref = da.decode_attention_append_plain(
+        q, k_new, v_new, pc[0], None if kind == "merged" else pc[1], mask,
+        position, 1, H, *pc[-2:])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for a, b in zip(kc, pc):  # appended bytes and scales bit for bit
+        assert torch.equal(a, b)
+    assert (ctx.float() - ref.float()).abs().max().item() <= DECODE_TOL[dtype]
+    # the read-only kernel on the cache just written gives the same context
+    if kind == "int4":
+        again = da.decode_attention_int4(q, *kc, mask, position, 1, n_head=H)
+    else:
+        D = H * hd
+        again = da.decode_attention_int8(
+            q, kc[0][..., :D].contiguous(), kc[0][..., D:].contiguous(), *kc[1:],
+            mask, position, 1, n_head=H)
+    assert torch.equal(again, ctx)
+
+
+def test_merged_append_equals_split_append(cuda):
+    B, H, hd, pos = 5, 4, 64, 77
+    D = H * hd
+    q, k_new, v_new, mask, (kv,), scales = _decode_case(cuda, "merged",
+                                                       torch.bfloat16, B, H, hd)
+    k, v = kv[..., :D].contiguous(), kv[..., D:].contiguous()
+    s1, s2 = [s.clone() for s in scales], [s.clone() for s in scales]
+    a = da.decode_attention_int8_append_merged(q, k_new, v_new, kv, *s1, mask, pos, 2,
+                                               n_head=H)
+    b = da.decode_attention_int8_append(q, k_new, v_new, k, v, *s2, mask, pos, 2,
+                                        n_head=H)
+    assert torch.equal(a, b)
+    assert torch.equal(kv[..., :D], k) and torch.equal(kv[..., D:], v)
+    assert all(torch.equal(x, y) for x, y in zip(s1, s2))
+
+
+def _fused_case(gen, dtype, B, H, hd, L=3, T=256):
+    from mmtg_tpu_torch.configs import GPT2Config
+    from mmtg_tpu_torch.params import init_gpt2_params
+
+    D = H * hd
+    cfg = GPT2Config(vocab_size=120, n_positions=300, n_ctx=300, n_embd=D,
+                     n_layer=L, n_head=H)
+    p = init_gpt2_params(cfg, seed=0, dtype=dtype, device="cuda")["h"]
+    # biases and gains off their init values, so that each matters
+    p = {k: (v + 0.05 * torch.randn(v.shape, generator=gen, device="cuda").to(dtype)
+             if v.dim() == 2 else v) for k, v in p.items()}
+    h = (torch.randn(B, D, generator=gen, device="cuda") * 0.5).to(dtype)
+    _, _, _, mask, caches, scales = _decode_case(gen, "int8", dtype, B, H, hd, L, T)
+    return p, h, mask, caches + scales
+
+
+# f32: the hand-written products sum in another order than torch.matmul, so a
+# k/v entry differs in its last bits and a code may differ by 1, which moves a
+# context entry by one quantization step (1/127 of the row's largest entry);
+# bf16: one rounding of the stream type (2^-8 relative) per product, through L
+# layers; there a k/v entry may differ by one bf16 step (half a code at the
+# row's maximum) and the row maximum that sets the scale by another
+FUSED_TOL = {torch.float32: 5e-3, torch.bfloat16: 1.5e-1}
+FUSED_CODES = {torch.float32: 1, torch.bfloat16: 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,hd", [(1, 4, 32), (3, 2, 64), (64, 2, 128), (136, 4, 32),
+                                    (272, 4, 32)])
+@pytest.mark.parametrize("position", [0, 63, 64, 255])
+def test_decode_block_fused_kernel_matches_plain(cuda, dtype, B, H, hd, position):
+    from mmtg_tpu_torch.ops import decode_megakernel as mk
+
+    p, h, mask, state = _fused_case(cuda, dtype, B, H, hd)
+    kc = [c.clone() for c in state]
+    pc = [c.clone() for c in state]
+    before = mk.decode_block_fused.launches
+    out = mk.decode_block_fused(h, p, *kc, mask, position, n_head=H)
+    ref = mk.decode_block_fused_plain(h, p, *pc, mask, position, n_head=H)
+    torch.cuda.synchronize()
+    assert mk.decode_block_fused.launches == before + 1
+    assert out.shape == h.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= FUSED_TOL[dtype]
+    for got, want, orig in zip(kc[:2], pc[:2], state[:2]):
+        # codes within the stated distance, and only slot `position` was written
+        assert (got.int() - want.int()).abs().max().item() <= FUSED_CODES[dtype]
+        assert torch.equal(got[:, :, position + 1:], orig[:, :, position + 1:])
+        assert torch.equal(got[:, :, :position], orig[:, :, :position])
+    for got, want in zip(kc[2:], pc[2:]):
+        torch.testing.assert_close(got, want, rtol=1e-2 if dtype == torch.bfloat16
+                                   else 1e-4, atol=0)
+
+
+def test_decode_block_fused_is_reproducible(cuda):
+    from mmtg_tpu_torch.ops import decode_megakernel as mk
+
+    p, h, mask, state = _fused_case(cuda, torch.bfloat16, 5, 4, 32)
+    outs = []
+    for _ in range(2):
+        c = [s.clone() for s in state]
+        outs.append((mk.decode_block_fused(h, p, *c, mask, 100, n_head=4), c))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+
+
+def test_new_decode_wrappers_reject_bad_input(cuda):
+    from mmtg_tpu_torch.ops import decode_megakernel as mk
+
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, "int4", torch.float32,
+                                                         2, 2, 32)
+    with pytest.raises(ValueError):  # an int4 cache handed to the int8 kernel
+        da.decode_attention_int8_append(q, k_new, v_new, *caches, *scales, mask, 3, 0,
+                                        n_head=2)
+    with pytest.raises(ValueError):  # and to the whole-step kernel
+        p, h, m, _ = _fused_case(cuda, torch.float32, 2, 2, 32)
+        mk.decode_block_fused(h, p, *caches, *scales, m, 3, n_head=2)
+    p, h, m, state = _fused_case(cuda, torch.float32, 2, 2, 32)
+    with pytest.raises(TypeError):  # weights of another dtype than the stream
+        mk.decode_block_fused(h.bfloat16(), p, *state, m, 3, n_head=2)
+    with pytest.raises(IndexError):
+        mk.decode_block_fused(h, p, *state, m, 256, n_head=2)

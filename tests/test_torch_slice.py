@@ -17,7 +17,7 @@ from mmtg_tpu.models import mmtg as jmmtg
 from mmtg_tpu.ops import sampling as jsampling
 from mmtg_tpu_torch import decoding
 from mmtg_tpu_torch.models import gpt2, mmtg
-from mmtg_tpu_torch.ops import sampling
+from mmtg_tpu_torch.ops import prng, sampling
 
 from _torch_parity import make_setup
 
@@ -109,14 +109,110 @@ def test_sampled_generate_frames_and_seed(setup):
     dict(topk_impl="approx"),
 ])
 def test_unported_options_raise(setup, change):
-    gcfg = dataclasses.replace(GenerateConfig(length=4), **change)
-    with pytest.raises(NotImplementedError):
-        decoding.generate(setup["tparams"], setup["tconst"], setup["mcfg"],
-                          setup["dcfg"], gcfg, setup["tbatch"])
+    """Approximate top-k has no PyTorch counterpart and raises; the int4
+    cache, the merged cache and attn_impl='fused' are ported and give
+    frame-legal tokens."""
+    gcfg = dataclasses.replace(
+        GenerateConfig(length=24, cache_dtype="int8", weight_dtype="model"),
+        **change)
+    run = lambda: decoding.generate(  # noqa: E731
+        setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["tbatch"], torch.Generator().manual_seed(0))
+    if "topk_impl" in change:
+        with pytest.raises(NotImplementedError):
+            run()
+        return
+    toks = run().numpy()
+    assert toks.shape == (2, 25)
+    assert (toks[:, 21] == SPECIAL.eos_id).all() and (toks[:, 22] == SPECIAL.start_id).all()
 
 
 def test_row_seeds_raise(setup):
-    with pytest.raises(NotImplementedError):
-        decoding.generate(setup["tparams"], setup["tconst"], setup["mcfg"],
-                          setup["dcfg"], GenerateConfig(length=4),
-                          setup["tbatch"], row_seeds=torch.arange(2))
+    """Per-row seeds need a threefry key (a torch.Generator is one stream for
+    the whole batch) and one integer a row."""
+    run = lambda generator, seeds: decoding.generate(  # noqa: E731
+        setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"],
+        GenerateConfig(length=4), setup["tbatch"], generator, row_seeds=seeds)
+    with pytest.raises(ValueError):
+        run(None, torch.arange(2))
+    with pytest.raises(ValueError):
+        run(torch.Generator().manual_seed(0), torch.arange(2))
+    with pytest.raises(ValueError):
+        run(prng.PRNGKey(0), torch.arange(3))
+    assert run(prng.PRNGKey(0), torch.arange(2)).shape == (2, 5)
+
+
+def _tf_tokens(setup, K=50):
+    """[B, K] teacher-forcing tokens on the sentence frame."""
+    rng = np.random.default_rng(5)
+    toks = rng.integers(103, setup["mcfg"].gpt2.vocab_size, (2, K)).astype(np.int32)
+    toks[:, 0] = SPECIAL.start_id
+    for j in range(K):
+        if j % 22 == 21:
+            toks[:, j] = SPECIAL.eos_id
+        elif j and j % 22 == 0:
+            toks[:, j] = SPECIAL.start_id
+    return toks
+
+
+@pytest.mark.parametrize("change", [dict(cache_dtype="int4"),
+                                    dict(cache_dtype="int8", merged_kv=True)],
+                         ids=["int4", "merged"])
+def test_teacher_forced_new_cache_forms_match_jax(setup, change):
+    """The slice as a whole with the int4 cache and with the merged k||v
+    cache vs the JAX engine on the same cache dtype: logits <= 1e-4 (f32;
+    the quantized codes are equal, the attention sums in another order)."""
+    gcfg = GenerateConfig(**change)
+    toks = _tf_tokens(setup)
+    ref = jax.jit(jdec.teacher_forced_decode_logits, static_argnums=(2, 3, 4))(
+        setup["jparams"], setup["jconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["jbatch"], jnp.asarray(toks))
+    got = decoding.teacher_forced_decode_logits(
+        setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["tbatch"], torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["shared", "row_seeds"])
+@pytest.mark.parametrize("cache_dtype", ["model", "int8", "int4"])
+def test_sampled_generate_matches_jax_token_for_token(setup, seeded, cache_dtype):
+    """Default sampling (top-k 10, top-p 0.7, temperature 1.1, penalty 1.5)
+    from a threefry key: the port draws JAX's own bits, so in f32 the sampled
+    tokens equal the JAX engine's, with one stream for the batch and with
+    per-row streams."""
+    gcfg = GenerateConfig(length=50, cache_dtype=cache_dtype)
+    seeds = np.array([11, -4], np.int32) if seeded else None
+    ref = np.asarray(jdec.generate(
+        setup["jparams"], setup["jconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["jbatch"], jax.random.PRNGKey(9),
+        row_seeds=None if seeds is None else jnp.asarray(seeds)))
+    got = decoding.generate(
+        setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["tbatch"], prng.PRNGKey(9),
+        row_seeds=None if seeds is None else torch.from_numpy(seeds))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_fused_generate_equals_per_layer_greedy(setup):
+    """attn_impl='fused' through generate (on the CPU: the whole-step
+    kernel's plain version) gives frame-legal tokens, equal to the per-layer
+    path's greedy tokens; outside its scope (int8 weights) it resolves to the
+    per-layer path."""
+    base = GenerateConfig(length=46, top_k=1, cache_dtype="int8",
+                          weight_dtype="model")
+    run = lambda gcfg: decoding.generate(  # noqa: E731
+        setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"], gcfg,
+        setup["tbatch"]).numpy()
+    fused = run(dataclasses.replace(base, attn_impl="fused"))
+    np.testing.assert_array_equal(fused, run(base))
+    assert (fused[:, 21] == SPECIAL.eos_id).all() and (fused[:, 22] == SPECIAL.start_id).all()
+    D = setup["mcfg"].gpt2.n_embd
+    resolve = lambda **kw: decoding.resolve_attn_impl(  # noqa: E731
+        dataclasses.replace(base, attn_impl="fused", **kw), D, batch_size=2)
+    assert resolve() == "fused"
+    assert resolve(weight_dtype="int8") == "kernel"
+    assert resolve(weight_dtype="auto") == "kernel"  # int8 weights at B <= 32
+    assert resolve(merged_kv=True) == "kernel"
+    assert resolve(cache_dtype="int4") == "kernel"
+    assert resolve(cache_dtype="model") == "kernel"
+    assert decoding.resolve_attn_impl(base, D, batch_size=2) == "kernel"
