@@ -95,9 +95,12 @@ TRAIN_T, TRAIN_HD = 256, 64  # 15 + 221 = 236 tokens padded to 256
 TRAIN_BATCHES = (8, 64)  # the kernel-vs-plain check; the train step runs 64
 # mha_train_packed vs its plain version: (ctx, dqkv, dqb). ctx and dqkv are
 # max-abs on values of order 1: f32 differs by summation order only, bf16 by
-# one rounding of the working type. dqb sums B*T rows (its entries reach the
-# hundreds), in another order and by atomic adds, so it is checked relative
-# to its largest entry.
+# one rounding of the working type (the bf16 forward sweeps the key tiles
+# with an online softmax and rounds the dropped-out UN-NORMALISED
+# probabilities before the product with v, where the plain version rounds
+# the normalised ones: ctx is within one bf16 step, no longer bit-equal).
+# dqb sums B*T rows (its entries reach the hundreds), in another order and
+# by atomic adds, so it is checked relative to its largest entry.
 TRAIN_TOL = {"float32": (1e-5, 1e-5, 1e-4), "bfloat16": (2e-2, 4e-2, 2e-2)}
 PACK_ROWS, PACK_T, PACK_SLOTS = 32, 512, 8  # 32 x 512 = the tokens of B=64 x 256
 # mha_train_packed_seg at T=512: dk and dv sum over up to 512 queries, so

@@ -30,53 +30,111 @@
 // same bits with torch integer ops), so forward, backward and a recomputed
 // forward agree whatever the launch grid.
 //
-// What bounds it on the H100: bytes. At B = 64, T = 256, H = 12, hd = 64 in
-// bf16 the forward must read the 75.5 MB slab and write a 25.2 MB context
-// (100.7 MB, 30 us at 3.35 TB/s) for 12.9 GFLOP of dense products (13 us at
-// the bf16 tensor-core peak); the backward must read the slab and do and
-// write dqkv (176 MB, 53 us) for 32 GFLOP (33 us). These kernels also read
-// the saved ctx and log-sum-exp (26 MB more): their own choice, not part of
-// the bound. The [T, T] probabilities stay on chip in both directions: that
-// is the point of the kernel.
+// What bounds it on the H100, by its inputs and outputs: bytes. At B = 64, T =
+// 256, H = 12, hd = 64 in bf16 the forward must read the 75.5 MB slab and
+// write a 25.2 MB context (100.7 MB, 30 us at 3.35 TB/s) for 6.5 GFLOP of
+// causal products (7 us at the bf16 tensor-core peak); the backward must read
+// the slab and do and write dqkv (176 MB, 53 us) for 16 GFLOP. These kernels
+// also read the saved ctx and log-sum-exp (26 MB more): their own choice, not
+// part of the bound. The [T, T] probabilities stay on chip in both
+// directions: that is the point of the kernel.
 //
-// Design (simple and right first; CUDA cores only, no wgmma / TMA yet):
-//   * tiles of 64 rows. A block of 256 threads owns one (b, h, 64-row tile);
-//     thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns
-//     tx + 16 j of every 64-wide product, operands sit in shared memory as
-//     f32 with an odd leading dimension (no bank conflicts), sums are f32
-//     FMAs in registers. Key tiles past the causal diagonal are skipped.
-//   * forward: the block owns a QUERY tile, keeps its whole score row block
-//     [64, T] in shared memory (T <= 512), soft-maxes it with one warp per 8
-//     rows, then multiplies by V tile by tile. It also writes the rows'
-//     log-sum-exp [B, H, T] f32 for the backward.
-//   * backward in two kernels so that dq/dk/dv need no atomics and dqkv is
-//     bit-reproducible: the dq kernel owns a QUERY tile and walks key tiles;
-//     the dk/dv kernel owns a KEY tile and walks query tiles. Both recompute
-//     p = exp(s - lse) and the same keep bits. D_i is taken as
-//     sum_d do_id ctx_id (equal to sum_j dp_ij p_ij; ctx is the saved
-//     output), computed by the dq kernel and handed on in a [B, H, T] buffer.
-//   * only dqb uses atomics (f32, one add per block and column), so its last
-//     bits change from run to run.
-//   * segment ids: the block keeps its batch row's ids in shared memory and
-//     tests equality beside the causal test, per element; no [T, T] bias
-//     matrix exists anywhere. It also takes the least and the greatest id of
-//     every 64-row tile and skips a (query tile, key tile) pair whose id
-//     ranges do not overlap: no id of one can equal an id of the other, so
-//     every score of the pair is masked. That test holds for arbitrary ids;
-//     it skips most when ids ascend along the row, as a packer writes them.
+// The file holds two designs, chosen by the slab's type at the C entry points
+// and by nothing else (no run-time switch, no fallback from one to the other).
+// Both use tiles of 64 rows, skip key tiles past the causal diagonal, and
+// split the backward into a dq kernel (block = query tile, walks key tiles)
+// and a dk/dv kernel (block = key tile, walks query tiles), so that dq, dk and
+// dv need no atomics and dqkv is bit-reproducible; both recompute p = exp(s -
+// lse) and the same keep bits; D_i is taken as sum_d do_id ctx_id (equal to
+// sum_j dp_ij p_ij; ctx is the saved output), computed by the dq kernel and
+// handed on in a [B, H, T] buffer. Only dqb uses atomics (f32), so its last
+// bits change from run to run.
+//
+// bf16: tensor cores (second half of the file).
+//   What holds it back is neither the products nor the bytes but instruction
+//   issue on the scores: mask, exponential and above all the dropout hash (two
+//   multiplies, three xor-shifts, a compare) are about 20 instructions an
+//   element, 600-700 issue slots a thread and tile pair, against 250 clocks
+//   of tensor-core time. So the design keeps everything else off the
+//   instruction stream and the scores in registers:
+//   * one warpgroup (128 threads) owns a 64-row tile; every product is
+//     wgmma.mma_async m64n64k16 with f32 sums in registers. The SECOND product
+//     of each pair takes its A operand from registers: the accumulator layout
+//     of s IS the A-fragment layout, so probabilities and ds are rounded to
+//     bf16, packed and multiplied without touching shared memory. The dk/dv
+//     kernel computes the TRANSPOSED scores (k . q^T, v . do^T) for the same
+//     reason: pd^T and ds^T are then the A fragments of dv += pd^T . do and dk
+//     += ds^T . q.
+//   * operands sit in shared memory as bf16 tiles in the 128-byte swizzle that
+//     wgmma reads without bank conflicts, one layout for both directions (rows
+//     as M / N: depth along the columns; rows as depth: the transpose flag).
+//     They arrive by cp.async, 16 bytes a thread, and the projection bias is
+//     added in place afterwards by the thread that copied the chunk (one bf16
+//     add, which rounds as the plain version's f32 add does).
+//   * forward: ONE sweep over the key tiles with an online softmax (running
+//     maximum and sum per row in registers, a row's 64 scores sit in the four
+//     threads of a quad; o is rescaled when the maximum moves; one divide at
+//     the end; lse = m + log l). The dropped-out UN-NORMALISED probabilities
+//     are what is rounded to bf16 and multiplied with v: ctx agrees with the
+//     plain version to one bf16 step of its own value (1.6e-2 where |ctx| lies
+//     between 2 and 4), not bit for bit. Shared memory does not grow with T.
+//   * a ring of two tile pairs: the next live pair travels while the tensor
+//     cores and the score arithmetic work on this one. What hides the memory
+//     latency (about as long as a tile pair's work under load) is several
+//     blocks an SM, so tiles are small (8 KB at 64 lanes): 4 blocks an SM in
+//     the forward. A deeper ring was measured and loses to the block it costs.
+//   * scores live in the base-2 domain (ex2.approx), the mask source and the
+//     dropout setting are template flags (a kernel holds only its own code:
+//     the unrolled element loop is 10 KB of instructions, and two variants of
+//     it in one loop body ran clearly slower), the causal test runs on
+//     the diagonal tile only.
+//   * at 128 lanes a head (the head-major slab, or hd > 64) the same kernels
+//     run with two [64, 64] sub-tiles a tile: 8 depth steps for the first
+//     products, a [64, 128] accumulator for the second. The dk/dv kernel then
+//     holds 192 accumulator registers a thread and sits at the 255 limit.
+//   * segment ids: per element a select beside the key-bias path, per tile
+//     pair the id-range test below; with an online softmax a skipped pair
+//     costs nothing at all.
+//
+// f32: CUDA-core FMAs (first half of the file; unchanged from the first port).
+//   Full-precision products (TF32 would lose the 1e-5 agreement with the plain
+//   version that the f32 checks rely on), so what bounds it is the FMA rate
+//   and the shared-memory loads that feed it (8 loads for 16 FMAs).
+//   * a block of 256 threads owns one (b, h, 64-row tile); thread (ty, tx) =
+//     (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16 j of every
+//     64-wide product, operands sit in shared memory as f32 with an odd
+//     leading dimension (no bank conflicts), sums are FMAs in registers.
+//   * forward: the block keeps its whole score row block [64, T] in shared
+//     memory (hence T <= 512: 199 KB at 128 lanes), soft-maxes it with one warp
+//     per 8 rows, then multiplies by V tile by tile.
+//
+// Segment ids (both designs): the block keeps its batch row's ids in shared
+// memory and tests equality beside the causal test, per element; no [T, T]
+// bias matrix exists anywhere. It also takes the least and the greatest id of
+// every 64-row tile and skips a (query tile, key tile) pair whose id ranges do
+// not overlap: no id of one can equal an id of the other, so every score of
+// the pair is masked. That test holds for arbitrary ids; it skips most when
+// ids ascend along the row, as a packer writes them.
 // Semantics note: a key tile past the causal diagonal, or skipped by the
 // segment test, is skipped, not added as -1e30; a masked score inside a
-// visited tile is -1e30, so its p is exactly 0 in all three kernels. The two
-// differ only for a query row whose every key j <= i is masked: a key bias
-// never does that in the model (key 0 is always live) and segment ids never
-// can (a row always sees itself).
-// Known limits, left to later work: no tensor cores (the bf16 path could use
-// wgmma), 2-byte loads, one block per (b, h, tile) without persistence.
+// visited tile is -1e30, so its p is exactly 0 in all kernels (in the online
+// softmax a row whose scores so far are all masked carries p = 1 until its
+// first live score rescales that to exactly 0). The two differ only for a
+// query row whose every key j <= i is masked: a key bias never does that in
+// the model (key 0 is always live) and segment ids never can (a row always
+// sees itself).
+// Known limits, left to later work: the bf16 kernels run at 0.6-0.7
+// instructions a clock and scheduler with 8-16 warps an SM (a producer warp
+// with TMA, two query tiles a block sharing their key tiles, or persistence
+// would raise that); the 128-lane backward is register-bound at two blocks
+// an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,20 +144,14 @@ constexpr int kLdT = kTile + 1;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // x rounded to the element type E, as f32
 template <typename E>
 __device__ __forceinline__ float rnd(float x);
 template <>
 __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ void stf(float* p, float x) { *p = x; }
-__device__ __forceinline__ void stf(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -255,7 +307,7 @@ __device__ __forceinline__ float mask_term(int seg, int wi, int wj) {
 __device__ __forceinline__ void seg_tile_ranges(const int* mrow, int t0, int t1, int* lo, int* hi,
                                                 int tid) {
   const int warp = tid / 32, lane = tid % 32;
-  for (int t = t0 + warp; t <= t1; t += kThreads / 32) {
+  for (int t = t0 + warp; t <= t1; t += blockDim.x / 32) {
     const int a = mrow[t * kTile + lane], c = mrow[t * kTile + 32 + lane];
     int mn = min(a, c), mx = max(a, c);
 #pragma unroll
@@ -614,7 +666,881 @@ mha_bwd_dkdv_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   column_sums_to<NJ>(dqb + col(dm, h, 2), dv, Ps, hd, ty, tx, tid);
 }
 
-// ---- launchers ------------------------------------------------------------
+// ===========================================================================
+// bf16: the tensor-core kernels (wgmma, one warpgroup a block)
+// ===========================================================================
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
+
+constexpr int kWG = 128;                    // threads of one warpgroup
+constexpr int kSubBytes = kTile * 64 * 2;   // one [64, 64] bf16 sub-tile
+constexpr int kAtomBytes = 8 * 128;         // 8 rows of 128 bytes: the swizzle's period
+
+// A tile is [64, HDP] bf16 as HDP / 64 sub-tiles of [64 rows, 128 bytes], each
+// 1024-byte aligned and 128-byte swizzled: the 16-byte chunk c of row r sits
+// at r * 128 + ((c ^ (r & 7)) << 4). wgmma reads that layout through a
+// descriptor either way round: rows as M / N with the columns as depth
+// ("K-major": q . k^T and its like), or rows as depth with the columns as N
+// ("MN-major", the instruction's transpose flag: p . v and its like).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned char* align_tiles(unsigned char* p) {
+  return p + ((kAtomBytes - (smem_addr(p) & (kAtomBytes - 1))) & (kAtomBytes - 1));
+}
+__device__ __forceinline__ int chunk_offset(int r, int c) {
+  return (c >> 3) * kSubBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// ---- asynchronous copies ----------------------------------------------------
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  // src_bytes < 16: the rest of the 16 bytes is filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory writes of this thread become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Queue the copy of 64 rows of `src` (row stride in elements) into a tile.
+// Thread t copies chunk t % (HDP / 8) of rows t / (HDP / 8) + k * (1024 / HDP):
+// one column chunk a thread, so its slice of the bias stays in registers.
+// Chunks at or past column hd are zero-filled.
+template <int HDP>
+__device__ __forceinline__ void load_tile_async(unsigned char* tile, const bf16* src,
+                                                size_t row_stride, int hd, int tid) {
+  constexpr int CPR = HDP / 8;
+  const int c = tid % CPR;
+  const int bytes = c * 8 < hd ? 16 : 0;
+  src += bytes ? c * 8 : 0;
+  const uint32_t dst = smem_addr(tile);
+#pragma unroll
+  for (int k = 0; k < CPR / 2; ++k) {
+    const int r = tid / CPR + k * (kWG / CPR);
+    cp_async16(dst + chunk_offset(r, c), src + static_cast<size_t>(r) * row_stride, bytes);
+  }
+}
+
+// The 8 bias values of this thread's column chunk (zeros past column hd).
+template <int HDP>
+__device__ __forceinline__ uint4 bias_chunk(const bf16* bias, int hd, int tid) {
+  const int c = tid % (HDP / 8);
+  if (c * 8 >= hd) return make_uint4(0u, 0u, 0u, 0u);
+  return *reinterpret_cast<const uint4*>(bias + c * 8);
+}
+
+// tile += bias, in place, on the chunks this thread copied (visible to it
+// once its copies have completed). The bf16 add rounds the exact sum once,
+// which equals the f32 add rounded to bf16 that the plain version does: f32's
+// 24 bits are more than 2 * 8 + 2, so its rounding never moves a bf16 tie.
+template <int HDP>
+__device__ __forceinline__ void add_bias_tile(unsigned char* tile, uint4 bias, int hd, int tid) {
+  constexpr int CPR = HDP / 8;
+  const int c = tid % CPR;
+  if (c * 8 >= hd) return;
+  const bf162* bb = reinterpret_cast<const bf162*>(&bias);
+#pragma unroll
+  for (int i = 0; i < CPR / 2; ++i) {
+    const int r = tid / CPR + i * (kWG / CPR);
+    uint4* p = reinterpret_cast<uint4*>(tile + chunk_offset(r, c));
+    uint4 v = *p;
+    bf162* vv = reinterpret_cast<bf162*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) vv[k] = __hadd2(vv[k], bb[k]);
+    *p = v;
+  }
+}
+
+// ---- wgmma ------------------------------------------------------------------
+// Shared-memory operand descriptor: address >> 4, leading byte offset (unused
+// for one 128-byte swizzled row of chunks) 1, stride between 8-row groups
+// 1024 bytes, 128-byte swizzle.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 32) | (1ull << 62);
+}
+// rows as M / N, depth step ks = columns [16 ks, 16 ks + 16)
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int ks) {
+  return make_desc(smem_addr(tile) + (ks >> 2) * kSubBytes + (ks & 3) * 32);
+}
+// rows as depth, step ks = rows [16 ks, 16 ks + 16); columns [64 nh, 64 nh + 64) as N
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int nh, int ks) {
+  return make_desc(smem_addr(tile) + nh * kSubBytes + ks * 2 * kAtomBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin register values on one side of an asynchronous product.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define MMTG_ACC32(d)                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define MMTG_D32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64, 64] (+)= a[64, 16] . b[64, 16]^T, both from shared memory, depth along
+// the columns of both; accumulate == 0 overwrites d (it need not be set).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMTG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MMTG_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d[64, 64] += a[64, 16] . b[16, 64], a from this thread's fragment registers,
+// b from shared memory with the depth along its rows (transposed operand).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMTG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : MMTG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc[64, 64] = A . B^T over the tiles' HDP columns
+template <int HDP>
+__device__ __forceinline__ void product_nt(float (&acc)[32], const unsigned char* A,
+                                           const unsigned char* B) {
+#pragma unroll
+  for (int ks = 0; ks < HDP / 16; ++ks) wgmma_ss(acc, desc_k(A, ks), desc_k(B, ks), ks > 0);
+}
+// acc[64, HDP] += a[64, 64] . B, a in fragment registers (frag[ks] = its
+// columns [16 ks, 16 ks + 16)), B a [64, HDP] tile
+template <int HDP>
+__device__ __forceinline__ void product_rn(float (&acc)[HDP / 64][32],
+                                           const uint32_t (&frag)[4][4],
+                                           const unsigned char* B) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int nh = 0; nh < HDP / 64; ++nh) wgmma_rs(acc[nh], frag[ks], desc_mn(B, nh, ks));
+}
+
+// Accumulator layout of a [64, 64] product, thread = (warp, g = lane / 4,
+// q4 = lane % 4): element e is row 16 warp + g + 8 ((e >> 1) & 1), column
+// 8 (e >> 2) + 2 q4 + (e & 1). The same elements, rounded to bf16 and
+// packed in pairs, are the A fragments of the next product: depth step ks
+// takes elements 8 ks .. 8 ks + 7.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void to_fragments(uint32_t (&frag)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) frag[ks][i] = pack_bf16(x[8 * ks + 2 * i], x[8 * ks + 2 * i + 1]);
+}
+
+// ---- epilogues --------------------------------------------------------------
+// An accumulator acc[64, HDP] leaves in two steps with one __syncthreads()
+// between them. stage_acc: rounded to bf16 into a (free) tile and, with SUMS,
+// each thread's two rows added and written as one of 32 partial rows to
+// `scratch` (32 rows of HDP + 8 floats: the stride keeps the 8-byte stores off
+// each other's banks). flush_acc: the tile goes to dst 16 bytes a thread
+// (row stride in elements, columns below hd only) and, with SUMS, 128 / HDP
+// threads a column add the partial rows (f32, unrounded) and add the sum
+// atomically to sums_dst[0..hd).
+template <int HDP, bool SUMS>
+__device__ __forceinline__ void stage_acc(unsigned char* tile, float* scratch,
+                                          const float (&acc)[HDP / 64][32], int tid) {
+  const int warp = tid / 32, g = (tid % 32) / 4, q4 = tid % 4;
+#pragma unroll
+  for (int nh = 0; nh < HDP / 64; ++nh)
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<uint32_t*>(tile + chunk_offset(16 * warp + g + 8 * rr, 8 * nh + j8) +
+                                     4 * q4) =
+            pack_bf16(acc[nh][4 * j8 + 2 * rr], acc[nh][4 * j8 + 2 * rr + 1]);
+      if (SUMS)
+        *reinterpret_cast<float2*>(scratch + (8 * warp + g) * (HDP + 8) + 64 * nh + 8 * j8 +
+                                   2 * q4) =
+            make_float2(acc[nh][4 * j8] + acc[nh][4 * j8 + 2],
+                        acc[nh][4 * j8 + 1] + acc[nh][4 * j8 + 3]);
+    }
+}
+
+template <int HDP, bool SUMS>
+__device__ __forceinline__ void flush_acc(const unsigned char* tile, const float* scratch,
+                                          bf16* dst, size_t row_stride, float* sums_dst, int hd,
+                                          int tid) {
+  constexpr int CPR = HDP / 8;
+  const int c = tid % CPR;
+  if (c * 8 < hd) {
+#pragma unroll
+    for (int k = 0; k < CPR / 2; ++k) {
+      const int r = tid / CPR + k * (kWG / CPR);
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + chunk_offset(r, c));
+    }
+  }
+  if (SUMS) {
+    constexpr int kRows = 32 * HDP / kWG;  // partial rows a thread adds
+    const int col = tid % HDP, r0 = (tid / HDP) * kRows;
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s += scratch[(r0 + r) * (HDP + 8) + col];
+    if (col < hd) atomicAdd(sums_dst + col, s);
+  }
+}
+
+// Scores are kept in the base-2 domain, x2 = x * log2(e), so that a
+// probability is one add and one ex2.approx (2 ulp; exp(-1e30) is still 0).
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A mask word for the base-2 domain: a key bias times log2(e); a segment id as
+// it is.
+template <bool SEG>
+__device__ __forceinline__ int mask_word2(int w) {
+  return SEG ? w : __float_as_int(__int_as_float(w) * kLog2e);
+}
+// load_mask_row in base-2 words (four loads a thread in flight at once: a block
+// waits for memory once)
+template <bool SEG>
+__device__ __forceinline__ void load_mask_row2(int* mrow, const void* mask, int b, int T, int n,
+                                               int tid) {
+  const int* src = static_cast<const int*>(mask) + static_cast<size_t>(b) * T;
+  for (int j0 = tid; j0 < n; j0 += 4 * kWG) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = j0 + k * kWG;
+      if (j < n) mrow[j] = mask_word2<SEG>(src[j]);
+    }
+  }
+}
+// the mask term of score (i, j) in the base-2 domain, from the two mask words
+template <bool SEG>
+__device__ __forceinline__ float mask_term2(int wi, int wj) {
+  if (SEG) return wi == wj ? 0.0f : kNegInf;
+  return __int_as_float(wj);
+}
+
+// bwd_element in the base-2 domain, without the causal test: s_dot . scale2 +
+// kb2 is the score times log2(e), lse2 the row's log-sum-exp times log2(e).
+// The caller zeroes the entries past the causal diagonal afterwards (only the
+// diagonal tile has any).
+template <bool DROP>
+__device__ __forceinline__ float bwd_element2(float s_dot, float dpd, float scale2, float kb2,
+                                              float lse2, float d_i, uint32_t rkey, uint32_t jg,
+                                              const Dims& dm, float* pd_out) {
+  const float p = ex2(fmaf(s_dot, scale2, kb2) - lse2);
+  float pd = p, dp = dpd;
+  if (DROP) {
+    const bool keep = keep_bit(rkey, jg, dm.thr);
+    pd = keep ? p * dm.inv_keep : 0.0f;
+    dp = keep ? dpd * dm.inv_keep : 0.0f;
+  }
+  *pd_out = pd;
+  return (p * (dp - d_i)) * dm.scale;
+}
+
+// the first live key tile at or after kc (qt + 1 if none) / query tile at or
+// after qt (n_tiles if none)
+template <bool SEG>
+__device__ __forceinline__ int next_live_key(const int* lo, const int* hi, int qt, int kc) {
+  while (kc <= qt && !tile_live(SEG, lo, hi, qt, kc)) ++kc;
+  return kc;
+}
+template <bool SEG>
+__device__ __forceinline__ int next_live_query(const int* lo, const int* hi, int qt, int kt,
+                                               int n_tiles) {
+  while (qt < n_tiles && !tile_live(SEG, lo, hi, qt, kt)) ++qt;
+  return qt;
+}
+
+// ---- forward: one block per (b, h, QUERY tile), one sweep over the key tiles --
+// (4 blocks an SM at 64 lanes: 128 registers a thread, measured without spills
+// and 5% faster than the 160 the compiler takes when left alone)
+template <int HDP, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kWG, HDP == 64 ? 4 : 1)
+mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
+                  const void* __restrict__ mask, const int* __restrict__ seed_ptr,
+                  bf16* __restrict__ ctx, float* __restrict__ lse, Dims dm) {
+  constexpr int NH = HDP / 64;
+  constexpr int kTileBytes = NH * kSubBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_tiles(smem_raw);  // [64, HDP]; at the end the output's staging
+  unsigned char* ring = Qs + kTileBytes;      // 2 stages of K | V
+  int* mrow = reinterpret_cast<int*>(ring + 4 * kTileBytes);  // [T] mask words
+  int* tlo = mrow + dm.T;                     // [T / 64] segment-id ranges of the tiles
+  int* thi = tlo + dm.T / kTile;
+
+  const int T = dm.T, H = dm.H, hd = dm.hd;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, q4 = tid % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t S = dm.S;
+  const bf16* slab = qkv + static_cast<size_t>(b) * T * S;
+  const bf16* ksrc = slab + col(dm, h, 1);
+  const bf16* vsrc = slab + col(dm, h, 2);
+  const uint4 bq = bias_chunk<HDP>(qkv_bias + col(dm, h, 0), hd, tid);
+  const uint4 bk = bias_chunk<HDP>(qkv_bias + col(dm, h, 1), hd, tid);
+  const uint4 bv = bias_chunk<HDP>(qkv_bias + col(dm, h, 2), hd, tid);
+
+  auto fill = [&](int kc, int stage) {
+    unsigned char* Ks = ring + 2 * stage * kTileBytes;
+    load_tile_async<HDP>(Ks, ksrc + static_cast<size_t>(kc) * kTile * S, S, hd, tid);
+    load_tile_async<HDP>(Ks + kTileBytes, vsrc + static_cast<size_t>(kc) * kTile * S, S, hd, tid);
+    cp_async_commit();
+  };
+  // The first copies are queued before anything is waited for. With segment
+  // ids the first live key tile is known only after the ids are in.
+  load_tile_async<HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S, hd, tid);
+  int kc = 0;
+  if (!SEG) fill(kc, 0);
+  load_mask_row2<SEG>(mrow, mask, b, T, (qt + 1) * kTile, tid);
+  __syncthreads();
+  if (SEG) {
+    seg_tile_ranges(mrow, 0, qt, tlo, thi, tid);
+    __syncthreads();
+    kc = next_live_key<SEG>(tlo, thi, qt, 0);  // the diagonal tile is always live
+    fill(kc, 0);
+  }
+
+  // this thread's two query rows
+  const int ig0 = qt * kTile + 16 * warp + g, ig1 = ig0 + 8;
+  const int wi0 = mrow[ig0], wi1 = mrow[ig1];
+  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+  const uint32_t rkey0 = row_key(seed, static_cast<uint32_t>((b * H + h) * T + ig0));
+  const uint32_t rkey1 = row_key(seed, static_cast<uint32_t>((b * H + h) * T + ig1));
+  const float scale2 = dm.scale * kLog2e;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running maxima (base-2 domain)
+  float l0 = 0.0f, l1 = 0.0f;            // running sums (this thread's columns)
+  float o[NH][32];
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nh][e] = 0.0f;
+
+  int stage = 0;
+  bool first = true;
+  while (kc <= qt) {
+    const int nx = next_live_key<SEG>(tlo, thi, qt, kc + 1);
+    if (nx <= qt) {  // the next live tile travels while this one is worked on
+      fill(nx, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    unsigned char* Ks = ring + 2 * stage * kTileBytes;
+    unsigned char* Vs = Ks + kTileBytes;
+    if (first) add_bias_tile<HDP>(Qs, bq, hd, tid);
+    first = false;
+    add_bias_tile<HDP>(Ks, bk, hd, tid);
+    add_bias_tile<HDP>(Vs, bv, hd, tid);
+    fence_async_proxy();
+    __syncthreads();
+
+    float s[32];
+    wgmma_fence();
+    product_nt<HDP>(s, Qs, Ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    // scores; only the diagonal tile has keys past the causal diagonal
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int wj = mrow[kc * kTile + 8 * j8 + 2 * q4 + c];
+        s[4 * j8 + c] = fmaf(s[4 * j8 + c], scale2, mask_term2<SEG>(wi0, wj));
+        s[4 * j8 + 2 + c] = fmaf(s[4 * j8 + 2 + c], scale2, mask_term2<SEG>(wi1, wj));
+      }
+    if (kc == qt) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int jg = kc * kTile + 8 * (e >> 2) + 2 * q4 + (e & 1);
+        s[e] = (jg > ((e & 2) ? ig1 : ig0)) ? kNegInf : s[e];
+      }
+    }
+    // the tile's row maxima
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      if (e & 2) {
+        mx1 = fmaxf(mx1, s[e]);
+      } else {
+        mx0 = fmaxf(mx0, s[e]);
+      }
+    }
+    // a row's 64 scores sit in the 4 threads of a quad
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: a score is >= -3e30
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);       // 0 on the first tile
+    m0 = mn0;
+    m1 = mn1;
+    // Un-normalised probabilities; the sum is taken before dropout. A row
+    // whose scores so far are all masked has m near -1e30 and p = 1 here: the
+    // first live score rescales that to exactly 0 (a = 2^(-1e30 - m) = 0),
+    // as the masked entries of a visited tile are 0 in the plain version.
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t jg = static_cast<uint32_t>(kc * kTile + 8 * j8 + 2 * q4 + c);
+        float p0 = ex2(s[4 * j8 + c] - m0), p1 = ex2(s[4 * j8 + 2 + c] - m1);
+        sum0 += p0;
+        sum1 += p1;
+        if (DROP) {
+          p0 = keep_bit(rkey0, jg, dm.thr) ? p0 * dm.inv_keep : 0.0f;
+          p1 = keep_bit(rkey1, jg, dm.thr) ? p1 * dm.inv_keep : 0.0f;
+        }
+        s[4 * j8 + c] = p0;
+        s[4 * j8 + 2 + c] = p1;
+      }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[nh][e] *= (e & 2) ? a1 : a0;
+
+    // o += bf16(p) . V, the probabilities straight from their registers
+    uint32_t frag[4][4];
+    to_fragments(frag, s);
+    fence_regs(frag);
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) fence_regs(o[nh]);
+    wgmma_fence();
+    product_rn<HDP>(o, frag, Vs);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) fence_regs(o[nh]);
+    __syncthreads();  // the stage may be refilled
+    kc = nx;
+    stage ^= 1;
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float r0 = 1.0f / l0, r1 = 1.0f / l1;
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nh][e] *= (e & 2) ? r1 : r0;
+  if (q4 == 0) {
+    float* dst = lse + (static_cast<size_t>(b) * H + h) * T;
+    dst[ig0] = m0 * kLn2 + logf(l0);
+    dst[ig1] = m1 * kLn2 + logf(l1);
+  }
+  stage_acc<HDP, false>(Qs, nullptr, o, tid);
+  __syncthreads();
+  flush_acc<HDP, false>(
+      Qs, nullptr,
+      ctx + (static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile) * dm.CS + h * dm.chs,
+      dm.CS, nullptr, hd, tid);
+}
+
+// ---- backward, dq: one block per (b, h, QUERY tile) -------------------------
+template <int HDP, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kWG)
+mha_bwd_dq_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
+                     const void* __restrict__ mask, const int* __restrict__ seed_ptr,
+                     const bf16* __restrict__ ctx, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ dsum,
+                     bf16* __restrict__ dqkv, float* __restrict__ dqb, Dims dm) {
+  constexpr int NH = HDP / 64;
+  constexpr int kTileBytes = NH * kSubBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_tiles(smem_raw);  // [64, HDP]; at the end dq's staging
+  unsigned char* dOs = Qs + kTileBytes;       // [64, HDP]
+  unsigned char* ring = dOs + kTileBytes;     // 2 stages of K | V; at the end scratch
+  float* rowD = reinterpret_cast<float*>(ring + 4 * kTileBytes);  // [64]
+  int* mrow = reinterpret_cast<int*>(rowD + kTile);  // [T] mask words
+  int* tlo = mrow + dm.T;
+  int* thi = tlo + dm.T / kTile;
+
+  const int T = dm.T, H = dm.H, hd = dm.hd;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, q4 = tid % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t S = dm.S, CS = dm.CS;
+  const bf16* slab = qkv + static_cast<size_t>(b) * T * S;
+  const bf16* ksrc = slab + col(dm, h, 1);
+  const bf16* vsrc = slab + col(dm, h, 2);
+  const size_t row0 = static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile;
+  const size_t stat0 = (static_cast<size_t>(b) * H + h) * T + static_cast<size_t>(qt) * kTile;
+  const uint4 bq = bias_chunk<HDP>(qkv_bias + col(dm, h, 0), hd, tid);
+  const uint4 bk = bias_chunk<HDP>(qkv_bias + col(dm, h, 1), hd, tid);
+  const uint4 bv = bias_chunk<HDP>(qkv_bias + col(dm, h, 2), hd, tid);
+
+  auto fill = [&](int kc, int stage) {
+    unsigned char* Ks = ring + 2 * stage * kTileBytes;
+    load_tile_async<HDP>(Ks, ksrc + static_cast<size_t>(kc) * kTile * S, S, hd, tid);
+    load_tile_async<HDP>(Ks + kTileBytes, vsrc + static_cast<size_t>(kc) * kTile * S, S, hd, tid);
+    cp_async_commit();
+  };
+  load_tile_async<HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S, hd, tid);
+  load_tile_async<HDP>(dOs, dout + row0 * CS + h * dm.chs, CS, hd, tid);
+  int kc = 0;
+  if (!SEG) fill(kc, 0);
+  // every load of the prologue is issued before the first wait
+  float li[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) li[rr] = lse[stat0 + 16 * warp + g + 8 * rr] * kLog2e;
+  load_mask_row2<SEG>(mrow, mask, b, T, (qt + 1) * kTile, tid);
+  {  // D_i = sum_d do_id * ctx_id: two threads a row, 16 bytes a load
+    const int r = tid / 2, half = tid % 2;
+    const bf16* c = ctx + (row0 + r) * CS + h * dm.chs;
+    const bf16* d = dout + (row0 + r) * CS + h * dm.chs;
+    float sum = 0.0f;
+#pragma unroll
+    for (int k2 = 0; k2 < HDP / 16; ++k2) {
+      const int ch = half + 2 * k2;
+      if (ch >= hd / 8) continue;
+      const uint4 cv = *reinterpret_cast<const uint4*>(c + 8 * ch);
+      const uint4 dv = *reinterpret_cast<const uint4*>(d + 8 * ch);
+      const bf162* cc = reinterpret_cast<const bf162*>(&cv);
+      const bf162* dd = reinterpret_cast<const bf162*>(&dv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 x = __bfloat1622float2(cc[k]), y = __bfloat1622float2(dd[k]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      rowD[r] = sum;
+      dsum[stat0 + r] = sum;
+    }
+  }
+  __syncthreads();
+  if (SEG) {
+    seg_tile_ranges(mrow, 0, qt, tlo, thi, tid);
+    __syncthreads();
+    kc = next_live_key<SEG>(tlo, thi, qt, 0);
+    fill(kc, 0);
+  }
+
+  const float scale2 = dm.scale * kLog2e;
+  const int ig[2] = {qt * kTile + 16 * warp + g, qt * kTile + 16 * warp + g + 8};
+  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+  uint32_t rkey[2];
+  float di[2];
+  int wi[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    rkey[rr] = row_key(seed, static_cast<uint32_t>((b * H + h) * T + ig[rr]));
+    di[rr] = rowD[16 * warp + g + 8 * rr];
+    wi[rr] = mrow[ig[rr]];
+  }
+  float dq[NH][32];
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[nh][e] = 0.0f;
+
+  int stage = 0;
+  bool first = true;
+  while (kc <= qt) {
+    const int nx = next_live_key<SEG>(tlo, thi, qt, kc + 1);
+    if (nx <= qt) {
+      fill(nx, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    unsigned char* Ks = ring + 2 * stage * kTileBytes;
+    unsigned char* Vs = Ks + kTileBytes;
+    if (first) add_bias_tile<HDP>(Qs, bq, hd, tid);
+    first = false;
+    add_bias_tile<HDP>(Ks, bk, hd, tid);
+    add_bias_tile<HDP>(Vs, bv, hd, tid);
+    fence_async_proxy();
+    __syncthreads();
+
+    float s[32], dp[32];
+    wgmma_fence();
+    product_nt<HDP>(s, Qs, Ks);    // rows: queries, columns: keys
+    product_nt<HDP>(dp, dOs, Vs);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int jg = kc * kTile + 8 * j8 + 2 * q4 + c;
+        const int wj = mrow[jg];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int e = 4 * j8 + 2 * rr + c;
+          float pd;
+          s[e] = bwd_element2<DROP>(s[e], dp[e], scale2, mask_term2<SEG>(wi[rr], wj), li[rr],
+                                    di[rr], rkey[rr], static_cast<uint32_t>(jg), dm, &pd);
+        }
+      }
+    if (kc == qt) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int jg = kc * kTile + 8 * (e >> 2) + 2 * q4 + (e & 1);
+        s[e] = (jg > ig[(e >> 1) & 1]) ? 0.0f : s[e];
+      }
+    }
+    // dq += bf16(ds) . K, ds straight from its registers
+    uint32_t frag[4][4];
+    to_fragments(frag, s);
+    fence_regs(frag);
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) fence_regs(dq[nh]);
+    wgmma_fence();
+    product_rn<HDP>(dq, frag, Ks);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) fence_regs(dq[nh]);
+    __syncthreads();  // the stage may be refilled
+    kc = nx;
+    stage ^= 1;
+  }
+
+  float* scratch = reinterpret_cast<float*>(ring);
+  stage_acc<HDP, true>(Qs, scratch, dq, tid);
+  __syncthreads();
+  flush_acc<HDP, true>(Qs, scratch, dqkv + row0 * S + col(dm, h, 0), S, dqb + col(dm, h, 0), hd,
+                       tid);
+}
+
+// ---- backward, dk and dv: one block per (b, h, KEY tile) --------------------
+// The scores are computed TRANSPOSED (rows: keys, columns: queries), so that
+// pd^T and ds^T come out of the accumulators as the A fragments of dv += pd^T .
+// do and dk += ds^T . q. At HDP = 128 the two [64, 128] f32 accumulators and
+// the two score accumulators take 192 of a thread's 255 registers.
+template <int HDP, bool SEG, bool DROP>
+__global__ void __launch_bounds__(kWG)
+mha_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
+                       const void* __restrict__ mask, const int* __restrict__ seed_ptr,
+                       const bf16* __restrict__ dout, const float* __restrict__ lse,
+                       const float* __restrict__ dsum, bf16* __restrict__ dqkv,
+                       float* __restrict__ dqb, Dims dm) {
+  constexpr int NH = HDP / 64;
+  constexpr int kTileBytes = NH * kSubBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align_tiles(smem_raw);  // [64, HDP] this block's keys
+  unsigned char* Vs = Ks + kTileBytes;        // [64, HDP]
+  unsigned char* ring = Vs + kTileBytes;      // 2 stages of Q | dO; at the end scratch
+  // [T] per query of this (b, h): lse * log2(e), D_i, dropout row key, mask word
+  uint4* qrow = reinterpret_cast<uint4*>(ring + 4 * kTileBytes);
+  int* mrow = reinterpret_cast<int*>(qrow + dm.T);            // [T] mask words
+  int* tlo = mrow + dm.T;
+  int* thi = tlo + dm.T / kTile;
+
+  const int T = dm.T, H = dm.H, hd = dm.hd;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, q4 = tid % 4;
+  const int kt = blockIdx.x;  // key tile 0 walks every query tile: first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t S = dm.S, CS = dm.CS;
+  const bf16* slab = qkv + static_cast<size_t>(b) * T * S;
+  const bf16* qsrc = slab + col(dm, h, 0);
+  const bf16* dosrc = dout + static_cast<size_t>(b) * T * CS + h * dm.chs;
+  const int n_tiles = T / kTile;
+  const uint4 bq = bias_chunk<HDP>(qkv_bias + col(dm, h, 0), hd, tid);
+  const uint4 bk = bias_chunk<HDP>(qkv_bias + col(dm, h, 1), hd, tid);
+  const uint4 bv = bias_chunk<HDP>(qkv_bias + col(dm, h, 2), hd, tid);
+
+  auto fill = [&](int qt, int stage) {
+    unsigned char* Qs = ring + 2 * stage * kTileBytes;
+    load_tile_async<HDP>(Qs, qsrc + static_cast<size_t>(qt) * kTile * S, S, hd, tid);
+    load_tile_async<HDP>(Qs + kTileBytes, dosrc + static_cast<size_t>(qt) * kTile * CS, CS, hd,
+                         tid);
+    cp_async_commit();
+  };
+  load_tile_async<HDP>(Ks, slab + static_cast<size_t>(kt) * kTile * S + col(dm, h, 1), S, hd, tid);
+  load_tile_async<HDP>(Vs, slab + static_cast<size_t>(kt) * kTile * S + col(dm, h, 2), S, hd, tid);
+  int qt = kt;
+  if (!SEG) fill(qt, 0);
+  {  // the row statistics and mask words of the queries at or after this key
+     // tile; a thread's loads are issued together: the block waits for memory once
+    const int* msrc = static_cast<const int*>(mask) + static_cast<size_t>(b) * T;
+    const size_t stat = (static_cast<size_t>(b) * H + h) * T;
+    const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+    for (int i0 = kt * kTile + tid; i0 < T; i0 += 4 * kWG) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * kWG;
+        if (i < T) {
+          const int w = mask_word2<SEG>(msrc[i]);
+          mrow[i] = w;
+          qrow[i] = make_uint4(
+              __float_as_uint(lse[stat + i] * kLog2e), __float_as_uint(dsum[stat + i]),
+              DROP ? row_key(seed, static_cast<uint32_t>((b * H + h) * T + i)) : 0u,
+              static_cast<uint32_t>(w));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (SEG) {
+    seg_tile_ranges(mrow, kt, n_tiles - 1, tlo, thi, tid);
+    __syncthreads();
+    qt = next_live_query<SEG>(tlo, thi, kt, kt, n_tiles);  // the diagonal tile is live
+    fill(qt, 0);
+  }
+  const float scale2 = dm.scale * kLog2e;
+
+  // this thread's two key rows
+  const int jg[2] = {kt * kTile + 16 * warp + g, kt * kTile + 16 * warp + g + 8};
+  const int wj[2] = {mrow[jg[0]], mrow[jg[1]]};
+  float dk[NH][32], dv[NH][32];
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[nh][e] = dv[nh][e] = 0.0f;
+
+  int stage = 0;
+  bool first = true;
+  while (qt < n_tiles) {
+    const int nx = next_live_query<SEG>(tlo, thi, qt + 1, kt, n_tiles);
+    if (nx < n_tiles) {
+      fill(nx, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    unsigned char* Qs = ring + 2 * stage * kTileBytes;
+    unsigned char* dOs = Qs + kTileBytes;
+    if (first) {
+      add_bias_tile<HDP>(Ks, bk, hd, tid);
+      add_bias_tile<HDP>(Vs, bv, hd, tid);
+    }
+    first = false;
+    add_bias_tile<HDP>(Qs, bq, hd, tid);
+    fence_async_proxy();
+    __syncthreads();
+
+    float s[32], dp[32];
+    wgmma_fence();
+    product_nt<HDP>(s, Ks, Qs);    // rows: keys, columns: queries
+    product_nt<HDP>(dp, Vs, dOs);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ig = qt * kTile + 8 * j8 + 2 * q4 + c;
+        const uint4 qi = qrow[ig];
+        const int wi = static_cast<int>(qi.w);
+        const float li = __uint_as_float(qi.x), di = __uint_as_float(qi.y);
+        const uint32_t rkey = qi.z;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int e = 4 * j8 + 2 * rr + c;
+          float pd;
+          dp[e] = bwd_element2<DROP>(s[e], dp[e], scale2, mask_term2<SEG>(wi, wj[rr]), li, di,
+                                     rkey, static_cast<uint32_t>(jg[rr]), dm, &pd);
+          s[e] = pd;
+        }
+      }
+    if (qt == kt) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const bool dead = jg[(e >> 1) & 1] > qt * kTile + 8 * (e >> 2) + 2 * q4 + (e & 1);
+        s[e] = dead ? 0.0f : s[e];
+        dp[e] = dead ? 0.0f : dp[e];
+      }
+    }
+    uint32_t fp[4][4], fs[4][4];
+    to_fragments(fp, s);
+    to_fragments(fs, dp);
+    fence_regs(fp);
+    fence_regs(fs);
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) {
+      fence_regs(dv[nh]);
+      fence_regs(dk[nh]);
+    }
+    wgmma_fence();
+    product_rn<HDP>(dv, fp, dOs);  // dv += bf16(pd^T) . do
+    product_rn<HDP>(dk, fs, Qs);   // dk += bf16(ds^T) . q
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) {
+      fence_regs(dv[nh]);
+      fence_regs(dk[nh]);
+    }
+    __syncthreads();  // the stage may be refilled
+    qt = nx;
+    stage ^= 1;
+  }
+
+  bf16* dst = dqkv + (static_cast<size_t>(b) * T + static_cast<size_t>(kt) * kTile) * S;
+  // dk is staged in the key tile (no longer read) and leaves while dv is
+  // staged in the value tile; the partial sums go through the ring
+  float* scratch_k = reinterpret_cast<float*>(ring);
+  float* scratch_v = scratch_k + 32 * (HDP + 8);
+  stage_acc<HDP, true>(Ks, scratch_k, dk, tid);
+  __syncthreads();
+  flush_acc<HDP, true>(Ks, scratch_k, dst + col(dm, h, 1), S, dqb + col(dm, h, 1), hd, tid);
+  stage_acc<HDP, true>(Vs, scratch_v, dv, tid);
+  __syncthreads();
+  flush_acc<HDP, true>(Vs, scratch_v, dst + col(dm, h, 2), S, dqb + col(dm, h, 2), hd, tid);
+}
+
+// ---- launchers: f32---------------------------------------------------------
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -666,6 +1592,69 @@ int launch_bwd(const void* qkv, const void* qkv_bias, const void* mask, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- launchers: bf16 ------------------------------------------------------
+// tiles (1024-byte aligned inside the block's dynamic shared memory) + words
+constexpr size_t tc_smem(int HDP, int tiles, size_t words) {
+  return kAtomBytes + static_cast<size_t>(tiles) * kTile * HDP * 2 + words * 4;
+}
+
+// f(seg, dropout) with the two run-time flags as compile-time constants: each
+// kernel holds the code of its own mask and of its own dropout setting only.
+template <typename F>
+int with_flags(const Dims& dm, F f) {
+  if (dm.seg)
+    return dm.dropout ? f(std::true_type(), std::true_type())
+                      : f(std::true_type(), std::false_type());
+  return dm.dropout ? f(std::false_type(), std::true_type())
+                    : f(std::false_type(), std::false_type());
+}
+
+template <int HDP>
+int launch_fwd_tc(const void* qkv, const void* qkv_bias, const void* mask, const void* seed,
+                  void* ctx, void* lse, Dims dm, cudaStream_t stream) {
+  return with_flags(dm, [&](auto seg, auto drop) {
+    auto kernel = mha_fwd_tc_kernel<HDP, decltype(seg)::value, decltype(drop)::value>;
+    const size_t smem = tc_smem(HDP, 5, mask_words(dm.T));
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(dm.T / kTile, dm.H, dm.B);
+    kernel<<<grid, kWG, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(qkv_bias), mask,
+        static_cast<const int*>(seed), static_cast<bf16*>(ctx), static_cast<float*>(lse), dm);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <int HDP>
+int launch_bwd_tc(const void* qkv, const void* qkv_bias, const void* mask, const void* seed,
+                  const void* ctx, const void* dout, const void* lse, void* dsum, void* dqkv,
+                  void* dqb, Dims dm, cudaStream_t stream) {
+  return with_flags(dm, [&](auto seg, auto drop) {
+    auto dq_kernel = mha_bwd_dq_tc_kernel<HDP, decltype(seg)::value, decltype(drop)::value>;
+    auto kv_kernel = mha_bwd_dkdv_tc_kernel<HDP, decltype(seg)::value, decltype(drop)::value>;
+    const size_t smem_dq = tc_smem(HDP, 6, kTile + mask_words(dm.T));
+    const size_t smem_kv = tc_smem(HDP, 6, 4 * dm.T + mask_words(dm.T));
+    cudaError_t err = allow_smem(dq_kernel, smem_dq);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = allow_smem(kv_kernel, smem_kv);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(dm.T / kTile, dm.H, dm.B);
+    dq_kernel<<<grid, kWG, smem_dq, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(qkv_bias), mask,
+        static_cast<const int*>(seed), static_cast<const bf16*>(ctx),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<float*>(dsum), static_cast<bf16*>(dqkv), static_cast<float*>(dqb), dm);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kv_kernel<<<grid, kWG, smem_kv, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(qkv_bias), mask,
+        static_cast<const int*>(seed), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dsum),
+        static_cast<bf16*>(dqkv), static_cast<float*>(dqb), dm);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 // head_major == 0: the standard slab [B, T, 3*H*hd] and ctx [B, T, H*hd];
 // head_major != 0: the head-major slab [B, T, H*384], hd == 128, ctx [B, T, H*128].
 Dims make_dims(int B, int T, int H, int hd, int head_major, int seg, float scale,
@@ -706,9 +1695,8 @@ extern "C" int mmtg_mha_train_fwd(const void* qkv, const void* qkv_bias, const v
   const Dims dm = make_dims(B, T, H, hd, head_major, seg, scale, inv_keep, thr, dropout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (hd <= 64)
-      return launch_fwd<__nv_bfloat16, 64>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
-    return launch_fwd<__nv_bfloat16, 128>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
+    if (hd <= 64) return launch_fwd_tc<64>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
+    return launch_fwd_tc<128>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
   }
   if (hd <= 64) return launch_fwd<float, 64>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
   return launch_fwd<float, 128>(qkv, qkv_bias, mask, seed, ctx, lse, dm, s);
@@ -727,10 +1715,9 @@ extern "C" int mmtg_mha_train_bwd(const void* qkv, const void* qkv_bias, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (hd <= 64)
-      return launch_bwd<__nv_bfloat16, 64>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum,
-                                           dqkv, dqb, dm, s);
-    return launch_bwd<__nv_bfloat16, 128>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum,
-                                          dqkv, dqb, dm, s);
+      return launch_bwd_tc<64>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum, dqkv, dqb, dm,
+                               s);
+    return launch_bwd_tc<128>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum, dqkv, dqb, dm, s);
   }
   if (hd <= 64)
     return launch_bwd<float, 64>(qkv, qkv_bias, mask, seed, ctx, dout, lse, dsum, dqkv, dqb,

@@ -26,6 +26,24 @@ raise if they cannot); for CPU tensors it runs its ``*_plain`` version, the
 same math in plain differentiable PyTorch. ``<function>.fwd_launches`` /
 ``.bwd_launches`` count the kernel launches.
 
+The source holds two designs, chosen by the slab's dtype and by nothing else:
+
+* bf16 — tensor cores (``wgmma``, one warpgroup a 64-row tile). What bounds
+  it is instruction issue on the scores (mask, exponential, the dropout hash:
+  about 20 instructions an element), not the products and not the bytes; so
+  the scores never leave the registers: the forward is one sweep over the key
+  tiles with an online softmax whose dropped-out, UN-NORMALISED probabilities
+  go straight from the accumulator to the next product, and the backward
+  computes the scores transposed where it needs them transposed. Shared
+  memory holds a ring of 8-16 KB bf16 tiles and does not grow with T. The
+  context differs from the plain version's by one bf16 rounding of an
+  un-normalised probability: at most one bf16 step of the context's own
+  value (1.6e-2 where |ctx| lies between 2 and 4), no longer bit for bit.
+* f32 — CUDA-core FMAs on f32 tiles in shared memory (TF32 would lose the
+  1e-5 agreement with the plain version that the f32 checks rely on). What
+  bounds it is the FMA rate and shared-memory loads; its forward keeps a
+  ``[64, T]`` score block in shared memory, which is what limits T to 512.
+
 Dropout bits. The TPU kernel draws from the core's own generator, whose bits
 depend on its launch grid. Here ``keep(b, h, i, j)`` is a pure function of
 the element's coordinates::
@@ -204,7 +222,10 @@ def _check(fn, qkv, qkv_bias, mask, seed, n_head):
                              "at most 128)")
     B, T, S = qkv.shape
     if T % 128 or T > 512:
-        # the forward keeps a [64, T] f32 score block in shared memory
+        # f32: the forward keeps a [64, T] f32 score block in shared memory
+        # (199 KB at T=512 with 128 lanes). bf16: the tensor-core kernels hold
+        # no such block, only [T] words of mask and row statistics; the limit
+        # is kept for both types so a model runs in either.
         raise ValueError(f"{name}: T={T} (the caller pads to a multiple of "
                          "128, at most 512)")
     if B * n_head * T >= 2 ** 31:
@@ -221,7 +242,18 @@ def _check(fn, qkv, qkv_bias, mask, seed, n_head):
         if t.device != qkv.device or not t.is_contiguous():
             raise ValueError(f"{name}: all tensors must be contiguous and on "
                              "one CUDA device")
+    if qkv.dtype == torch.bfloat16:
+        _check_aligned(name, qkv, qkv_bias)
     return B, T, hd
+
+
+def _check_aligned(name, *tensors):
+    """The bf16 kernels move 16 bytes a thread: a view that starts off a
+    16-byte boundary cannot be taken."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor storage must start on a 16-byte "
+                             "boundary")
 
 
 def _dropout_args(rate: float):
@@ -266,6 +298,8 @@ class _MhaTrain(torch.autograd.Function):
         if dout.dtype != qkv.dtype or dout.device != qkv.device:
             raise TypeError(f"{fn.__name__}: d(ctx) must match qkv's dtype "
                             "and device")
+        if dout.dtype == torch.bfloat16:
+            _check_aligned(fn.__name__, dout)
         dqkv = torch.empty_like(qkv)
         dsum = torch.empty_like(lse)
         dqb = torch.zeros(S, dtype=torch.float32, device=qkv.device)

@@ -87,13 +87,16 @@ def _train_attention_case(gen, B, T, H, hd, dtype):
 
 # f32: the two versions differ only in summation order (and dqb in the
 # order of its atomic adds); bf16: one rounding of the working type on
-# values of order 1 (ctx, dqkv) and on sums over B*T rows (dqb)
+# values of order 1 (ctx: the tensor-core forward rounds the un-normalised
+# probabilities, the plain version the normalised ones; dqkv) and on sums
+# over B*T rows (dqb)
 @pytest.mark.parametrize("dtype,tols", [
     (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("H,hd,T", [(2, 64, 128), (3, 32, 256), (2, 128, 128),
                                     (2, 40, 128), (2, 64, 384), (2, 64, 512),
-                                    (2, 128, 512)])
+                                    (2, 128, 512), (2, 8, 256), (3, 40, 384),
+                                    (2, 8, 512), (1, 104, 256)])
 def test_mha_train_packed_kernel_matches_plain(cuda, dtype, tols, rate, H, hd, T):
     B = 3
     qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
@@ -155,7 +158,7 @@ def _compare(fn, plain, args, co, tols, expect_launch=True):
     (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("kind", ["random", "packer"])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [8, 32, 40, 64, 128])
 @pytest.mark.parametrize("T", [128, 256, 384, 512])
 def test_mha_train_packed_seg_kernel_matches_plain(cuda, dtype, tols, rate, kind, hd, T):
     B, H = 2, 2
@@ -177,7 +180,7 @@ def _pad_heads(t, H, hd):
 @pytest.mark.parametrize("dtype,tols", [
     (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [8, 32, 40, 64, 128])
 @pytest.mark.parametrize("T", [128, 256, 384, 512])
 def test_mha_train_kernel_matches_plain(cuda, dtype, tols, rate, hd, T):
     B, H = 2, 3
@@ -201,9 +204,9 @@ def test_mha_train_kernel_matches_plain(cuda, dtype, tols, rate, hd, T):
     assert (live.float() - ref.float()).abs().max().item() <= tols[0]
 
 
-def test_mha_train_packed_dqkv_is_reproducible(cuda):
-    qkv, qb, bias, co, seed = _train_attention_case(cuda, 2, 128, 2, 64,
-                                                    torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_train_packed_dqkv_is_reproducible(cuda, dtype):
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, 2, 128, 2, 64, dtype)
     runs = []
     for _ in range(2):
         a = qkv.clone().requires_grad_(True)
@@ -213,13 +216,14 @@ def test_mha_train_packed_dqkv_is_reproducible(cuda):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fn", ["mha_train_packed_seg", "mha_train"])
-def test_new_kernels_dqkv_is_reproducible(cuda, fn):
+def test_new_kernels_dqkv_is_reproducible(cuda, fn, dtype):
     B, T, H, hd = 2, 256, 2, 64
-    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, torch.bfloat16)
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
     if fn == "mha_train":
         qkv, qb = _pad_heads(qkv, H, hd), _pad_heads(qb, H, hd)
-        co = torch.randn(B, T, H * 128, generator=cuda, device="cuda").bfloat16()
+        co = torch.randn(B, T, H * 128, generator=cuda, device="cuda").to(dtype)
         mask = bias
     else:
         mask = _segment_ids(cuda, B, T, "packer")
@@ -267,6 +271,10 @@ def test_mha_train_packed_rejects_bad_input(cuda):
         ta.mha_train_packed(qkv.half(), qb.half(), bias, seed, 2)
     with pytest.raises(ValueError):  # seed on another device
         ta.mha_train_packed(qkv, qb, bias, seed.cpu(), 2)
+    # a bf16 view that starts 8 bytes off a 16-byte boundary
+    flat = torch.zeros(128 * 384 + 4, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ta.mha_train_packed(flat[4:].view(1, 128, 384), qb.bfloat16(), bias, seed, 2)
 
 
 def test_wrapper_rejects_bad_input(cuda):
