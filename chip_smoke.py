@@ -22,11 +22,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
      64 -> 128) at B=64, T=256. Each is timed (CUDA events, median of single calls queued behind a sleep
      kernel so host overhead is excluded) beside its plain version and one
      PyTorch library call used nowhere in the port, and its bound (the
-     larger of bytes / 3.35 TB/s and operations / peak) is computed;
+     larger of bytes / 3.35 TB/s and operations / peak) is computed; then
+     the same for every decode wrapper (bf16) and the GRU at B=1 (the p50
+     path) and B=512;
   3. the generation path, decoding.generate, at the full model width
      (12-layer 768-d GPT-2, vocab 13317, 2048-d WenLan, random seeded
-     weights) in bf16: B=64 with the int8 cache, then B=8 with the bf16
-     cache; the kernel launch counters prove the kernels ran;
+     weights) in bf16: B=64 with the int8 cache, then B=8 and B=1 with the
+     bf16 cache; the kernel launch counters prove the kernels ran; the B=1
+     call's median wall over 5 calls is the p50 latency;
   4. teacher-forced logits through the kernels vs through the plain
      versions, full width, f32: fp, int8, int4 and merged caches, and the
      whole-step kernel;
@@ -37,12 +40,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
      then B=8 in f32 without dropout: loss and every gradient leaf through
      the kernels vs through the plain attention;
   7. the train CLI (default device: the card) on synthetic records, depth
-     cut to 2 layers: an epoch, a checkpoint, a resumed second epoch;
+     cut to 2 layers: an epoch, a checkpoint, a resumed second epoch; then the
+     generate CLI (default device) on the --save_path it wrote;
   8. the packed-sequence train path (--pack_sequences) at full width:
      make_train_step on PackedBatcher batches, 32 rows of 512, bf16 compute /
      f32 masters, dropout on, remat on, 1 warm-up + 5 timed steps (launch
      counts of mha_train_packed_seg asserted, none of mha_train_packed), then
-     4 rows in f32: loss and gradients, kernel path vs plain path;
+     4 rows in f32: loss and gradients, kernel path vs plain path; then one
+     bf16 and one f32 step on 16 rows of 1024 (--pack_row_len 1024);
   9. the unpacked train step through the head-major kernel
      (attn_impl="kernel_padded") at B=64, 1 + 3 steps, then B=8 in f32: loss
      and gradients vs the standard-slab path;
@@ -65,7 +70,9 @@ last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
 and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
-parallel build. Without a CUDA device it exits non-zero and prints no result.
+parallel build; --kernels-only stops after phase 2 (to time another
+checkout's kernels with this script's measurements). Without a CUDA device it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -85,8 +92,10 @@ L, B_ATT, T_CAP, D, H = 12, 64, 256, 768, 12
 POSITIONS = (0, 15, 16, 127, 128, 235)
 TIMED_POSITION = 235  # the last decode step: the longest live prefix
 GRU_SHAPE = dict(T=5, B=64, I=2048, H=512)
+OTHER_BATCHES = (1, 512)  # phase 2 beside B=64: the p50 path and the widest batch
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (attention, GRU)
 LENGTH = 220
+P50_CALLS = 5  # B=1 generate calls whose median wall is the p50 latency
 DEVICE = "cuda"
 # published H100 SXM peaks the bounds are reckoned against
 MEM_BYTES_PER_S = 3.35e12
@@ -107,6 +116,7 @@ PACK_ROWS, PACK_T, PACK_SLOTS = 32, 512, 8  # 32 x 512 = the tokens of B=64 x 25
 # dqkv's entries pass 8, where one bf16 rounding is 0.0625 (the largest |dqkv|
 # is printed beside the error); f32 as above.
 SEG_TOL = {"float32": TRAIN_TOL["float32"], "bfloat16": (2e-2, 8e-2, 2e-2)}
+LONG_ROWS, LONG_T = 16, 1024  # packed rows of n_positions: the same tokens a step
 
 
 def model_configs():
@@ -205,27 +215,27 @@ DECODE_WRAPPERS = (
 )
 
 
-def _attention_case(dtype, kind, gen):
+def _attention_case(dtype, kind, gen, B=B_ATT):
     """q, k_new, v_new, a key mask with holes, and a cache of ``kind`` (fp /
     int8 / int4 / merged) filled everywhere: (q, k_new, v_new, mask, caches,
     scales) with caches = [k, v] or [kv]."""
     import torch
 
     dev = DEVICE
-    q, k_new, v_new = (torch.randn(B_ATT, D, generator=gen, device=dev).to(dtype)
+    q, k_new, v_new = (torch.randn(B, D, generator=gen, device=dev).to(dtype)
                        for _ in range(3))
-    mask = torch.randint(0, 2, (B_ATT, T_CAP), generator=gen, device=dev,
+    mask = torch.randint(0, 2, (B, T_CAP), generator=gen, device=dev,
                          dtype=torch.int32)
     mask[:, 0] = 1
     if kind == "fp":
         return q, k_new, v_new, mask, [
-            torch.randn(L, B_ATT, T_CAP, D, generator=gen, device=dev).to(dtype)
+            torch.randn(L, B, T_CAP, D, generator=gen, device=dev).to(dtype)
             for _ in range(2)], []
     row = {"int8": D, "int4": D // 2, "merged": 2 * D}[kind]
-    caches = [torch.randint(-127, 128, (L, B_ATT, T_CAP, row), generator=gen,
+    caches = [torch.randint(-127, 128, (L, B, T_CAP, row), generator=gen,
                             device=dev, dtype=torch.int8)
               for _ in range(1 if kind == "merged" else 2)]
-    scales = [torch.rand(L, B_ATT, T_CAP, generator=gen, device=dev) * 0.02 + 0.005
+    scales = [torch.rand(L, B, T_CAP, generator=gen, device=dev) * 0.02 + 0.005
               for _ in range(2)]
     return q, k_new, v_new, mask, caches, scales
 
@@ -377,6 +387,135 @@ def phase_block_fused(results, gen):
     return lines
 
 
+def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen):
+    """One decode-attention wrapper (the kernel) vs its plain version at
+    batch ``B``: ctx within TOL and the cache and scales bit for bit at every
+    position of POSITIONS; then device times of the kernel, the plain version
+    and (fp cache) one SDPA call at TIMED_POSITION, and the bound. Stores the
+    result under (name, dtype) at B_ATT, else (name, dtype, "B<B>")."""
+    import torch
+
+    dname = str(dtype).split(".")[1]
+    q, k_new, v_new, mask, base_c, base_s = _attention_case(dtype, kind, gen, B)
+    run_kernel, run_plain = _decode_calls(da, name, kind, append, q, k_new,
+                                          v_new, mask)
+    err = 0.0
+    for pos in POSITIONS:
+        layer = pos % L
+        kc = [c.clone() for c in base_c + base_s]
+        pc = [c.clone() for c in base_c + base_s]
+        n = len(base_c)
+        ctx_k = run_kernel(kc[:n], kc[n:], pos, layer)
+        ctx_p = run_plain(pc[:n], pc[n:], pos, layer)
+        torch.cuda.synchronize()
+        # appended bytes and scales bit for bit (read-only: untouched)
+        for a, b, orig in zip(kc, pc, base_c + base_s):
+            check(torch.equal(a, b), f"{name} {dname} B={B} pos {pos}: a cache "
+                  "or scale tensor differs from the plain version")
+            check(append or torch.equal(a, orig),
+                  f"{name} {dname} B={B} pos {pos}: a read-only call wrote")
+        e = (ctx_k.float() - ctx_p.float()).abs().max().item()
+        check(e <= TOL[dname][0], f"{name} {dname} B={B} pos {pos}: ctx "
+              f"max-abs {e:.3g} > {TOL[dname][0]}")
+        err = max(err, e)
+        del kc, pc
+    caches, scales = [c.clone() for c in base_c], [c.clone() for c in base_s]
+    state = {"layer": 0}
+
+    def rotate(r):  # a different layer per call: the cache is cold
+        state["layer"] = r % L
+
+    ms = device_ms(lambda: run_kernel(caches, scales, TIMED_POSITION,
+                                      state["layer"]), between=rotate)
+    plain_ms = device_ms(lambda: run_plain(caches, scales, TIMED_POSITION,
+                                           state["layer"]), between=rotate)
+    library_ms = None
+    if kind == "fp":
+        # the library yardstick: (write the row, then) one SDPA call
+        # over the live prefix (no PyTorch call reads a quantized cache)
+        W = TIMED_POSITION + 1
+        slot = torch.tensor([TIMED_POSITION], device=DEVICE)
+        live = (mask[:, :W] != 0)[:, None, None, :]
+
+        def run_library():
+            kc, vc = caches[0][state["layer"]], caches[1][state["layer"]]
+            if append:
+                kc.index_copy_(1, slot, k_new[:, None])
+                vc.index_copy_(1, slot, v_new[:, None])
+            heads = lambda t: t[:, :W].view(B, W, H, D // H).transpose(1, 2)  # noqa: E731
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.view(B, H, 1, D // H), heads(kc), heads(vc),
+                attn_mask=live)
+
+        library_ms = device_ms(run_library, between=rotate)
+    # the bound counts what this mask needs: live slots only, each
+    # stored k and v row once (D, or D/2 bytes for int4)
+    n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
+    e, c = q.element_size(), caches[0].element_size()
+    row = D // 2 if kind == "int4" else D
+    nbytes = (B * D * e + 2 * n_live * row * c   # q, live k/v rows
+              + 4 * B * (TIMED_POSITION + 1) + B * D * e  # mask, ctx
+              + (2 * 4 * n_live if kind != "fp" else 0))  # live scales
+    if append:  # k_new / v_new in, the appended rows (and scales) out
+        nbytes += 2 * B * D * e + 2 * B * row * c
+        nbytes += 2 * 4 * B if kind != "fp" else 0
+    key = (name, dname) if B == B_ATT else (name, dname, f"B{B}")
+    results[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(nbytes, 4.0 * n_live * D, dname))
+    del base_c, base_s, caches, scales
+    torch.cuda.empty_cache()
+    return (f"{name}[{dname} B={B}] err {err:.3g} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms library "
+            f"{'none' if library_ms is None else format(library_ms, '.4f') + ' ms'}"
+            f" bound {results[key]['bound_ms']:.4f} ms")
+
+
+def _gru_vs_plain(results, fg, dtype, B, gen):
+    """fused_gru (the kernel) vs its plain version at batch ``B``; device
+    times of the kernel, the plain version and cuDNN's GRU, and the bound.
+    Stored under ("fused_gru", dtype) at GRU_SHAPE's B, else with "B<B>"."""
+    import torch
+
+    s = dict(GRU_SHAPE, B=B)
+    dname = str(dtype).split(".")[1]
+    x = torch.randn(s["T"], s["B"], s["I"], generator=gen, device=DEVICE).to(dtype)
+    w_ih = (torch.randn(s["I"], 3 * s["H"], generator=gen, device=DEVICE)
+            * (2.0 / (3 * s["H"] + s["I"])) ** 0.5).to(dtype)
+    w_hh = torch.linalg.qr(torch.randn(3 * s["H"], s["H"], generator=gen,
+                                       device=DEVICE))[0].T.contiguous().to(dtype)
+    b_ih, b_hh = ((torch.rand(3 * s["H"], generator=gen, device=DEVICE) * 2 - 1)
+                  .mul(s["H"] ** -0.5).to(dtype) for _ in range(2))
+    args = (x, w_ih, w_hh, b_ih, b_hh)
+    before = fg.fused_gru.launches
+    y_k = fg.fused_gru(*args)
+    y_p = fg.fused_gru_plain(*args)
+    torch.cuda.synchronize()
+    check(fg.fused_gru.launches == before + 1, "fused_gru: not one launch a call")
+    check(y_k.shape == y_p.shape and y_k.dtype == dtype, "fused_gru shape/dtype")
+    e = (y_k.float() - y_p.float()).abs().max().item()
+    check(e <= TOL[dname][1], f"fused_gru {dname} B={B}: max-abs {e:.3g} > "
+          f"{TOL[dname][1]}")
+    ms = device_ms(lambda: fg.fused_gru(*args))
+    plain_ms = device_ms(lambda: fg.fused_gru_plain(*args))
+    gru = torch.nn.GRU(s["I"], s["H"], device=DEVICE, dtype=dtype)
+    with torch.no_grad():  # the library yardstick: cuDNN's GRU
+        gru.weight_ih_l0.copy_(w_ih.T)
+        gru.weight_hh_l0.copy_(w_hh.T)
+        gru.bias_ih_l0.copy_(b_ih)
+        gru.bias_hh_l0.copy_(b_hh)
+        library_ms = device_ms(lambda: gru(x))
+    n_elems = sum(t.numel() for t in args) + y_k.numel()
+    ops = 2.0 * s["T"] * s["B"] * 3 * s["H"] * (s["I"] + s["H"])
+    key = ("fused_gru", dname) if B == GRU_SHAPE["B"] else ("fused_gru", dname, f"B{B}")
+    results[key] = dict(
+        max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(n_elems * x.element_size(), ops, dname))
+    return (f"fused_gru[{dname} B={B}] err {e:.3g} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{results[key]['bound_ms']:.4f} ms")
+
+
 def phase_kernels(out):
     import torch
 
@@ -388,117 +527,23 @@ def phase_kernels(out):
     lines = []
     for name, kind, append in DECODE_WRAPPERS:
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[1]
-            q, k_new, v_new, mask, base_c, base_s = _attention_case(dtype, kind, gen)
-            run_kernel, run_plain = _decode_calls(da, name, kind, append, q, k_new,
-                                                  v_new, mask)
-            err = 0.0
-            for pos in POSITIONS:
-                layer = pos % L
-                kc = [c.clone() for c in base_c + base_s]
-                pc = [c.clone() for c in base_c + base_s]
-                n = len(base_c)
-                ctx_k = run_kernel(kc[:n], kc[n:], pos, layer)
-                ctx_p = run_plain(pc[:n], pc[n:], pos, layer)
-                torch.cuda.synchronize()
-                # appended bytes and scales bit for bit (read-only: untouched)
-                for a, b, orig in zip(kc, pc, base_c + base_s):
-                    check(torch.equal(a, b), f"{name} {dname} pos {pos}: a cache "
-                          "or scale tensor differs from the plain version")
-                    check(append or torch.equal(a, orig),
-                          f"{name} {dname} pos {pos}: a read-only call wrote")
-                e = (ctx_k.float() - ctx_p.float()).abs().max().item()
-                check(e <= TOL[dname][0], f"{name} {dname} pos {pos}: ctx "
-                      f"max-abs {e:.3g} > {TOL[dname][0]}")
-                err = max(err, e)
-                del kc, pc
-            caches, scales = [c.clone() for c in base_c], [c.clone() for c in base_s]
-            state = {"layer": 0}
-
-            def rotate(r):  # a different layer per call: the cache is cold
-                state["layer"] = r % L
-
-            ms = device_ms(lambda: run_kernel(caches, scales, TIMED_POSITION,
-                                              state["layer"]), between=rotate)
-            plain_ms = device_ms(lambda: run_plain(caches, scales, TIMED_POSITION,
-                                                   state["layer"]), between=rotate)
-            library_ms = None
-            if kind == "fp":
-                # the library yardstick: (write the row, then) one SDPA call
-                # over the live prefix (no PyTorch call reads a quantized cache)
-                W = TIMED_POSITION + 1
-                slot = torch.tensor([TIMED_POSITION], device=DEVICE)
-                live = (mask[:, :W] != 0)[:, None, None, :]
-
-                def run_library():
-                    kc, vc = caches[0][state["layer"]], caches[1][state["layer"]]
-                    if append:
-                        kc.index_copy_(1, slot, k_new[:, None])
-                        vc.index_copy_(1, slot, v_new[:, None])
-                    heads = lambda t: t[:, :W].view(B_ATT, W, H, D // H).transpose(1, 2)  # noqa: E731
-                    return torch.nn.functional.scaled_dot_product_attention(
-                        q.view(B_ATT, H, 1, D // H), heads(kc), heads(vc),
-                        attn_mask=live)
-
-                library_ms = device_ms(run_library, between=rotate)
-            # the bound counts what this mask needs: live slots only, each
-            # stored k and v row once (D, or D/2 bytes for int4)
-            n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
-            e, c = q.element_size(), caches[0].element_size()
-            row = D // 2 if kind == "int4" else D
-            nbytes = (B_ATT * D * e + 2 * n_live * row * c   # q, live k/v rows
-                      + 4 * B_ATT * (TIMED_POSITION + 1) + B_ATT * D * e  # mask, ctx
-                      + (2 * 4 * n_live if kind != "fp" else 0))  # live scales
-            if append:  # k_new / v_new in, the appended rows (and scales) out
-                nbytes += 2 * B_ATT * D * e + 2 * B_ATT * row * c
-                nbytes += 2 * 4 * B_ATT if kind != "fp" else 0
-            results[(name, dname)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(nbytes, 4.0 * n_live * D, dname))
-            lines.append(f"{name}[{dname}] err {err:.3g} kernel {ms:.4f} ms "
-                         f"plain {plain_ms:.4f} ms library "
-                         f"{'none' if library_ms is None else format(library_ms, '.4f') + ' ms'}"
-                         f" bound {results[(name, dname)]['bound_ms']:.4f} ms")
-            del base_c, base_s, caches, scales
-            torch.cuda.empty_cache()
+            lines.append(_decode_vs_plain(results, da, name, kind, append, dtype, B_ATT, gen))
     lines += phase_block_fused(results, gen)
 
-    s = GRU_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        x = torch.randn(s["T"], s["B"], s["I"], generator=gen, device=DEVICE).to(dtype)
-        w_ih = (torch.randn(s["I"], 3 * s["H"], generator=gen, device=DEVICE)
-                * (2.0 / (3 * s["H"] + s["I"])) ** 0.5).to(dtype)
-        w_hh = torch.linalg.qr(torch.randn(3 * s["H"], s["H"], generator=gen,
-                                           device=DEVICE))[0].T.contiguous().to(dtype)
-        b_ih, b_hh = ((torch.rand(3 * s["H"], generator=gen, device=DEVICE) * 2 - 1)
-                      .mul(s["H"] ** -0.5).to(dtype) for _ in range(2))
-        args = (x, w_ih, w_hh, b_ih, b_hh)
-        y_k = fg.fused_gru(*args)
-        y_p = fg.fused_gru_plain(*args)
-        torch.cuda.synchronize()
-        check(y_k.shape == y_p.shape and y_k.dtype == dtype, "fused_gru shape/dtype")
-        e = (y_k.float() - y_p.float()).abs().max().item()
-        check(e <= TOL[dname][1], f"fused_gru {dname}: max-abs {e:.3g} > "
-              f"{TOL[dname][1]}")
-        ms = device_ms(lambda: fg.fused_gru(*args))
-        plain_ms = device_ms(lambda: fg.fused_gru_plain(*args))
-        gru = torch.nn.GRU(s["I"], s["H"], device=DEVICE, dtype=dtype)
-        with torch.no_grad():  # the library yardstick: cuDNN's GRU
-            gru.weight_ih_l0.copy_(w_ih.T)
-            gru.weight_hh_l0.copy_(w_hh.T)
-            gru.bias_ih_l0.copy_(b_ih)
-            gru.bias_hh_l0.copy_(b_hh)
-            library_ms = device_ms(lambda: gru(x))
-        n_elems = sum(t.numel() for t in args) + y_k.numel()
-        ops = 2.0 * s["T"] * s["B"] * 3 * s["H"] * (s["I"] + s["H"])
-        results[("fused_gru", dname)] = dict(
-            max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            **bound(n_elems * x.element_size(), ops, dname))
-        lines.append(f"fused_gru[{dname}] err {e:.3g} kernel {ms:.4f} ms "
-                     f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-                     f"{results[('fused_gru', dname)]['bound_ms']:.4f} ms")
+        lines.append(_gru_vs_plain(results, fg, dtype, GRU_SHAPE["B"], gen))
     print("phase 2 kernels vs plain: ok; " + "; ".join(lines))
+    # the p50 path (B=1) and the widest batch (B=512), bf16: every decode
+    # wrapper, and the GRU in both types. Their own generator: the train
+    # attention below keeps the inputs its tolerances were set on.
+    other, gen_other = [], torch.Generator(device=DEVICE).manual_seed(1)
+    for B in OTHER_BATCHES:
+        for name, kind, append in DECODE_WRAPPERS:
+            other.append(_decode_vs_plain(results, da, name, kind, append,
+                                          torch.bfloat16, B, gen_other))
+        for dtype in (torch.float32, torch.bfloat16):
+            other.append(_gru_vs_plain(results, fg, dtype, B, gen_other))
+    print("phase 2 kernels vs plain at B=1 and B=512: ok; " + "; ".join(other))
     for name, lines in phase_train_attention(results, gen).items():
         print(f"phase 2 {name} vs plain: ok; " + "; ".join(lines))
     print(f"phase 2 mha_train_packed_seg: the batch's segment ids let "
@@ -528,10 +573,10 @@ def _key_bias(B, T):
     return bias
 
 
-def packed_batches(dcfg, n_samples, rows, seed, emb_size=None):
+def packed_batches(dcfg, n_samples, rows, seed, emb_size=None, row_len=PACK_T):
     """Packed batches as the trainer makes them: synthetic framed samples
     with sentence lengths clip(normal(12, 4), 2, 20), next-fit packed into
-    rows of PACK_T with at most PACK_SLOTS samples each. Returns (the
+    rows of ``row_len`` with at most PACK_SLOTS samples each. Returns (the
     packer, the list of full numpy batches)."""
     import numpy as np
 
@@ -541,7 +586,7 @@ def packed_batches(dcfg, n_samples, rows, seed, emb_size=None):
     lens = np.clip(rng.normal(12.0, 4.0, (n_samples, 10)), 2, 20).astype(np.int64)
     cols = synthetic_framed_cols(rng, dcfg, lens, emb_size=emb_size)
     cols["rating"][:] = 5.0  # stage 3 keeps all, y = 1
-    pb = PackedBatcher(cols, dcfg, row_len=PACK_T, max_slots=PACK_SLOTS)
+    pb = PackedBatcher(cols, dcfg, row_len=row_len, max_slots=PACK_SLOTS)
     full = [b for b in pb.batches(rows, shuffle=True, rng=np.random.default_rng(seed + 1))
             if b["slot_valid"].any(axis=1).all()]
     check(bool(full), "packing produced no full batch")
@@ -843,6 +888,9 @@ def phase_generate(out, gpu):
     runs = [("b64 int8 cache", 64, GenerateConfig(cache_dtype="int8"),
              {"decode_attention_int8_append": steps, "fused_gru": 2}),
             ("b8 bf16 cache", 8, GenerateConfig(cache_dtype="model"),
+             {"decode_attention_fp_append": steps, "fused_gru": 2}),
+            # the p50 path: one row, the bf16 cache
+            ("b1 bf16 cache", 1, GenerateConfig(cache_dtype="model"),
              {"decode_attention_fp_append": steps, "fused_gru": 2})]
     batches = {b: make_batch(b) for _, b, _, _ in runs}
     for _, b, gcfg, _ in runs:  # warm-up (cuBLAS handles, allocator)
@@ -870,6 +918,19 @@ def phase_generate(out, gpu):
         lines.append(f"{what}: {wall:.3f} s, {tps:.1f} tok/s, launches "
                      f"{ {k: v for k, v in got.items() if v} }")
     launches = _counts()  # ---- read just after the main path ---------------
+    # B=1 p50: the run above and P50_CALLS - 1 more of the same call
+    what, b, gcfg, _ = runs[-1]
+    walls = [out[f"generate_{what.replace(' ', '_')}"]["wall_s"]]
+    for _ in range(P50_CALLS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(params, const, mcfg, dcfg, gcfg, batches[b],
+                 torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    p50 = statistics.median(walls)
+    out["generate_b1_p50"] = dict(p50_s=p50, walls_s=walls, tok_per_s=LENGTH / p50)
+    lines.append(f"b1 p50 of {P50_CALLS} calls {p50:.3f} s ({LENGTH / p50:.1f} tok/s)")
     print(f"phase 3 generate (full width, bf16, {LENGTH} tokens, on {gpu}): ok; "
           + "; ".join(lines))
     return launches
@@ -1332,11 +1393,11 @@ def _compare_paths(out, key, what, params, const, mcfg, dcfg, batch, impls):
           f"leaves max-abs {grad_err:.3g} (<= 1e-4; largest gradient {grad_max:.3g})")
 
 
-def _train_state(params, mcfg, dcfg, attn_impl="auto"):
+def _train_state(params, mcfg, dcfg, attn_impl="auto", dtype="bfloat16"):
     from mmtg_tpu_torch import train as ttrain
     from mmtg_tpu_torch.configs import TrainConfig
 
-    tcfg = TrainConfig(dtype="bfloat16", remat=True, lr=1e-4, alpha=0.2,
+    tcfg = TrainConfig(dtype=dtype, remat=True, lr=1e-4, alpha=0.2,
                        attn_impl=attn_impl)
     state, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params,
                                           device=DEVICE)
@@ -1416,6 +1477,36 @@ def phase_train_packed(out, gpu, profile):
     _, small = packed_batches(dcfg, 24, 4, 12)
     _compare_paths(out, "train_packed_kernel_vs_plain", "phase 8 packed train, 4 rows",
                    params, const, mcfg, dcfg, to_dev(small[0]), ("kernel", "plain"))
+    # rows of n_positions = 1024 (--pack_row_len 1024), the same tokens a step:
+    # one warm-up and one timed step in bf16, then in f32
+    _, np_long = packed_batches(dcfg, 16 * LONG_ROWS, LONG_ROWS, 13, row_len=LONG_T)
+    check(len(np_long) >= 2, f"only {len(np_long)} full packed batches of {LONG_T}")
+    long_batches = [to_dev(b) for b in np_long[:2]]
+    long = {}
+    for dname in ("bfloat16", "float32"):
+        state, step = _train_state(params, mcfg, dcfg, dtype=dname)
+        state, m = step(state, const, long_batches[0], 3)
+        torch.cuda.synchronize()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, const, long_batches[1], 3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = _counts()
+        loss = float(m["loss"])
+        check(loss == loss and abs(loss) < 1e6, f"packed {dname} step at {LONG_T}: loss {loss}")
+        _only(got, {"mha_train_packed_seg_fwd": 2 * L, "mha_train_packed_seg_bwd": L},
+              f"packed {dname} step at {LONG_T}")
+        long[dname] = dict(step_ms=wall_ms, loss=loss, kept=float(m["kept"]),
+                           peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state, step
+        torch.cuda.empty_cache()
+    out["train_packed_long_rows"] = dict(rows=LONG_ROWS, row_len=LONG_T, **long)
+    print(f"phase 8 packed train at --pack_row_len {LONG_T} ({LONG_ROWS} rows, full "
+          f"width, dropout on, remat, on {gpu}): ok; " + "; ".join(
+              f"{k}: one step {v['step_ms']:.1f} ms, {v['kept']:.0f} real samples, "
+              f"loss {v['loss']:.4f}" for k, v in long.items()))
     return launches
 
 
@@ -1544,9 +1635,38 @@ def phase_train_cli(out, paths, tmp):
     check(counts["mha_train_packed_bwd"] == 4 * 2
           and counts["mha_train_packed_fwd"] > 2 * 4 * 2,
           f"train CLI: launch counts {counts}")
-    out["train_cli"] = dict(seconds=secs, val_loss=[val1, val2], launches=counts)
+    # the generate CLI (no --device: the card) on the save path just written
+    from mmtg_tpu_torch import generate as gen_cli
+    from mmtg_tpu_torch.checkpoint import newest_step_file
+
+    loaded = newest_step_file(save)
+    best = os.path.join(save, "train_state_best")
+    check(os.path.dirname(loaded) == (best if os.path.isdir(best) else state_dir),
+          f"generate CLI: {loaded} is not the preferred stream's newest step")
+    samples = os.path.join(tmp, "samples_trained.txt")
+    _reset_counts()
+    t0 = time.perf_counter()
+    gen_cli.main(["--data_path", paths["test"], "--model_path", save,
+                  "--tokenizer_path", paths["vocab"], "--token_emb_path", paths["emb"],
+                  "--batch_size", "4", "--n_samples", "2", "--save_samples",
+                  "--save_samples_path", samples], mcfg=mcfg, dcfg=dcfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = _counts()
+    with open(samples, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(len(lines) == 4 and all(ln.strip() for ln in lines),
+          f"generate CLI on the train save path wrote {lines}")
+    # B=4: the int8 cache, 2 layers x 220 steps; the encoder's two GRUs
+    _only(gen_counts, {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2},
+          "generate CLI on the train save path")
+    out["train_cli"] = dict(seconds=secs, val_loss=[val1, val2], launches=counts,
+                            generate_seconds=gen_s, generate_loaded=os.path.relpath(loaded, save),
+                            generate_launches=gen_counts)
     print(f"phase 7 train CLI (default device, 2 layers, 2 epochs with --resume): "
-          f"ok; {secs:.1f} s, val loss {val1:.4f} -> {val2:.4f}, checkpoints {second}")
+          f"ok; {secs:.1f} s, val loss {val1:.4f} -> {val2:.4f}, checkpoints {second}; "
+          f"generate CLI (default device) on its --save_path: {len(lines)} samples in "
+          f"{gen_s:.1f} s from {os.path.relpath(loaded, save)}")
 
 
 def phase_packed_cli(out, paths, tmp):
@@ -1646,6 +1766,13 @@ KERNELS = [
 ]
 
 
+def _write_json(path, out):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -1654,6 +1781,9 @@ def main(argv=None) -> int:
                     help="also profile one train step (torch.profiler)")
     ap.add_argument("--build-serial", action="store_true",
                     help="also time a single-process build of the kernels")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (the kernels against their plain "
+                         "versions): no main path, no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1672,6 +1802,10 @@ def main(argv=None) -> int:
     gpu = gpu_line()
     out["gpu"] = gpu
     results = phase_kernels(out)
+    if args.kernels_only:
+        _write_json(args.json, out)
+        print(f"gpu: {gpu}")
+        return 0
     # each main path's run, the counts set to 0 before it and read after it
     launches = {"generate": phase_generate(out, gpu)}
     phase_teacher_forced(out)
@@ -1723,10 +1857,7 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"], dtype="bfloat16",
             f32_max_abs_err=f32["max_abs_err"], **extra))
     out["kernels"] = kernels
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(out, f, indent=1)
+    _write_json(args.json, out)
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ its ``MMTG.state_dict()`` (``model.py:330-354``; optionally
 and the per-layer GPT-2 tensors are stacked.
 
 Train states (:func:`save_train_state` / :func:`restore_train_state`) are
-written in the port's own format, one ``torch.save`` file per step. Reading
-the JAX package's Orbax directories is not ported yet.
+written in the port's own format, one ``torch.save`` file per step;
+:func:`load_model_params` reads the parameters of either kind of file.
+Reading the JAX package's Orbax directories is not ported yet.
 """
 
 from __future__ import annotations
@@ -133,7 +134,28 @@ def load_reference_checkpoint(path: str, mcfg: ModelConfig) -> Dict:
     ``{'state_dict': ...}`` wrapper or a bare state dict). Reference
     checkpoints pickle their argparse namespace, so this unpickles the file:
     load only checkpoints you trust."""
+    return _import_raw(torch.load(path, map_location="cpu", weights_only=False),
+                       mcfg)
+
+
+def _is_train_state(raw) -> bool:
+    """A :func:`save_train_state` file, told from a reference state dict by
+    its keys (its ``params`` hold the port's parameter tree)."""
+    return isinstance(raw, dict) and {"params", "opt_state", "step"} <= raw.keys()
+
+
+def load_model_params(path: str, mcfg: ModelConfig) -> Dict:
+    """The parameter tree (CPU tensors) of one checkpoint file: a train
+    state's ``params`` (the f32 masters), or a reference checkpoint as
+    :func:`load_reference_checkpoint` reads it. Unpickles: load only files
+    you trust."""
     raw = torch.load(path, map_location="cpu", weights_only=False)
+    if _is_train_state(raw):
+        return raw["params"]
+    return _import_raw(raw, mcfg)
+
+
+def _import_raw(raw, mcfg: ModelConfig) -> Dict:
     if isinstance(raw, dict) and "model" in raw:
         raw = raw["model"]
     if isinstance(raw, dict) and "state_dict" in raw:
@@ -151,6 +173,26 @@ def save_reference_checkpoint(path: str, params: Dict, mcfg: ModelConfig) -> Non
 
 def _step_files(directory: str):
     return sorted(glob.glob(os.path.join(directory, "step_*.pt")))
+
+
+def newest_step_file(model_path: str) -> str:
+    """The checkpoint file a model path names, as the JAX package's
+    ``generate.load_params`` resolves a trainer's ``--save_path``: a file is
+    itself; a directory holding ``step_*.pt`` files gives its newest; else the
+    newest of ``train_state_best/`` (the best-val stream, preferred) and then
+    of ``train_state/``. Raises ``FileNotFoundError`` naming what it looked
+    in."""
+    if not os.path.isdir(model_path):
+        if not os.path.exists(model_path):
+            raise FileNotFoundError(f"no checkpoint at {model_path}")
+        return model_path
+    candidates = [model_path, os.path.join(model_path, "train_state_best"),
+                  os.path.join(model_path, "train_state")]
+    for directory in candidates:
+        files = _step_files(directory)
+        if files:
+            return files[-1]
+    raise FileNotFoundError(f"no step_*.pt checkpoint under {candidates}")
 
 
 def save_train_state(directory: str, step: int, state, keep: int = 5) -> str:

@@ -24,23 +24,40 @@
 //
 // What bounds it on the H100: bytes. Each call streams the live cache prefix
 // of one layer, (position + 1) * D bytes per row for int8, half that for int4
-// and 2x / 4x for bf16 / f32, and does 2 FLOPs per byte or less.
+// and 2x / 4x for bf16 / f32, and does 2 FLOPs per byte or less. The first
+// port ran one block per batch row (64 SMs at B = 64, ONE at B = 1), a warp
+// per head walking the slots one by one, 1-4 bytes a lane and a 5-step
+// shuffle chain per slot: a latency chain at 30-80x the byte bound.
 //
-// Design (simple and right first):
-//   * one block per batch row, one warp per head: the per-row quantisation
-//     scale spans all heads, so the block computes the row's abs-max, writes
-//     the quantised row and both scales, __syncthreads(), and only then
-//     streams slots 0..position. No block reads another block's row.
-//   * a warp keeps its head's q and accumulator in registers (hd <= 128, up
-//     to 4 values per lane) and walks the slots in chunks of kChunk, issuing
-//     the chunk's k and v loads before the reductions so that several loads
-//     are in flight per warp.
-//   * int4: a byte holds lanes j and j + D/2, which belong to two heads; each
-//     head's warp reads the bytes that hold its lanes and takes its nibble
-//     (the byte is fetched by two warps of the block, once from memory).
-// Known limits, left to later work: B blocks under-fill the 132 SMs at small
-// B (B=64 uses 64 SMs); a lane reads 1-4 bytes per slot instead of 16; no
-// split over T; no TMA or wgmma.
+// Design:
+//   * a block of 128 threads owns one (batch row, head) and one chunk of the
+//     slots. Where B x heads cannot fill the card (B = 1 on the p50 path) the
+//     wrapper splits the slots into chunks of at least 16; the partial (max,
+//     sum, accumulator) triples go to scratch that the wrapper allocates, and
+//     the block that finishes last (an atomic count, reset by that block for
+//     the next call) merges them in chunk order: reproducible.
+//   * a lane loads 16 bytes of a slot's head row, neighbouring lanes the
+//     neighbouring bytes: a group of G = hd * size / 16 lanes covers the row
+//     (8 lanes for bf16 at hd = 64, 4 for int8), so a warp reads 32 / G slots
+//     a load, and each group keeps its own online softmax. A score is summed
+//     within its group (log2 G shuffles), never over the whole warp; the
+//     groups of the block merge once at the end. A lane issues the loads of 4
+//     slots before it reduces any of them.
+//   * int4: heads h and h + H/2 share their bytes (byte j holds lane j low and
+//     lane j + D/2 high), so for even H (and 16 | hd) one block owns the head
+//     pair and each 16-byte load gives the 32 codes of both heads. Odd H, where
+//     D/2 falls inside a head, takes a plain path: a block per head, a lane
+//     reading single bytes and picking its nibble.
+//   * append with exact bytes: every block whose chunk holds slot `position`
+//     recomputes the row's scale (an abs-max over ALL heads of k_new / v_new)
+//     and the row's codes from the step's rows, and attends over slot
+//     `position` from those; exactly one of them (head 0) writes the codes and
+//     both scales. No block reads slot `position` from the cache, so nothing
+//     races. The read-only kernel takes slot `position` at the same point of
+//     its sweep (after the chunk's other slots), so after an append it gives
+//     the same ctx bit for bit.
+// decode_block_fused.cu keeps using append_row / attend_head of
+// decode_attention.cuh; this kernel uses only that header's element helpers.
 
 #include "decode_attention.cuh"
 
@@ -48,92 +65,484 @@ namespace {
 
 using namespace mmtg;
 
-template <typename T, int KIND, bool APPEND>
-__global__ void decode_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
-    float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
-    T* __restrict__ ctx, int B, int T_cap, int D, int n_head, int position,
-    int layer, float q_scale, int row_stride) {
+constexpr int kThreads = 128;
+constexpr int kUnroll = 4;  // slots a lane loads before it reduces
+
+// The lane's view of one cache kind: EPL elements of each of NH heads come
+// out of one 16-byte raw value.
+template <typename T, int KIND, bool PAIR>
+struct Kind {
   using C = typename CacheElem<T, KIND>::type;
-  extern __shared__ float staged[];  // APPEND: the step's k and v rows, 2 * D
+  static constexpr int NH = PAIR ? 2 : 1;
+  static constexpr int EPL =
+      KIND == kFp ? 16 / static_cast<int>(sizeof(T)) : (KIND == kInt4 && !PAIR ? 8 : 16);
+  static constexpr bool kScalar = KIND == kInt4 && !PAIR;
+};
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Where this lane's elements live in a stored row: `off` is the element (fp,
+// int8) or byte (int4) offset of its 16 bytes; for the plain int4 path `col`
+// / `high` give each element's byte and nibble. `valid`: the lane holds
+// elements of the head at all (the group is rounded up to a power of two).
+struct LaneMap {
+  int off;
+  bool valid;
+  int col[8];
+  unsigned high;  // bit i: element i is a high nibble
+  unsigned live;  // bit i: element i lies inside the head
+};
+
+template <typename T, int KIND, bool PAIR>
+__device__ __forceinline__ uint4 load_raw(const typename Kind<T, KIND, PAIR>::C* row,
+                                          const LaneMap& lm, bool nc) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (Kind<T, KIND, PAIR>::kScalar) {
+    const int8_t* bytes = reinterpret_cast<const int8_t*>(row);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (lm.live >> i & 1u) {
+        const uint32_t b = static_cast<uint8_t>(nc ? __ldg(bytes + lm.col[i]) : bytes[lm.col[i]]);
+        w[i >> 2] |= b << (8 * (i & 3));
+      }
+    r.x = w[0];
+    r.y = w[1];
+  } else {
+    const uint4* p = reinterpret_cast<const uint4*>(row + lm.off);
+    r = nc ? __ldg(p) : *p;
+  }
+  return r;
+}
+
+// raw 16 bytes -> f[h][i] as floats (codes for the quantized kinds)
+template <typename T, int KIND, bool PAIR>
+__device__ __forceinline__ void unpack(const uint4& r, const LaneMap& lm,
+                                       float (&f)[Kind<T, KIND, PAIR>::NH][Kind<T, KIND, PAIR>::EPL]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  if constexpr (KIND == kFp) {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[0][i] = __uint_as_float(w[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        f[0][2 * i] = bf16_lo(w[i]);
+        f[0][2 * i + 1] = bf16_hi(w[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < Kind<T, KIND, PAIR>::EPL; ++i) {
+      const int b = static_cast<int>(static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3))));
+      if constexpr (KIND == kInt8) {
+        f[0][i] = static_cast<float>(b);
+      } else {
+        const float lo = static_cast<float>(static_cast<int>(static_cast<int8_t>(b << 4)) >> 4);
+        const float hi = static_cast<float>(b >> 4);  // arithmetic shift: signed
+        if constexpr (PAIR) {
+          f[0][i] = lo;
+          f[1][i] = hi;
+        } else {
+          f[0][i] = (lm.high >> i & 1u) ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// Per-group online-softmax state of NH heads; a lane holds EPL accumulator
+// entries of each.
+template <int NH, int EPL>
+struct State {
+  float m[NH], l[NH], acc[NH][EPL];
+};
+
+// One sweep step over U slots of the lane's group: scores (summed over the
+// group's G lanes), then the online-softmax update. `kr` / `vr` hold the
+// slots' raw k / v bytes (zero where not loaded), `ok` whether the slot is
+// live, `ks` / `vs` its scales. Every lane of the warp calls it.
+template <typename T, int KIND, bool PAIR, int U>
+__device__ __forceinline__ void sweep(
+    State<Kind<T, KIND, PAIR>::NH, Kind<T, KIND, PAIR>::EPL>& st,
+    const float (&qv)[Kind<T, KIND, PAIR>::NH][Kind<T, KIND, PAIR>::EPL], const uint4 (&kr)[U],
+    const uint4 (&vr)[U], const bool (&ok)[U], const float (&ks)[U], const float (&vs)[U],
+    const LaneMap& lm, int G) {
+  using K = Kind<T, KIND, PAIR>;
+  constexpr int NH = K::NH, EPL = K::EPL;
+  float s[U][NH];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float kf[NH][EPL];
+    unpack<T, KIND, PAIR>(kr[u], lm, kf);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float part = 0.0f;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) part += qv[h][i] * kf[h][i];
+      for (int o = G >> 1; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      if constexpr (KIND != kFp) part *= ks[u];
+      s[u][h] = ok[u] ? part : -INFINITY;
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int u = 0; u < U; ++u) any |= ok[u];
+  if (!any) return;  // no live slot in this step (uniform over the group)
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < U; ++u) cmax = fmaxf(cmax, s[u][h]);
+    const float m_new = fmaxf(st.m[h], cmax);
+    const float corr = expf(st.m[h] - m_new);  // m == -inf gives 0
+    st.l[h] *= corr;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) st.acc[h][i] *= corr;
+    st.m[h] = m_new;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!ok[u]) continue;
+    float vf[NH][EPL];
+    unpack<T, KIND, PAIR>(vr[u], lm, vf);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float p = expf(s[u][h] - st.m[h]);
+      st.l[h] += p;
+      if constexpr (KIND != kFp) p *= vs[u];
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) st.acc[h][i] += p * vf[h][i];
+    }
+  }
+}
+
+// Head `hh` of this block (0 or, for a pair, 1) as a head index of the model.
+template <bool PAIR>
+__device__ __forceinline__ int head_of(int hb, int hh, int n_head) {
+  return PAIR ? hb + hh * (n_head / 2) : hb;
+}
+
+template <typename T, int KIND, bool APPEND, bool PAIR>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
+                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
+                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
+                        int B, int T_cap, int D, int n_head, int position, int layer,
+                        float q_scale, int row_stride, int chunk, int G) {
+  using K = Kind<T, KIND, PAIR>;
+  using C = typename K::C;
+  constexpr int NH = K::NH, EPL = K::EPL;
+  extern __shared__ float4 smem4[];
+  __shared__ float red[2][kThreads / 32];
+  __shared__ int is_last;
+
+  const int s_idx = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x, n_hb = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hd = D / n_head;
+  const int n_groups = kThreads / G, grp = tid / G, lg = tid % G;
+  const int W = position + 1;
+  const int lo = s_idx * chunk, hi = min(lo + chunk, W);
+  const bool has_pos = hi == W;  // this chunk holds slot `position`
 
-  // slot 0 of (layer, b): row index into the [L*B*T] rows of the cache
+  // row-element width of one stored row (bytes for int4, elements else)
+  const int row_w = KIND == kInt4 ? D / 2 : D;
+  unsigned char* stage_k = reinterpret_cast<unsigned char*>(smem4);  // APPEND, quantized
+  unsigned char* stage_v = stage_k + ((row_w + 15) & ~15);
+  float* gsum = reinterpret_cast<float*>(
+      stage_k + (APPEND && KIND != kFp ? 2 * ((row_w + 15) & ~15) : 0));
+  // gsum: [NH][n_groups] max, [NH][n_groups] sum, [NH][n_groups][hd] accumulators
+  float* gm = gsum;
+  float* gl = gm + NH * n_groups;
+  float* gacc = gl + NH * n_groups;
+
   const size_t row0 = (static_cast<size_t>(layer) * B + b) * T_cap;
   C* k_rows = static_cast<C*>(k_cache_) + row0 * row_stride;
   C* v_rows = static_cast<C*>(v_cache_) + row0 * row_stride;
+  const int32_t* mask_row = key_mask + static_cast<size_t>(b) * T_cap;
 
-  // ---- 1. append the step's row at `position` -----------------------------
-  if constexpr (APPEND) {
-    for (int d = tid; d < D; d += blockDim.x) {
-      staged[d] = to_f(k_new[static_cast<size_t>(b) * D + d]);
-      staged[D + d] = to_f(v_new[static_cast<size_t>(b) * D + d]);
+  // ---- this lane's elements ---------------------------------------------------
+  LaneMap lm;
+  lm.high = 0u;
+  lm.live = 0u;
+  if constexpr (K::kScalar) {
+    const int half = D >> 1;
+    lm.valid = lg * EPL < hd;
+    lm.off = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = lg * EPL + i;
+      const int g = hb * hd + e;
+      lm.col[i] = g >= half ? g - half : g;
+      if (g >= half) lm.high |= 1u << i;
+      if (e < hd) lm.live |= 1u << i;
     }
-    __syncthreads();
-    const size_t slot = static_cast<size_t>(position) * row_stride;
-    append_row<T, KIND>(staged, staged + D, k_rows + slot, v_rows + slot,
-                        k_scale + row0 + position, v_scale + row0 + position, D);
+  } else {
+    lm.valid = lg * EPL < hd;
+    // elements of head hb (fp, int8), or bytes of head pair hb (int4)
+    lm.off = hb * hd + lg * EPL;
+  }
+  float qv[NH][EPL];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) {
+      const int e = lg * EPL + i;
+      // pre-scale and round back to T, as the TPU wrapper does
+      qv[h][i] = e < hd ? round_to<T>(to_f(q[static_cast<size_t>(b) * D +
+                                             head_of<PAIR>(hb, h, n_head) * hd + e]) *
+                                      q_scale)
+                        : 0.0f;
+    }
+
+  // ---- 1. the step's row, when this block attends over slot `position` -------
+  const C* pos_k = k_rows + static_cast<size_t>(position) * row_stride;
+  const C* pos_v = v_rows + static_cast<size_t>(position) * row_stride;
+  float pos_ks = 0.0f, pos_vs = 0.0f;
+  if constexpr (APPEND) {
+    if (has_pos) {
+      const T* kn = k_new + static_cast<size_t>(b) * D;
+      const T* vn = v_new + static_cast<size_t>(b) * D;
+      const bool writer = hb == 0;  // exactly one block writes the row
+      if constexpr (KIND == kFp) {
+        pos_k = kn;  // stored as it comes: the cache's type is q's
+        pos_v = vn;
+        if (writer)
+          for (int d = tid; d < D; d += kThreads) {
+            k_rows[static_cast<size_t>(position) * row_stride + d] = kn[d];
+            v_rows[static_cast<size_t>(position) * row_stride + d] = vn[d];
+          }
+      } else {
+        // the scale is an abs-max over the WHOLE row: every block computes it
+        float mk = 0.0f, mv = 0.0f;
+        for (int d = tid; d < D; d += kThreads) {
+          mk = fmaxf(mk, fabsf(to_f(kn[d])));
+          mv = fmaxf(mv, fabsf(to_f(vn[d])));
+        }
+        mk = warp_max(mk);
+        mv = warp_max(mv);
+        if (lane == 0) {
+          red[0][warp] = mk;
+          red[1][warp] = mv;
+        }
+        __syncthreads();
+        mk = 0.0f;
+        mv = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kThreads / 32; ++w) {
+          mk = fmaxf(mk, red[0][w]);
+          mv = fmaxf(mv, red[1][w]);
+        }
+        constexpr float qmax = KIND == kInt8 ? 127.0f : 7.0f;
+        const float ks = fmaxf(mk, 1e-6f) / qmax;
+        const float vs = fmaxf(mv, 1e-6f) / qmax;
+        int8_t* sk = reinterpret_cast<int8_t*>(stage_k);
+        int8_t* sv = reinterpret_cast<int8_t*>(stage_v);
+        if constexpr (KIND == kInt8) {
+          for (int d = tid; d < D; d += kThreads) {
+            sk[d] = static_cast<int8_t>(quantize(to_f(kn[d]), ks, qmax));
+            sv[d] = static_cast<int8_t>(quantize(to_f(vn[d]), vs, qmax));
+          }
+        } else {
+          const int half = D >> 1;
+          for (int j = tid; j < half; j += kThreads) {
+            const int klo = quantize(to_f(kn[j]), ks, qmax), khi = quantize(to_f(kn[j + half]), ks, qmax);
+            const int vlo = quantize(to_f(vn[j]), vs, qmax), vhi = quantize(to_f(vn[j + half]), vs, qmax);
+            sk[j] = static_cast<int8_t>(((khi & 15) << 4) | (klo & 15));
+            sv[j] = static_cast<int8_t>(((vhi & 15) << 4) | (vlo & 15));
+          }
+        }
+        __syncthreads();
+        if (writer) {
+          for (int d = tid; d < row_w; d += kThreads) {
+            k_rows[static_cast<size_t>(position) * row_stride + d] = sk[d];
+            v_rows[static_cast<size_t>(position) * row_stride + d] = sv[d];
+          }
+          if (tid == 0) {
+            k_scale[row0 + position] = ks;
+            v_scale[row0 + position] = vs;
+          }
+        }
+        pos_k = reinterpret_cast<const C*>(sk);
+        pos_v = reinterpret_cast<const C*>(sv);
+        pos_ks = ks;
+        pos_vs = vs;
+      }
+    }
+  }
+  if constexpr (!APPEND && KIND != kFp) {
+    if (has_pos) {
+      pos_ks = k_scale[row0 + position];
+      pos_vs = v_scale[row0 + position];
+    }
   }
 
-  // ---- 2. attend: warp `warp` owns head `warp` ----------------------------
-  const int hoff = warp * hd;
-  float qv[kMaxLaneElems];
-  float out[kMaxLaneElems];
+  // ---- 2. attend: the chunk's slots before `position`, then `position` --------
+  State<NH, EPL> st;
 #pragma unroll
-  for (int i = 0; i < kMaxLaneElems; ++i) {
-    const int d = lane + 32 * i;
-    // pre-scale and round back to T, as the TPU wrapper does
-    qv[i] = d < hd ? round_to<T>(to_f(q[static_cast<size_t>(b) * D + hoff + d]) * q_scale)
-                   : 0.0f;
-  }
-  attend_head<C, KIND>(qv, k_rows, v_rows, static_cast<size_t>(row_stride),
-                       k_scale + row0, v_scale + row0,
-                       key_mask + static_cast<size_t>(b) * T_cap, position, D, hd,
-                       hoff, lane, out);
+  for (int h = 0; h < NH; ++h) {
+    st.m[h] = -INFINITY;
+    st.l[h] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxLaneElems; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) ctx[static_cast<size_t>(b) * D + hoff + d] = from_f<T>(out[i]);
+    for (int i = 0; i < EPL; ++i) st.acc[h][i] = 0.0f;
   }
+  const int end = min(hi, position);
+  const size_t rs = static_cast<size_t>(row_stride);
+  for (int base = lo; base < end; base += n_groups * kUnroll) {  // uniform trip count
+    uint4 kr[kUnroll], vr[kUnroll];
+    bool ok[kUnroll];
+    float ks[kUnroll], vs[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = base + u * n_groups + grp;
+      ok[u] = t < end && __ldg(mask_row + t) != 0;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      ks[u] = vs[u] = 0.0f;
+      if (ok[u]) {  // masked slots cost no bytes (loading them too was slower)
+        if (lm.valid) {
+          kr[u] = load_raw<T, KIND, PAIR>(k_rows + t * rs, lm, true);
+          vr[u] = load_raw<T, KIND, PAIR>(v_rows + t * rs, lm, true);
+        }
+        if constexpr (KIND != kFp) {
+          ks[u] = __ldg(k_scale + row0 + t);
+          vs[u] = __ldg(v_scale + row0 + t);
+        }
+      }
+    }
+    sweep<T, KIND, PAIR, kUnroll>(st, qv, kr, vr, ok, ks, vs, lm, G);
+  }
+  if (has_pos) {  // slot `position`, by group 0, at the same point in every kind
+    uint4 kr[1] = {make_uint4(0u, 0u, 0u, 0u)}, vr[1] = {make_uint4(0u, 0u, 0u, 0u)};
+    bool ok[1] = {grp == 0 && mask_row[position] != 0};
+    float ks[1] = {pos_ks}, vs[1] = {pos_vs};
+    if (ok[0] && lm.valid) {
+      kr[0] = load_raw<T, KIND, PAIR>(pos_k, lm, false);
+      vr[0] = load_raw<T, KIND, PAIR>(pos_v, lm, false);
+    }
+    sweep<T, KIND, PAIR, 1>(st, qv, kr, vr, ok, ks, vs, lm, G);
+  }
+
+  // ---- 3. merge the groups of the block, in group order ------------------------
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    if (lg == 0) {
+      gm[h * n_groups + grp] = st.m[h];
+      gl[h * n_groups + grp] = st.l[h];
+    }
+#pragma unroll
+    for (int i = 0; i < EPL; ++i)
+      if (lg * EPL + i < hd) gacc[(h * n_groups + grp) * hd + lg * EPL + i] = st.acc[h][i];
+  }
+  __syncthreads();
+  const int P = NH * (2 + hd);  // one partial: m[NH], l[NH], acc[NH][hd]
+  float* part = n_split > 1
+                    ? scratch + ((static_cast<size_t>(b) * n_hb + hb) * n_split + s_idx) * P
+                    : nullptr;
+  for (int idx = tid; idx < NH * hd; idx += kThreads) {
+    const int h = idx / hd, d = idx % hd;
+    float M = -INFINITY;
+    for (int g = 0; g < n_groups; ++g) M = fmaxf(M, gm[h * n_groups + g]);
+    float Lsum = 0.0f, A = 0.0f;
+    if (M != -INFINITY)
+      for (int g = 0; g < n_groups; ++g) {
+        const float mg = gm[h * n_groups + g];
+        const float f = mg == -INFINITY ? 0.0f : expf(mg - M);
+        Lsum += gl[h * n_groups + g] * f;
+        A += gacc[(h * n_groups + g) * hd + d] * f;
+      }
+    if (n_split == 1) {
+      ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
+          from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
+    } else {
+      if (d == 0) {
+        part[h] = M;
+        part[NH + h] = Lsum;
+      }
+      part[2 * NH + idx] = A;
+    }
+  }
+  if (n_split == 1) return;
+
+  // ---- 4. the last chunk of (b, head) to finish merges the chunks, in order ----
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = atomicAdd(counters + b * n_hb + hb, 1);
+    is_last = prev == n_split - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float* parts = scratch + (static_cast<size_t>(b) * n_hb + hb) * n_split * P;
+  for (int idx = tid; idx < NH * hd; idx += kThreads) {
+    const int h = idx / hd, d = idx % hd;
+    float M = -INFINITY;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, __ldcg(parts + s * P + h));
+    float Lsum = 0.0f, A = 0.0f;
+    if (M != -INFINITY)
+      for (int s = 0; s < n_split; ++s) {
+        const float ms = __ldcg(parts + s * P + h);
+        const float f = ms == -INFINITY ? 0.0f : expf(ms - M);
+        Lsum += __ldcg(parts + s * P + NH + h) * f;
+        A += __ldcg(parts + s * P + 2 * NH + idx) * f;
+      }
+    ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
+        from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
+  }
+  if (tid == 0) counters[b * n_hb + hb] = 0;  // ready for the next call
 }
 
 struct Args {
   const void *q, *k_new, *v_new;
   void *k_cache, *v_cache, *k_scale, *v_scale;
   const void* key_mask;
-  void* ctx;
+  void *ctx, *scratch, *counters;
   int B, T_cap, D, n_head, position, layer;
   float q_scale;
-  int row_stride;
+  int row_stride, n_split, chunk;
   cudaStream_t stream;
 };
 
-template <typename T, int KIND, bool APPEND>
-void launch(const Args& a) {
-  const size_t smem = APPEND ? 2 * sizeof(float) * a.D : 0;
-  decode_attention_kernel<T, KIND, APPEND><<<a.B, a.n_head * 32, smem, a.stream>>>(
+template <typename T, int KIND, bool APPEND, bool PAIR>
+int launch(const Args& a) {
+  using K = Kind<T, KIND, PAIR>;
+  const int hd = a.D / a.n_head;
+  int G = 1;  // lanes a head row takes: a power of two
+  while (G * K::EPL < hd) G <<= 1;
+  if (G > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_groups = kThreads / G;
+  const int row_w = KIND == kInt4 ? a.D / 2 : a.D;
+  const size_t stage = APPEND && KIND != kFp ? 2 * static_cast<size_t>((row_w + 15) & ~15) : 0;
+  const size_t smem = stage + sizeof(float) * K::NH * n_groups * (2 + static_cast<size_t>(hd));
+  auto kernel = decode_attention_kernel<T, KIND, APPEND, PAIR>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(a.n_split, a.n_head / K::NH, a.B);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
-      static_cast<const T*>(a.v_new), a.k_cache, a.v_cache,
-      static_cast<float*>(a.k_scale), static_cast<float*>(a.v_scale),
-      static_cast<const int32_t*>(a.key_mask), static_cast<T*>(a.ctx), a.B,
-      a.T_cap, a.D, a.n_head, a.position, a.layer, a.q_scale, a.row_stride);
+      static_cast<const T*>(a.v_new), a.k_cache, a.v_cache, static_cast<float*>(a.k_scale),
+      static_cast<float*>(a.v_scale), static_cast<const int32_t*>(a.key_mask),
+      static_cast<T*>(a.ctx), static_cast<float*>(a.scratch), static_cast<int*>(a.counters),
+      a.B, a.T_cap, a.D, a.n_head, a.position, a.layer, a.q_scale, a.row_stride, a.chunk, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool APPEND>
+int launch_kind(const Args& a, int kind, bool pair) {
+  if (kind == kFp) return launch<T, kFp, APPEND, false>(a);
+  if (kind == kInt8) return launch<T, kInt8, APPEND, false>(a);
+  return pair ? launch<T, kInt4, APPEND, true>(a) : launch<T, kInt4, APPEND, false>(a);
 }
 
 template <typename T>
-void launch_kind(const Args& a, int kind, bool append) {
-  if (kind == kFp) {
-    append ? launch<T, kFp, true>(a) : launch<T, kFp, false>(a);
-  } else if (kind == kInt8) {
-    append ? launch<T, kInt8, true>(a) : launch<T, kInt8, false>(a);
-  } else {
-    append ? launch<T, kInt4, true>(a) : launch<T, kInt4, false>(a);
-  }
+int launch_dtype(const Args& a, int kind, bool append, bool pair) {
+  return append ? launch_kind<T, true>(a, kind, pair) : launch_kind<T, false>(a, kind, pair);
 }
 
 }  // namespace
@@ -144,22 +553,24 @@ void launch_kind(const Args& a, int kind, bool append) {
 // `row_stride` is the cache's last dimension in elements: D, D/2 for int4, or
 // 2D for the merged k||v buffer, whose v half the caller passes as
 // v_cache = k_cache + D. Scales [L, B, T_cap] f32 (ignored for kind 0);
-// key_mask [B, T_cap] int32. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch (0 on success). The caller validates
-// shapes and bounds.
+// key_mask [B, T_cap] int32. dtype: 0 = float32, 1 = bfloat16. The slots
+// 0..position are taken in n_split chunks of `chunk` (the last one holds
+// `position`); with n_split > 1, `scratch` holds B * n_head * n_split * (hd +
+// 2) f32 and `counters` B * n_head int32 that are ZERO (each call leaves them
+// zero). `pair` (int4 only, even n_head, 16 | hd): a block owns heads h and
+// h + n_head/2. Cache rows and their head slices start on 16-byte boundaries.
+// Returns cudaGetLastError() after the launch (0 on success). The caller
+// validates shapes and bounds.
 extern "C" int mmtg_decode_attention(
-    const void* q, const void* k_new, const void* v_new, void* k_cache,
-    void* v_cache, void* k_scale, void* v_scale, const void* key_mask,
-    void* ctx, int B, int T_cap, int D, int n_head, int position, int layer,
-    float q_scale, int cache_kind, int append, int row_stride, int dtype,
-    void* stream) {
-  const Args a{q,       k_new,    v_new, k_cache, v_cache, k_scale,
-               v_scale, key_mask, ctx,   B,       T_cap,   D,
-               n_head,  position, layer, q_scale, row_stride,
+    const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
+    void* k_scale, void* v_scale, const void* key_mask, void* ctx, void* scratch,
+    void* counters, int B, int T_cap, int D, int n_head, int position, int layer,
+    float q_scale, int cache_kind, int append, int row_stride, int dtype, int n_split,
+    int chunk, int pair, void* stream) {
+  const Args a{q,        k_new,  v_new,    k_cache, v_cache,  k_scale, v_scale,
+               key_mask, ctx,    scratch,  counters, B,       T_cap,   D,
+               n_head,   position, layer,  q_scale, row_stride, n_split, chunk,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 1)
-    launch_kind<__nv_bfloat16>(a, cache_kind, append != 0);
-  else
-    launch_kind<float>(a, cache_kind, append != 0);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) return launch_dtype<__nv_bfloat16>(a, cache_kind, append != 0, pair != 0);
+  return launch_dtype<float>(a, cache_kind, append != 0, pair != 0);
 }

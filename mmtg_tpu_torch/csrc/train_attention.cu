@@ -104,9 +104,13 @@
 //     (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16 j of every
 //     64-wide product, operands sit in shared memory as f32 with an odd
 //     leading dimension (no bank conflicts), sums are FMAs in registers.
-//   * forward: the block keeps its whole score row block [64, T] in shared
-//     memory (hence T <= 512: 199 KB at 128 lanes), soft-maxes it with one warp
-//     per 8 rows, then multiplies by V tile by tile.
+//   * forward: the block keeps the score row block of at most 512 keys,
+//     [64, min(T, 512)], in shared memory (199 KB at 128 lanes), soft-maxes it
+//     with one warp per 8 rows, then multiplies by V tile by tile. Rows of more
+//     than 512 keys (T up to 1024) take the keys in chunks of 512: one sweep
+//     keeps a running max and sum per row, a second recomputes each chunk's
+//     scores and multiplies its probabilities by V. It is the parity path: the
+//     recomputation costs FMAs, not agreement.
 //
 // Segment ids (both designs): the block keeps its batch row's ids in shared
 // memory and tests equality beside the causal test, per element; no [T, T]
@@ -142,6 +146,9 @@ constexpr int kTile = 64;      // query / key rows per tile
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 (or 4 x 8) outputs each
 constexpr int kLdT = kTile + 1;
 constexpr float kNegInf = -1e30f;
+constexpr int kFwdCols = 512;  // keys whose f32 scores the forward holds at once
+
+__host__ __device__ constexpr int fwd_cols(int T) { return T < kFwdCols ? T : kFwdCols; }
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 
@@ -338,10 +345,11 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   constexpr int NJ = HDP / 16;
   extern __shared__ float smem[];
   const int T = dm.T, H = dm.H, hd = dm.hd;
-  const int lds = T + 1;
+  const int cw = fwd_cols(T);       // keys whose scores are held at once
+  const int lds = cw + 1;
   float* Qs = smem;                 // [64, LD]
   float* KVs = Qs + kTile * LD;     // [64, LD]   K tile, then V tile
-  float* Ss = KVs + kTile * LD;     // [64, T + 1] scores, then probabilities
+  float* Ss = KVs + kTile * LD;     // [64, cw + 1] scores, then probabilities
   int* mrow = reinterpret_cast<int*>(Ss + kTile * lds);  // [T] mask words of this batch row
   int* tlo = mrow + T;              // [T / 64] segment-id ranges of the tiles
   int* thi = tlo + T / kTile;
@@ -352,6 +360,7 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
   const size_t S = dm.S;
   const E* slab = qkv + static_cast<size_t>(b) * T * S;
   const int kv_len = (qt + 1) * kTile;
+  const int n_chunks = (kv_len + cw - 1) / cw;
 
   load_mask_row(mrow, mask, b, T, kv_len, tid);
   load_tile<E, HDP>(Qs, slab + static_cast<size_t>(qt) * kTile * S + col(dm, h, 0), S,
@@ -362,70 +371,110 @@ mha_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qkv_bias,
     __syncthreads();
   }
 
-  for (int kc = 0; kc <= qt; ++kc) {
-    if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its scores are never read
-    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 1), S,
-                      qkv_bias + col(dm, h, 1), hd, tid);
-    __syncthreads();
-    float acc[4][4] = {};
-    gemm_nt<HDP>(acc, Qs, LD, KVs, LD, ty, tx);
+  // raw scores of the keys [c0, c0 + cw) into Ss (column j - c0)
+  auto scores = [&](int c0) {
+    const int c1 = min(c0 + cw, kv_len);
+    for (int kc = c0 / kTile; kc < c1 / kTile; ++kc) {
+      if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its scores are never read
+      load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 1), S,
+                        qkv_bias + col(dm, h, 1), hd, tid);
+      __syncthreads();
+      float acc[4][4] = {};
+      gemm_nt<HDP>(acc, Qs, LD, KVs, LD, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ss[(ty + 16 * i) * lds + kc * kTile + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-  }
+        for (int j = 0; j < 4; ++j)
+          Ss[(ty + 16 * i) * lds + kc * kTile - c0 + tx + 16 * j] = acc[i][j];
+      __syncthreads();
+    }
+  };
+  // the masked, scaled score of (ig, j) from its raw score
+  auto masked = [&](float raw, int ig, int wi, int j) {
+    if (dm.seg) {
+      // a select, not an add: a skipped tile's scores were never written
+      return (mrow[j] == wi && j <= ig) ? raw * dm.scale : kNegInf;
+    }
+    float x = raw * dm.scale + __int_as_float(mrow[j]);
+    return x + ((j > ig) ? kNegInf : 0.0f);
+  };
 
   // softmax (+ dropout): warp w owns rows 8w .. 8w + 7. It walks the whole
   // row, skipped tiles too: walking the live tiles only was measured and is
-  // slower (the loop nest costs more than the columns it leaves out).
+  // slower (the loop nest costs more than the columns it leaves out). Rows
+  // longer than cw keys (T > 512) take two sweeps: the first keeps a running
+  // max and sum per row over the chunks, the second recomputes each chunk's
+  // scores and multiplies its probabilities by V. With one chunk the first
+  // sweep's exponentials stay in Ss and the arithmetic is that of a single
+  // [64, T] block.
   const int warp = tid / 32, lane = tid % 32;
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    const int ig = qt * kTile + r;
-    const int wi = mrow[ig];
-    float* row = Ss + r * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < kv_len; j += 32) {
-      float x;
-      if (dm.seg) {
-        // a select, not an add: a skipped tile's scores were never written
-        x = (mrow[j] == wi && j <= ig) ? row[j] * dm.scale : kNegInf;
-      } else {
-        x = row[j] * dm.scale + __int_as_float(mrow[j]);
-        x += (j > ig) ? kNegInf : 0.0f;
-      }
-      row[j] = x;
-      m = fmaxf(m, x);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < kv_len; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    const uint32_t grow = static_cast<uint32_t>((b * H + h) * T + ig);
-    const uint32_t rkey = row_key(seed, grow);
-    for (int j = lane; j < kv_len; j += 32) {
-      float p = row[j] / sum;
-      if (dm.dropout) p = keep_bit(rkey, static_cast<uint32_t>(j), dm.thr) ? p * dm.inv_keep : 0.0f;
-      row[j] = rnd<E>(p);
-    }
-    if (lane == 0) lse[(static_cast<size_t>(b) * H + h) * T + ig] = m + logf(sum);
+  float rm[8], rl[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    rm[i] = -INFINITY;
+    rl[i] = 0.0f;
   }
-  __syncthreads();
+  for (int c0 = 0; c0 < kv_len; c0 += cw) {
+    scores(c0);
+    const int n = min(cw, kv_len - c0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i;
+      const int ig = qt * kTile + r;
+      const int wi = mrow[ig];
+      float* row = Ss + r * lds;
+      float m = -INFINITY;
+      for (int jl = lane; jl < n; jl += 32) {
+        const float x = masked(row[jl], ig, wi, c0 + jl);
+        row[jl] = x;
+        m = fmaxf(m, x);
+      }
+      const float m_new = fmaxf(rm[i], warp_max(m));
+      float sum = 0.0f;
+      for (int jl = lane; jl < n; jl += 32) {
+        const float e = expf(row[jl] - m_new);
+        row[jl] = e;
+        sum += e;
+      }
+      // rl is 0 and rm -inf on the first chunk: l = 0 * 0 + sum, exactly
+      rl[i] = rl[i] * expf(rm[i] - m_new) + warp_sum(sum);
+      rm[i] = m_new;
+    }
+    __syncthreads();
+  }
 
   float out[4][NJ] = {};
-  for (int kc = 0; kc <= qt; ++kc) {
-    if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its probabilities are all 0
-    load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 2), S,
-                      qkv_bias + col(dm, h, 2), hd, tid);
+  for (int c0 = 0; c0 < kv_len; c0 += cw) {
+    const int n = min(cw, kv_len - c0);
+    if (n_chunks > 1) scores(c0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i;
+      const int ig = qt * kTile + r;
+      const int wi = mrow[ig];
+      float* row = Ss + r * lds;
+      const uint32_t grow = static_cast<uint32_t>((b * H + h) * T + ig);
+      const uint32_t rkey = row_key(seed, grow);
+      for (int jl = lane; jl < n; jl += 32) {
+        const int j = c0 + jl;
+        const float e = n_chunks > 1 ? expf(masked(row[jl], ig, wi, j) - rm[i]) : row[jl];
+        float p = e / rl[i];
+        if (dm.dropout) p = keep_bit(rkey, static_cast<uint32_t>(j), dm.thr) ? p * dm.inv_keep : 0.0f;
+        row[jl] = rnd<E>(p);
+      }
+      if (c0 == 0 && lane == 0)
+        lse[(static_cast<size_t>(b) * H + h) * T + ig] = rm[i] + logf(rl[i]);
+    }
     __syncthreads();
-    gemm_nn<NJ>(out, Ss + kc * kTile, lds, KVs, LD, ty, tx);
-    __syncthreads();
+    for (int kc = c0 / kTile; kc < (c0 + n) / kTile; ++kc) {
+      if (!tile_live(dm.seg, tlo, thi, qt, kc)) continue;  // its probabilities are all 0
+      load_tile<E, HDP>(KVs, slab + static_cast<size_t>(kc) * kTile * S + col(dm, h, 2), S,
+                        qkv_bias + col(dm, h, 2), hd, tid);
+      __syncthreads();
+      gemm_nn<NJ>(out, Ss + kc * kTile - c0, lds, KVs, LD, ty, tx);
+      __syncthreads();
+    }
   }
   E* dst = ctx + (static_cast<size_t>(b) * T + static_cast<size_t>(qt) * kTile) * dm.CS + h * dm.chs;
 #pragma unroll
@@ -1554,7 +1603,7 @@ template <typename E, int HDP>
 int launch_fwd(const void* qkv, const void* qkv_bias, const void* mask, const void* seed,
                void* ctx, void* lse, Dims dm, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(kTile) * (HDP + 1) +
-                       static_cast<size_t>(kTile) * (dm.T + 1) + mask_words(dm.T)) *
+                       static_cast<size_t>(kTile) * (fwd_cols(dm.T) + 1) + mask_words(dm.T)) *
                       sizeof(float);
   cudaError_t err = allow_smem(mha_fwd_kernel<E, HDP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1685,7 +1734,7 @@ Dims make_dims(int B, int T, int H, int hd, int head_major, int seg, float scale
 // q | k | v (the caller passes hd = 128, the padded width); mask [B, T]: f32
 // additive key biases or, with seg != 0, int32 segment ids; seed [1] int32 on
 // the device; ctx [B, T, H*hd] in the slab's type; lse [B, H, T] f32. T is a
-// multiple of 64, at most 512; hd <= 128. dropout != 0 applies keep = hash >=
+// multiple of 64, at most 1024; hd <= 128. dropout != 0 applies keep = hash >=
 // thr and scales kept entries by inv_keep. Each returns the CUDA error code of
 // its launches (0 on success). The caller validates shapes.
 extern "C" int mmtg_mha_train_fwd(const void* qkv, const void* qkv_bias, const void* mask,

@@ -3,9 +3,10 @@
 
 Same flags and file-to-file behavior: every test row is replicated
 ``n_samples`` times and whole batches decode through
-:func:`mmtg_tpu_torch.decoding.generate`. The model is a reference ``.pth``
-(Orbax directories are not ported yet); the mesh flags are accepted for
-parity and raise unless left at 1.
+:func:`mmtg_tpu_torch.decoding.generate`. The model is what the port's train
+CLI wrote (its ``--save_path``, best-val stream first, or one ``step_*.pt``)
+or a reference ``.pth`` (Orbax directories are not ported yet); the mesh flags
+are accepted for parity and raise unless left at 1.
 
     python -m mmtg_tpu_torch.generate --data_path test.pkl \\
         --model_path model.pth --tokenizer_path vocab/vocab.txt \\
@@ -40,7 +41,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", default=8, type=int, help="parity no-op")
     p.add_argument("--data_path", default="", type=str)
     p.add_argument("--model_path", default="", type=str,
-                   help="reference .pth / .ckpt / .pt checkpoint")
+                   help="the train CLI's --save_path (train_state_best/ "
+                        "preferred, then train_state/), one step_*.pt, or a "
+                        "reference .pth / .ckpt / .pt checkpoint")
     p.add_argument("--tokenizer_path", default="", type=str)
     p.add_argument("--token_emb_path", default="./vocab/token_id2emb_dict.pkl",
                    type=str)
@@ -104,16 +107,16 @@ def resolve_device(name: str | None) -> torch.device:
 
 
 def load_params(model_path: str, mcfg: ModelConfig, device="cpu") -> Dict:
-    """The model's parameters from ``--model_path`` on ``device``: a
-    reference ``.pth`` / ``.ckpt`` / ``.pt`` checkpoint (Orbax directories
-    are not ported)."""
-    from mmtg_tpu_torch.checkpoint import load_reference_checkpoint
+    """The model's parameters from ``--model_path`` on ``device``, as stored
+    (a train state's f32 masters like a reference checkpoint's weights): a
+    trainer's ``save_path`` (the newest ``step_*.pt`` of
+    ``train_state_best/``, else of ``train_state/``; ``FileNotFoundError``
+    when neither has one), one ``step_*.pt``, or a reference ``.pth`` /
+    ``.ckpt`` / ``.pt``. A file's kind is told by its keys, not its suffix.
+    Orbax directories are not ported."""
+    from mmtg_tpu_torch.checkpoint import load_model_params, newest_step_file
 
-    if not model_path.endswith((".pth", ".ckpt", ".pt")):
-        raise NotImplementedError(
-            f"--model_path {model_path!r}: only reference .pth "
-            "checkpoints load in the port (Orbax restore is not ported)")
-    return tree_to(load_reference_checkpoint(model_path, mcfg), device)
+    return tree_to(load_model_params(newest_step_file(model_path), mcfg), device)
 
 
 def replicate_batch(rows: List[Dict[str, np.ndarray]], n_samples: int,

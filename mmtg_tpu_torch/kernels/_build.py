@@ -105,7 +105,7 @@ def build() -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.mmtg_decode_attention.argtypes = (
-        [p] * 9 + [i] * 6 + [f, i, i, i, i, p]
+        [p] * 11 + [i] * 6 + [f] + [i] * 7 + [p]
     )
     lib.mmtg_decode_attention.restype = i
     lib.mmtg_decode_block_fused.argtypes = (

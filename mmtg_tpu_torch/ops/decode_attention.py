@@ -13,7 +13,9 @@ wrappers (:func:`decode_attention`, :func:`decode_attention_int8`,
 the append kernels are held against.
 
 For CUDA tensors every wrapper launches the hand-written kernel
-``csrc/decode_attention.cu`` (one kernel, the same options as build flags);
+``csrc/decode_attention.cu`` (one kernel, the same options as build flags;
+a block per (batch row, head) and, where those cannot fill the card, per
+chunk of the slots: :func:`split_slots`);
 for CPU tensors it runs the plain PyTorch version
 (:func:`decode_attention_append_plain` / :func:`decode_attention_plain`).
 Each wrapper counts its kernel launches in ``.launches``.
@@ -148,6 +150,37 @@ def decode_attention_append_plain(q, k_new, v_new, k_cache, v_cache, key_mask,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KIND_CODE = {"fp": 0, "int8": 1, "int4": 2}
+# csrc/decode_attention.cu: a block owns one (batch row, head) and a chunk of
+# the slots; below _FILL blocks (two a Hopper SM) the slots are split into
+# chunks of at least _MIN_CHUNK
+_FILL, _MIN_CHUNK = 264, 16
+_counters = {}  # (device, stream) -> int32 zeros the kernel leaves zero
+
+
+def int4_pairs(n_head: int, head_dim: int) -> bool:
+    """Whether the int4 kernel gives a block the head pair (h, h + H/2) that
+    shares its bytes: even H and 16-byte head slices."""
+    return n_head % 2 == 0 and head_dim % 16 == 0
+
+
+def split_slots(blocks: int, position: int):
+    """(chunks, slots a chunk) over the live slots ``0..position`` for
+    ``blocks`` (batch row, head) blocks: one chunk where they fill the card,
+    else chunks of at least ``_MIN_CHUNK`` slots until they do."""
+    live = position + 1
+    n = 1 if blocks >= _FILL else max(1, min(-(-live // _MIN_CHUNK), -(-_FILL // blocks)))
+    chunk = -(-live // n)
+    return -(-live // chunk), chunk
+
+
+def _zeroed_counters(device, n: int) -> torch.Tensor:
+    # the blocks of a split call count themselves here and the last resets
+    # its count, so the buffer stays zero between calls on one stream
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def _launch(kind: str, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
@@ -194,6 +227,13 @@ def _launch(kind: str, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
     if D % n_head or D // n_head > 128 or n_head > 32:
         raise ValueError(f"decode attention: D={D}, n_head={n_head} "
                          "(needs head_dim <= 128 and n_head <= 32)")
+    hd = D // n_head
+    pair = kind == "int4" and int4_pairs(n_head, hd)
+    # a lane reads 16 bytes of a head's row (the odd-H int4 path reads bytes)
+    head_bytes = {"fp": hd * q.element_size(), "int8": hd, "int4": hd if pair else 16}[kind]
+    if head_bytes % 16:
+        raise ValueError(f"decode attention: a {kind} head of {hd} lanes is "
+                         f"{head_bytes} bytes, not a multiple of 16")
     if not (0 <= position < T and 0 <= layer < L):
         raise IndexError(f"decode attention: position {position} / layer "
                          f"{layer} outside cache [L={L}, T={T}]")
@@ -206,7 +246,16 @@ def _launch(kind: str, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("decode attention: all tensors must be "
                              "contiguous and on one CUDA device")
+    if any(c.data_ptr() % 16 for c in caches):
+        raise ValueError("decode attention: cache storage must start on a "
+                         "16-byte boundary")
     ctx = torch.empty_like(q)
+    n_split, chunk = split_slots(B * n_head // (2 if pair else 1), position)
+    scratch = counters = None
+    if n_split > 1:
+        scratch = torch.empty(B * n_head * n_split * (hd + 2), dtype=torch.float32,
+                              device=q.device)
+        counters = _zeroed_counters(q.device, B * n_head)
     lib = _build.load()
     # the merged buffer's v half starts D int8 elements into each row
     v_ptr = k_cache.data_ptr() + D if merged else v_cache.data_ptr()
@@ -219,9 +268,12 @@ def _launch(kind: str, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
             k_scale.data_ptr() if kind != "fp" else None,
             v_scale.data_ptr() if kind != "fp" else None,
             key_mask.data_ptr(), ctx.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            counters.data_ptr() if counters is not None else None,
             B, T, D, n_head, position, layer,
-            1.0 / math.sqrt(D // n_head), _KIND_CODE[kind], int(append), row,
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+            1.0 / math.sqrt(hd), _KIND_CODE[kind], int(append), row,
+            _DTYPE_CODE[q.dtype], n_split, chunk, int(pair),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "mmtg_decode_attention")
     return ctx

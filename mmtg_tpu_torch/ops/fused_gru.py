@@ -4,8 +4,9 @@ PyTorch counterpart of :func:`mmtg_tpu.ops.fused_gru.fused_gru`. The input
 projection ``x @ W_ih + b_ih`` (one large matmul) stays ``torch.matmul``, as
 the TPU version left it to XLA; the recurrence ``h @ W_hh + b_hh`` plus the
 gates, with ``h`` kept on chip across all T steps, is the hand-written
-kernel ``csrc/fused_gru.cu`` for CUDA tensors and :func:`fused_gru_plain`
-for CPU tensors. Gate order [r, z, n] with the hidden bias inside the reset
+kernel ``csrc/fused_gru.cu`` for CUDA tensors (one launch: a thread-block
+cluster splits the hidden columns and exchanges ``h`` through distributed
+shared memory) and :func:`fused_gru_plain` for CPU tensors. Gate order [r, z, n] with the hidden bias inside the reset
 product (torch / :func:`mmtg_tpu_torch.ops.rnn.rnn_forward`); math in f32,
 output in x's dtype. ``fused_gru.launches`` counts kernel launches.
 """
@@ -17,8 +18,9 @@ import torch
 from mmtg_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_BLOCK = 8  # kRows in csrc/fused_gru.cu
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
+# csrc/fused_gru.cu: a cluster of H / 32 blocks, one a 32 hidden columns,
+# each holding its [H, 96] f32 slice of W_hh; Hopper's largest cluster is 16
+_COLS_PER_BLOCK, _MAX_BLOCKS = 32, 16
 
 
 def _input_projection(x, w_ih, b_ih):
@@ -60,13 +62,17 @@ def fused_gru(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     if (w_ih.shape != (I, 3 * H) or w_hh.shape != (H, 3 * H)
             or b_ih.shape != (3 * H,) or b_hh.shape != (3 * H,)):
         raise ValueError("fused_gru: weight shapes do not match x / w_hh")
-    if 2 * _ROWS_PER_BLOCK * H * 4 > _SMEM_LIMIT:  # two f32 h buffers
-        raise ValueError(f"fused_gru: hidden size {H} exceeds shared memory")
+    if H % _COLS_PER_BLOCK or H > _COLS_PER_BLOCK * _MAX_BLOCKS:
+        raise ValueError(f"fused_gru: hidden size {H} (the kernel takes a "
+                         f"multiple of {_COLS_PER_BLOCK}, at most "
+                         f"{_COLS_PER_BLOCK * _MAX_BLOCKS})")
     for t in (w_ih, w_hh, b_ih, b_hh):
         if t.device != x.device:
             raise ValueError("fused_gru: all tensors must be on one device")
     xp = _input_projection(x, w_ih, b_ih).contiguous()
     w = w_hh.float().contiguous()
+    if w.data_ptr() % 16:  # the kernel reads W_hh 16 bytes a thread
+        w = w.clone()
     b = b_hh.float().contiguous()
     out = torch.empty(T, B, H, dtype=x.dtype, device=x.device)
     lib = _build.load()
@@ -76,6 +82,9 @@ def fused_gru(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
             T, B, H, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
+    if err == -1:
+        raise RuntimeError(f"fused_gru: this card cannot place a cluster of "
+                           f"{H // _COLS_PER_BLOCK} blocks with H={H}")
     _build.check(err, "mmtg_fused_gru")
     fused_gru.launches += 1
     return out

@@ -41,8 +41,12 @@ The source holds two designs, chosen by the slab's dtype and by nothing else:
   value (1.6e-2 where |ctx| lies between 2 and 4), no longer bit for bit.
 * f32 — CUDA-core FMAs on f32 tiles in shared memory (TF32 would lose the
   1e-5 agreement with the plain version that the f32 checks rely on). What
-  bounds it is the FMA rate and shared-memory loads; its forward keeps a
-  ``[64, T]`` score block in shared memory, which is what limits T to 512.
+  bounds it is the FMA rate and shared-memory loads; its forward keeps the
+  scores of at most 512 keys, a ``[64, 512]`` block, in shared memory, and
+  takes longer rows in two sweeps (a running max and sum, then the
+  probabilities chunk by chunk).
+
+Both take T up to 1024 (``n_positions``), a multiple of 128.
 
 Dropout bits. The TPU kernel draws from the core's own generator, whose bits
 depend on its launch grid. Here ``keep(b, h, i, j)`` is a pure function of
@@ -67,6 +71,7 @@ import torch
 from mmtg_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
+MAX_T = 1024  # the longest row the kernels take
 LANES = 128  # padded per-head width of the head-major slab
 SLAB = 3 * LANES  # one head's q | k | v
 _M32 = 0xFFFFFFFF
@@ -221,13 +226,14 @@ def _check(fn, qkv, qkv_bias, mask, seed, n_head):
             raise ValueError(f"{name}: head_dim {hd} (needs a multiple of 8, "
                              "at most 128)")
     B, T, S = qkv.shape
-    if T % 128 or T > 512:
-        # f32: the forward keeps a [64, T] f32 score block in shared memory
-        # (199 KB at T=512 with 128 lanes). bf16: the tensor-core kernels hold
-        # no such block, only [T] words of mask and row statistics; the limit
-        # is kept for both types so a model runs in either.
+    if T % 128 or T > MAX_T:
+        # up to GPT-2's n_positions. bf16: the tensor-core kernels hold a ring
+        # of tiles and [T] words of mask and row statistics (under 120 KB at
+        # T=1024). f32: the forward holds the scores of at most 512 keys
+        # (199 KB at 128 lanes) and takes longer rows in chunks; its dk/dv
+        # kernel holds 203 KB at T=1024.
         raise ValueError(f"{name}: T={T} (the caller pads to a multiple of "
-                         "128, at most 512)")
+                         f"128, at most {MAX_T})")
     if B * n_head * T >= 2 ** 31:
         raise ValueError(f"{name}: B*H*T must stay below 2**31")
     if qkv_bias.shape != (S,) or qkv_bias.dtype != qkv.dtype:

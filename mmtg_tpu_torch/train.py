@@ -376,7 +376,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "accounting (per-sample CE over real labels, not "
                         "the fixed 220 grid); eval stays parity/unpacked.")
     p.add_argument("--pack_row_len", default=512, type=int,
-                   help="packed row length (a multiple of 128, at most 512, "
+                   help="packed row length (a multiple of 128, at most 1024, "
                         "for the attention kernel). Longer rows pack more "
                         "samples each (less dead tail) but pay quadratic "
                         "in-row attention")

@@ -11,7 +11,7 @@ import torch
 from mmtg_tpu.data import make_synthetic_records
 from mmtg_tpu_torch import generate as cli
 from mmtg_tpu_torch.checkpoint import save_reference_checkpoint
-from mmtg_tpu_torch.params import init_params
+from mmtg_tpu_torch.params import init_params, tree_leaves
 
 torch.set_num_threads(2)
 
@@ -113,7 +113,50 @@ def test_cli_serving_decode_flags_run(files, reference_vocab_path, tiny_model_cf
 
 def test_cli_rejects_orbax_dirs(files, reference_vocab_path, tiny_model_cfg,
                                 tiny_data_cfg):
+    """A directory with no train-state stream (an Orbax save path, or none
+    at all) names what it looked in."""
     args = _args(files, reference_vocab_path)
     args[args.index("--model_path") + 1] = str(files[0])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="train_state_best"):
         cli.main(args, mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+
+
+def _save_state(directory, params, step):
+    from types import SimpleNamespace
+
+    from mmtg_tpu_torch.checkpoint import save_train_state
+
+    return save_train_state(directory, step, SimpleNamespace(
+        params=params, opt_state={"count": torch.tensor(step)}, step=step,
+        rng=torch.Generator()))
+
+
+@pytest.mark.parametrize("form", ["both_streams", "epoch_stream", "step_file",
+                                  "reference_pth", "empty_dir"])
+def test_load_params_takes_what_train_writes(tmp_path, tiny_model_cfg, form):
+    """``load_params`` reads a trainer's save path (the best-val stream
+    preferred, its newest step), one ``step_*.pt`` and a reference ``.pth``,
+    and raises on a directory with neither stream."""
+    trees = [init_params(tiny_model_cfg, seed=s) for s in range(3)]
+    save = tmp_path / "save"
+    if form == "empty_dir":
+        save.mkdir()
+        with pytest.raises(FileNotFoundError, match="train_state"):
+            cli.load_params(str(save), tiny_model_cfg)
+        return
+    if form == "reference_pth":
+        path = str(tmp_path / "model.pth")
+        save_reference_checkpoint(path, trees[0], tiny_model_cfg)
+        want = trees[0]
+    else:
+        _save_state(str(save / "train_state"), trees[0], 2)
+        newest = _save_state(str(save / "train_state"), trees[1], 4)
+        want, path = trees[1], str(save)
+        if form == "both_streams":
+            _save_state(str(save / "train_state_best"), trees[2], 3)
+            want = trees[2]
+        elif form == "step_file":
+            path = newest
+    got = cli.load_params(path, tiny_model_cfg)
+    flat = lambda t: torch.cat([x.reshape(-1).float() for x in tree_leaves(t)])  # noqa: E731
+    assert torch.equal(flat(got), flat(want))

@@ -245,9 +245,9 @@ def test_new_kernels_reject_bad_input(cuda):
         ta.mha_train_packed_seg(qkv, qb, seg.float(), seed, 2)
     with pytest.raises(TypeError):  # int64 ids
         ta.mha_train_packed_seg(qkv, qb, seg.long(), seed, 2)
-    with pytest.raises(ValueError):  # T = 640 > 512
-        ta.mha_train_packed_seg(torch.zeros(1, 640, 384, device="cuda"), qb,
-                                torch.zeros(1, 640, dtype=torch.int32, device="cuda"),
+    with pytest.raises(ValueError):  # T = 1152 > 1024
+        ta.mha_train_packed_seg(torch.zeros(1, 1152, 384, device="cuda"), qb,
+                                torch.zeros(1, 1152, dtype=torch.int32, device="cuda"),
                                 seed, 2)
     with pytest.raises(ValueError):  # not a head-major slab
         ta.mha_train(qkv, qb, seg.float(), seed, 2)
@@ -468,3 +468,147 @@ def test_new_decode_wrappers_reject_bad_input(cuda):
         mk.decode_block_fused(h.bfloat16(), p, *state, m, 3, n_head=2)
     with pytest.raises(IndexError):
         mk.decode_block_fused(h, p, *state, m, 256, n_head=2)
+
+
+# ---- the regimes of the redesigned kernels ------------------------------------
+
+SWEEP_POSITIONS = [0, 15, 16, 127, 128, 235, 255]  # 255 = T - 1
+SWEEP_WRAPPERS = [("decode_attention_fp_append", "fp", True),
+                  ("decode_attention_int8_append", "int8", True),
+                  ("decode_attention_int4_append", "int4", True),
+                  ("decode_attention_int8_append_merged", "merged", True),
+                  ("decode_attention", "fp", False),
+                  ("decode_attention_int8", "int8", False),
+                  ("decode_attention_int4", "int4", False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,kind,append", SWEEP_WRAPPERS,
+                         ids=[w[0] for w in SWEEP_WRAPPERS])
+@pytest.mark.parametrize("B,H,hd", [(1, 12, 64), (3, 3, 32), (3, 2, 64), (64, 12, 64),
+                                    (512, 12, 64)])
+def test_decode_attention_sweep(cuda, dtype, name, kind, append, B, H, hd):
+    """Every wrapper at B = 1 (the slots split into chunks), 3, 64 and 512 (one
+    chunk), H = 2, 3 (int4: D/2 inside a head), 12: ctx within tolerance of the
+    plain version, the appended bytes and scales bit for bit, nothing else
+    written, and after an append the read-only kernel gives the same ctx."""
+    kernel = getattr(da, name)
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd, L=2)
+    base = caches + scales
+    n = len(caches)
+    pair = kind == "int4" and da.int4_pairs(H, hd)
+    splits = {da.split_slots(B * H // (2 if pair else 1), p)[0] for p in SWEEP_POSITIONS}
+    assert (max(splits) > 1) == (B * H < 264)  # both regimes are reached
+    for position in SWEEP_POSITIONS:
+        kc = [c.clone() for c in base]
+        pc = [c.clone() for c in base]
+        new = (k_new, v_new) if append else ()
+        before = kernel.launches
+        ctx = kernel(q, *new, *kc, mask, position, 1, n_head=H)
+        if append:
+            ref = da.decode_attention_append_plain(
+                q, k_new, v_new, pc[0], None if kind == "merged" else pc[1], mask,
+                position, 1, H, *pc[n:])
+        else:
+            ref = da.decode_attention_plain(q, *pc[:n], mask, position, 1, H, *pc[n:])
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for a, b, orig in zip(kc, pc, base):
+            assert torch.equal(a, b), f"position {position}: cache or scales differ"
+            if not append:
+                assert torch.equal(a, orig)
+        err = (ctx.float() - ref.float()).abs().max().item()
+        assert err <= DECODE_TOL[dtype], f"position {position}: ctx max-abs {err:.3g}"
+        if append:
+            if kind == "merged":
+                D = H * hd
+                again = da.decode_attention_int8(q, kc[0][..., :D].contiguous(),
+                                                 kc[0][..., D:].contiguous(), *kc[1:],
+                                                 mask, position, 1, n_head=H)
+            else:
+                read = {"fp": da.decode_attention, "int8": da.decode_attention_int8,
+                        "int4": da.decode_attention_int4}[kind]
+                again = read(q, *kc, mask, position, 1, n_head=H)
+            assert torch.equal(again, ctx), f"position {position}: read-only differs"
+        del kc, pc
+
+
+def test_decode_attention_split_is_reproducible(cuda):
+    """The chunks of a split call merge in chunk order, whichever finishes
+    last: two calls give the same bits, and the counts they leave are zero."""
+    q, _, _, mask, caches, scales = _decode_case(cuda, "int8", torch.bfloat16, 1, 12, 64)
+    outs = [da.decode_attention_int8(q, *caches, *scales, mask, 235, 1, n_head=12)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert all(int(buf.abs().sum()) == 0 for buf in da._counters.values())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H", [64, 96, 512])
+@pytest.mark.parametrize("B", [1, 3, 64, 512])
+def test_fused_gru_sweep(cuda, dtype, tol, H, B):
+    """The cluster kernel at H = 64, 96 (clusters of 2 and 3 blocks) and 512
+    (16 blocks, non-portable), B from one row group to many per cluster: one
+    launch a call, within tolerance of the plain version."""
+    T, I = 5, 128
+    x = torch.randn(T, B, I, generator=cuda, device="cuda").to(dtype)
+    w_ih = (torch.randn(I, 3 * H, generator=cuda, device="cuda") * I ** -0.5).to(dtype)
+    w_hh = (torch.randn(H, 3 * H, generator=cuda, device="cuda") * H ** -0.5).to(dtype)
+    b_ih, b_hh = ((torch.randn(3 * H, generator=cuda, device="cuda") * 0.1).to(dtype)
+                  for _ in range(2))
+    before = fg.fused_gru.launches
+    out = fg.fused_gru(x, w_ih, w_hh, b_ih, b_hh)
+    ref = fg.fused_gru_plain(x, w_ih, w_hh, b_ih, b_hh)
+    torch.cuda.synchronize()
+    assert fg.fused_gru.launches == before + 1
+    assert out.dtype == dtype and out.shape == (T, B, H)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_fused_gru_rejects_hidden_sizes_it_cannot_split(cuda):
+    x = torch.zeros(5, 2, 8, device="cuda")
+    for H in (48, 544):
+        with pytest.raises(ValueError):
+            fg.fused_gru(x, torch.zeros(8, 3 * H, device="cuda"),
+                         torch.zeros(H, 3 * H, device="cuda"),
+                         torch.zeros(3 * H, device="cuda"), torch.zeros(3 * H, device="cuda"))
+
+
+# rows longer than 512: bf16 dk/dv sum over up to T queries, so at T = 1024 a
+# dqkv entry passes 8 where one bf16 rounding is 0.0625 (as chip_smoke.SEG_TOL)
+LONG_TOLS = {torch.float32: (1e-5, 1e-5, 1e-4), torch.bfloat16: (2e-2, 8e-2, 0.5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [640, 768, 1024])
+@pytest.mark.parametrize("fn", ["mha_train_packed", "mha_train_packed_seg", "mha_train"])
+def test_train_attention_rows_over_512(cuda, fn, dtype, T):
+    """#7, #8 and #9 at row lengths 640-1024 (the f32 forward takes its keys in
+    chunks of 512 there), dropout on, against their plain versions."""
+    B, H, hd = 2, 2, 64
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    f = getattr(ta, fn)
+    if fn == "mha_train_packed_seg":
+        args = (qkv, qb, _segment_ids(cuda, B, T, "packer"), seed, H, 0.1, hd ** -0.5)
+    elif fn == "mha_train":
+        co = torch.randn(B, T, H, 128, generator=cuda, device="cuda")
+        co[..., hd:] = 0.0
+        co = co.reshape(B, T, H * 128).to(dtype)
+        args = (_pad_heads(qkv, H, hd), _pad_heads(qb, H, hd), bias, seed, H, 0.1,
+                hd ** -0.5)
+    else:
+        args = (qkv, qb, bias, seed, H, 0.1, hd ** -0.5)
+    _compare(f, f.plain, args, co, LONG_TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_attention_long_rows_dqkv_is_reproducible(cuda, dtype):
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, 1, 1024, 2, 64, dtype)
+    runs = []
+    for _ in range(2):
+        a = qkv.clone().requires_grad_(True)
+        ctx = ta.mha_train_packed(a, qb, bias, seed, 2, 0.1, 0.125)
+        runs.append((ctx, torch.autograd.grad((ctx * co).sum(), a)[0]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

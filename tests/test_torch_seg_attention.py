@@ -175,6 +175,6 @@ def test_seg_gets_no_gradient_and_check_rejects_a_float_mask():
     with pytest.raises(TypeError, match="bias must be"):
         ta._check(ta.mha_train_packed, x.detach(), torch.from_numpy(qb),
                   torch.from_numpy(seg), seed, H)
-    with pytest.raises(ValueError, match="T=640"):
-        ta._check(ta.mha_train_packed_seg, torch.zeros(1, 640, 3 * H * hd),
-                  torch.from_numpy(qb), torch.zeros(1, 640, dtype=torch.int32), seed, H)
+    with pytest.raises(ValueError, match="T=1152"):  # past n_positions = 1024
+        ta._check(ta.mha_train_packed_seg, torch.zeros(1, 1152, 3 * H * hd),
+                  torch.from_numpy(qb), torch.zeros(1, 1152, dtype=torch.int32), seed, H)

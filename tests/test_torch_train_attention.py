@@ -148,3 +148,24 @@ def test_bf16_plain_keeps_slab_dtype_and_f32_softmax():
         torch.zeros(1, dtype=torch.int32), H, 0.0, 0.125)
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref).abs().max() < 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,ok", [(640, True), (1024, True), (1100, False),
+                                  (1152, False)])
+@pytest.mark.parametrize("fn", ["mha_train_packed", "mha_train_packed_seg",
+                                "mha_train"])
+def test_kernel_row_limit_is_n_positions(fn, dtype, T, ok):
+    """The wrappers take rows up to GPT-2's 1024 positions, a multiple of 128,
+    in both dtypes (the JAX trainer's limit), and refuse longer or ragged ones
+    before any launch."""
+    f = getattr(ta, fn)
+    width = ta.SLAB if f.head_major else 3 * 8
+    qkv = torch.zeros(1, T, width, dtype=dtype)
+    mask = torch.zeros(1, T, dtype=torch.int32 if f.seg else torch.float32)
+    seed = torch.zeros(1, dtype=torch.int32)
+    if ok:
+        assert ta._check(f, qkv, torch.zeros(width, dtype=dtype), mask, seed, 1)[:2] == (1, T)
+    else:
+        with pytest.raises(ValueError, match="at most 1024"):
+            ta._check(f, qkv, torch.zeros(width, dtype=dtype), mask, seed, 1)

@@ -94,6 +94,15 @@ def test_train_one_epoch_then_resume(files, reference_vocab_path, cfgs, monkeypa
     cli.main(_args(files, reference_vocab_path, save, "--epochs", "2", "--resume"),
              mcfg=cfgs[0], dcfg=cfgs[1])
     assert sorted(os.listdir(os.path.join(save, "train_state"))) == ckpts
+    # the generate CLI takes the save path the trainer wrote
+    out = str(files[0] / "samples.txt")
+    gen_cli.main(["--data_path", files[1]["val"], "--model_path", save,
+                  "--tokenizer_path", reference_vocab_path, "--token_emb_path",
+                  files[1]["emb"], "--batch_size", "4", "--n_samples", "1",
+                  "--save_samples", "--save_samples_path", out, "--device", "cpu"],
+                 mcfg=cfgs[0], dcfg=cfgs[1])
+    with open(out, encoding="utf-8") as f:
+        assert len(f.read().splitlines()) == 4  # one line per val row
 
 
 def test_train_packed_one_epoch_then_resume(files, reference_vocab_path, cfgs,
