@@ -23,8 +23,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      kernel so host overhead is excluded) beside its plain version and one
      PyTorch library call used nowhere in the port, and its bound (the
      larger of bytes / 3.35 TB/s and operations / peak) is computed; then
-     the same for every decode wrapper (bf16) and the GRU at B=1 (the p50
-     path) and B=512;
+     the same for every decode wrapper (bf16), the GRU and the whole-step
+     kernel (both types) at B=1 (the p50 path) and B=512, the whole-step
+     kernel's ptxas line and launch plan beside its times;
   3. the generation path, decoding.generate, at the full model width
      (12-layer 768-d GPT-2, vocab 13317, 2048-d WenLan, random seeded
      weights) in bf16: B=64 with the int8 cache, then B=8 and B=1 with the
@@ -292,10 +293,27 @@ def _fused_weight_bytes_and_ops(p):
     return nbytes, macs
 
 
-def phase_block_fused(results, gen):
+def _ptxas_of(name):
+    """The ptxas lines (registers, shared memory, spills) of the kernels whose
+    mangled names hold ``name``, from the build log."""
+    from mmtg_tpu_torch.kernels import _build
+
+    lines, current = [], ""
+    with open(_build.library_path() + ".log") as f:
+        for ln in f:
+            if "Compiling entry function" in ln or "Function properties for" in ln:
+                current = ln
+            elif name in current and ("Used" in ln or "spill" in ln):
+                lines.append(ln.strip())
+    return lines
+
+
+def phase_block_fused(results, gen, B=B_ATT):
     """decode_block_fused (all 12 layers of one step in one launch) vs its plain
-    version at the full model width, B=64, T=256, position 235; timed beside
-    the plain version and the port's own per-layer step."""
+    version at the full model width, batch ``B``, T=256, positions POSITIONS;
+    timed at TIMED_POSITION beside the plain version and the port's own
+    per-layer step at the same B. Stored under ("decode_block_fused", dtype)
+    at B_ATT, else with "B<B>"."""
     import torch
 
     from mmtg_tpu_torch.models import gpt2
@@ -312,8 +330,8 @@ def phase_block_fused(results, gen):
         # biases and gains off their init values, so that each one matters
         p = {k: (v + 0.05 * torch.randn(v.shape, generator=gen, device=DEVICE).to(dtype)
                  if v.dim() == 2 else v) for k, v in p.items()}
-        h = (torch.randn(B_ATT, D, generator=gen, device=DEVICE) * 0.5).to(dtype)
-        _, _, _, mask, base_c, base_s = _attention_case(dtype, "int8", gen)
+        h = (torch.randn(B, D, generator=gen, device=DEVICE) * 0.5).to(dtype)
+        _, _, _, mask, base_c, base_s = _attention_case(dtype, "int8", gen, B)
         base = base_c + base_s
         errs = {k: 0.0 for k in tol}
         by_pos = {}
@@ -326,7 +344,7 @@ def phase_block_fused(results, gen):
                                               eps=cfg.layer_norm_epsilon)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got.float()).all()),
-                  f"decode_block_fused {dname} pos {pos}: h not finite")
+                  f"decode_block_fused {dname} B={B} pos {pos}: h not finite")
             e = dict(h_rel=((got.float() - ref.float()).abs().max()
                             / ref.float().abs().max()).item(),
                      codes0=0.0, codes=0.0, scale0_rel=0.0, scale_rel=0.0)
@@ -340,8 +358,8 @@ def phase_block_fused(results, gen):
                 e["scale0_rel"] = max(e["scale0_rel"], rel[0].max().item())
             for a, orig in zip(kc, base):  # nothing but slot `position` written
                 a[:, :, pos] = orig[:, :, pos]
-                check(torch.equal(a, orig), f"decode_block_fused {dname} pos {pos}: "
-                      "a slot other than `position` was written")
+                check(torch.equal(a, orig), f"decode_block_fused {dname} B={B} pos "
+                      f"{pos}: a slot other than `position` was written")
             by_pos[pos] = e
             errs = {k: max(errs[k], e[k]) for k in errs}
             del kc, pc
@@ -350,8 +368,8 @@ def phase_block_fused(results, gen):
                    + f"), codes within {errs['codes']:.0f} (layer 0: {errs['codes0']:.0f}),"
                    f" scales {errs['scale_rel']:.3g} (layer 0: {errs['scale0_rel']:.3g})")
         for k in tol:
-            check(errs[k] <= tol[k], f"decode_block_fused {dname}: {k} {errs[k]:.3g} > "
-                  f"{tol[k]}; {summary}")
+            check(errs[k] <= tol[k], f"decode_block_fused {dname} B={B}: {k} "
+                  f"{errs[k]:.3g} > {tol[k]}; {summary}")
         errs["by_position"] = by_pos
         state = [c.clone() for c in base]
         cache = gpt2.KVCache(*state)
@@ -368,20 +386,25 @@ def phase_block_fused(results, gen):
         n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
         w_bytes, macs = _fused_weight_bytes_and_ops(p)
         e = h.element_size()
-        nbytes = (w_bytes + 2 * B_ATT * D * e                 # weights, h in and out
+        nbytes = (w_bytes + 2 * B * D * e                     # weights, h in and out
                   + L * (2 * n_live * D + 2 * 4 * n_live      # live k/v rows, scales
-                         + 2 * B_ATT * D + 2 * 4 * B_ATT)     # appended rows, scales
-                  + 4 * B_ATT * (TIMED_POSITION + 1))         # mask
-        ops = 2.0 * B_ATT * macs + L * 4.0 * n_live * D
-        results[("decode_block_fused", dname)] = dict(
+                         + 2 * B * D + 2 * 4 * B)             # appended rows, scales
+                  + 4 * B * (TIMED_POSITION + 1))             # mask
+        ops = 2.0 * B * macs + L * 4.0 * n_live * D
+        key = ("decode_block_fused", dname) if B == B_ATT else ("decode_block_fused", dname, f"B{B}")
+        pl = mk.plan(B, D, L, T_CAP, H, dtype,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+        grid = dict(grid=pl.grid, blocks_per_sm=pl.blocks_per_sm, smem=pl.smem,
+                    products={q.name: (q.nt, q.splits) for q in pl.products})
+        results[key] = dict(
             max_abs_err=errs["h_rel"], errs=errs, ms=ms, plain_ms=plain_ms,
-            library_ms=None, per_layer_step_ms=per_layer_ms,
+            library_ms=None, per_layer_step_ms=per_layer_ms, launch_plan=grid,
             **bound(nbytes, ops, dname))
         lines.append(
-            f"decode_block_fused[{dname}] {summary}; kernel "
+            f"decode_block_fused[{dname} B={B}] {summary}; kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms per-layer step (the port's own: cuBLAS "
             f"+ eager ops + attention kernel) {per_layer_ms:.4f} ms bound "
-            f"{results[('decode_block_fused', dname)]['bound_ms']:.4f} ms")
+            f"{results[key]['bound_ms']:.4f} ms; grid {grid}")
         del p, state, cache, base, base_c, base_s
         torch.cuda.empty_cache()
     return lines
@@ -543,7 +566,9 @@ def phase_kernels(out):
                                           torch.bfloat16, B, gen_other))
         for dtype in (torch.float32, torch.bfloat16):
             other.append(_gru_vs_plain(results, fg, dtype, B, gen_other))
+        other += phase_block_fused(results, gen_other, B)
     print("phase 2 kernels vs plain at B=1 and B=512: ok; " + "; ".join(other))
+    print("phase 2 decode_block_fused ptxas: " + " | ".join(_ptxas_of("decode_block_fused")))
     for name, lines in phase_train_attention(results, gen).items():
         print(f"phase 2 {name} vs plain: ok; " + "; ".join(lines))
     print(f"phase 2 mha_train_packed_seg: the batch's segment ids let "
@@ -1848,7 +1873,11 @@ def main(argv=None) -> int:
                 # also driven by the service (phase 14); no one PyTorch call
                 # computes a decode step: the port's per-layer step beside it
                 extra = dict(serve_launches=launches["serve"][name],
-                             per_layer_step_ms=r["per_layer_step_ms"])
+                             per_layer_step_ms=r["per_layer_step_ms"],
+                             other_batches={
+                                 f"B{b}": {k: results[(name, "bfloat16", f"B{b}")][k]
+                                           for k in ("ms", "per_layer_step_ms", "bound_ms")}
+                                 for b in OTHER_BATCHES})
         check(n > 0, f"{name} was not launched on its path ({path})")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

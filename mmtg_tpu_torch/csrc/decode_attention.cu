@@ -56,8 +56,8 @@
 //     races. The read-only kernel takes slot `position` at the same point of
 //     its sweep (after the chunk's other slots), so after an append it gives
 //     the same ctx bit for bit.
-// decode_block_fused.cu keeps using append_row / attend_head of
-// decode_attention.cuh; this kernel uses only that header's element helpers.
+// The item's stages are the device functions of decode_attention.cuh, which
+// the whole-step kernel (decode_block_fused.cu) calls too.
 
 #include "decode_attention.cuh"
 
@@ -66,157 +66,6 @@ namespace {
 using namespace mmtg;
 
 constexpr int kThreads = 128;
-constexpr int kUnroll = 4;  // slots a lane loads before it reduces
-
-// The lane's view of one cache kind: EPL elements of each of NH heads come
-// out of one 16-byte raw value.
-template <typename T, int KIND, bool PAIR>
-struct Kind {
-  using C = typename CacheElem<T, KIND>::type;
-  static constexpr int NH = PAIR ? 2 : 1;
-  static constexpr int EPL =
-      KIND == kFp ? 16 / static_cast<int>(sizeof(T)) : (KIND == kInt4 && !PAIR ? 8 : 16);
-  static constexpr bool kScalar = KIND == kInt4 && !PAIR;
-};
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// Where this lane's elements live in a stored row: `off` is the element (fp,
-// int8) or byte (int4) offset of its 16 bytes; for the plain int4 path `col`
-// / `high` give each element's byte and nibble. `valid`: the lane holds
-// elements of the head at all (the group is rounded up to a power of two).
-struct LaneMap {
-  int off;
-  bool valid;
-  int col[8];
-  unsigned high;  // bit i: element i is a high nibble
-  unsigned live;  // bit i: element i lies inside the head
-};
-
-template <typename T, int KIND, bool PAIR>
-__device__ __forceinline__ uint4 load_raw(const typename Kind<T, KIND, PAIR>::C* row,
-                                          const LaneMap& lm, bool nc) {
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if constexpr (Kind<T, KIND, PAIR>::kScalar) {
-    const int8_t* bytes = reinterpret_cast<const int8_t*>(row);
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (lm.live >> i & 1u) {
-        const uint32_t b = static_cast<uint8_t>(nc ? __ldg(bytes + lm.col[i]) : bytes[lm.col[i]]);
-        w[i >> 2] |= b << (8 * (i & 3));
-      }
-    r.x = w[0];
-    r.y = w[1];
-  } else {
-    const uint4* p = reinterpret_cast<const uint4*>(row + lm.off);
-    r = nc ? __ldg(p) : *p;
-  }
-  return r;
-}
-
-// raw 16 bytes -> f[h][i] as floats (codes for the quantized kinds)
-template <typename T, int KIND, bool PAIR>
-__device__ __forceinline__ void unpack(const uint4& r, const LaneMap& lm,
-                                       float (&f)[Kind<T, KIND, PAIR>::NH][Kind<T, KIND, PAIR>::EPL]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-  if constexpr (KIND == kFp) {
-    if constexpr (sizeof(T) == 4) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[0][i] = __uint_as_float(w[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        f[0][2 * i] = bf16_lo(w[i]);
-        f[0][2 * i + 1] = bf16_hi(w[i]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < Kind<T, KIND, PAIR>::EPL; ++i) {
-      const int b = static_cast<int>(static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3))));
-      if constexpr (KIND == kInt8) {
-        f[0][i] = static_cast<float>(b);
-      } else {
-        const float lo = static_cast<float>(static_cast<int>(static_cast<int8_t>(b << 4)) >> 4);
-        const float hi = static_cast<float>(b >> 4);  // arithmetic shift: signed
-        if constexpr (PAIR) {
-          f[0][i] = lo;
-          f[1][i] = hi;
-        } else {
-          f[0][i] = (lm.high >> i & 1u) ? hi : lo;
-        }
-      }
-    }
-  }
-}
-
-// Per-group online-softmax state of NH heads; a lane holds EPL accumulator
-// entries of each.
-template <int NH, int EPL>
-struct State {
-  float m[NH], l[NH], acc[NH][EPL];
-};
-
-// One sweep step over U slots of the lane's group: scores (summed over the
-// group's G lanes), then the online-softmax update. `kr` / `vr` hold the
-// slots' raw k / v bytes (zero where not loaded), `ok` whether the slot is
-// live, `ks` / `vs` its scales. Every lane of the warp calls it.
-template <typename T, int KIND, bool PAIR, int U>
-__device__ __forceinline__ void sweep(
-    State<Kind<T, KIND, PAIR>::NH, Kind<T, KIND, PAIR>::EPL>& st,
-    const float (&qv)[Kind<T, KIND, PAIR>::NH][Kind<T, KIND, PAIR>::EPL], const uint4 (&kr)[U],
-    const uint4 (&vr)[U], const bool (&ok)[U], const float (&ks)[U], const float (&vs)[U],
-    const LaneMap& lm, int G) {
-  using K = Kind<T, KIND, PAIR>;
-  constexpr int NH = K::NH, EPL = K::EPL;
-  float s[U][NH];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    float kf[NH][EPL];
-    unpack<T, KIND, PAIR>(kr[u], lm, kf);
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) part += qv[h][i] * kf[h][i];
-      for (int o = G >> 1; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      if constexpr (KIND != kFp) part *= ks[u];
-      s[u][h] = ok[u] ? part : -INFINITY;
-    }
-  }
-  bool any = false;
-#pragma unroll
-  for (int u = 0; u < U; ++u) any |= ok[u];
-  if (!any) return;  // no live slot in this step (uniform over the group)
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < U; ++u) cmax = fmaxf(cmax, s[u][h]);
-    const float m_new = fmaxf(st.m[h], cmax);
-    const float corr = expf(st.m[h] - m_new);  // m == -inf gives 0
-    st.l[h] *= corr;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) st.acc[h][i] *= corr;
-    st.m[h] = m_new;
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    if (!ok[u]) continue;
-    float vf[NH][EPL];
-    unpack<T, KIND, PAIR>(vr[u], lm, vf);
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float p = expf(s[u][h] - st.m[h]);
-      st.l[h] += p;
-      if constexpr (KIND != kFp) p *= vs[u];
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) st.acc[h][i] += p * vf[h][i];
-    }
-  }
-}
 
 // Head `hh` of this block (0 or, for a pair, 1) as a head index of the model.
 template <bool PAIR>
@@ -224,9 +73,11 @@ __device__ __forceinline__ int head_of(int hb, int hh, int n_head) {
   return PAIR ? hb + hh * (n_head / 2) : hb;
 }
 
+// The body of one block; the two kernels below differ only in their launch
+// bounds.
 template <typename T, int KIND, bool APPEND, bool PAIR>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+__device__ __forceinline__ void attention_block(
+                        const T* __restrict__ q, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
                         float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
                         T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
@@ -241,7 +92,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   const int s_idx = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x, n_hb = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int hd = D / n_head;
   const int n_groups = kThreads / G, grp = tid / G, lg = tid % G;
   const int W = position + 1;
@@ -265,26 +116,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int32_t* mask_row = key_mask + static_cast<size_t>(b) * T_cap;
 
   // ---- this lane's elements ---------------------------------------------------
-  LaneMap lm;
-  lm.high = 0u;
-  lm.live = 0u;
-  if constexpr (K::kScalar) {
-    const int half = D >> 1;
-    lm.valid = lg * EPL < hd;
-    lm.off = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = lg * EPL + i;
-      const int g = hb * hd + e;
-      lm.col[i] = g >= half ? g - half : g;
-      if (g >= half) lm.high |= 1u << i;
-      if (e < hd) lm.live |= 1u << i;
-    }
-  } else {
-    lm.valid = lg * EPL < hd;
-    // elements of head hb (fp, int8), or bytes of head pair hb (int4)
-    lm.off = hb * hd + lg * EPL;
-  }
+  const LaneMap lm = lane_map<T, KIND, PAIR>(lg, hb, hd, D);
   float qv[NH][EPL];
 #pragma unroll
   for (int h = 0; h < NH; ++h)
@@ -297,6 +129,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                                       q_scale)
                         : 0.0f;
     }
+  const auto sync = [] { __syncthreads(); };
 
   // ---- 1. the step's row, when this block attends over slot `position` -------
   const C* pos_k = k_rows + static_cast<size_t>(position) * row_stride;
@@ -317,45 +150,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
           }
       } else {
         // the scale is an abs-max over the WHOLE row: every block computes it
-        float mk = 0.0f, mv = 0.0f;
-        for (int d = tid; d < D; d += kThreads) {
-          mk = fmaxf(mk, fabsf(to_f(kn[d])));
-          mv = fmaxf(mv, fabsf(to_f(vn[d])));
-        }
-        mk = warp_max(mk);
-        mv = warp_max(mv);
-        if (lane == 0) {
-          red[0][warp] = mk;
-          red[1][warp] = mv;
-        }
-        __syncthreads();
-        mk = 0.0f;
-        mv = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kThreads / 32; ++w) {
-          mk = fmaxf(mk, red[0][w]);
-          mv = fmaxf(mv, red[1][w]);
-        }
-        constexpr float qmax = KIND == kInt8 ? 127.0f : 7.0f;
-        const float ks = fmaxf(mk, 1e-6f) / qmax;
-        const float vs = fmaxf(mv, 1e-6f) / qmax;
         int8_t* sk = reinterpret_cast<int8_t*>(stage_k);
         int8_t* sv = reinterpret_cast<int8_t*>(stage_v);
-        if constexpr (KIND == kInt8) {
-          for (int d = tid; d < D; d += kThreads) {
-            sk[d] = static_cast<int8_t>(quantize(to_f(kn[d]), ks, qmax));
-            sv[d] = static_cast<int8_t>(quantize(to_f(vn[d]), vs, qmax));
-          }
-        } else {
-          const int half = D >> 1;
-          for (int j = tid; j < half; j += kThreads) {
-            const int klo = quantize(to_f(kn[j]), ks, qmax), khi = quantize(to_f(kn[j + half]), ks, qmax);
-            const int vlo = quantize(to_f(vn[j]), vs, qmax), vhi = quantize(to_f(vn[j + half]), vs, qmax);
-            sk[j] = static_cast<int8_t>(((khi & 15) << 4) | (klo & 15));
-            sv[j] = static_cast<int8_t>(((vhi & 15) << 4) | (vlo & 15));
-          }
-        }
-        __syncthreads();
+        float ks, vs;
+        stage_quantized<KIND, kThreads>(kn, vn, D, 0, row_w, tid, sk, sv, red, sync, ks, vs);
         if (writer) {
           for (int d = tid; d < row_w; d += kThreads) {
             k_rows[static_cast<size_t>(position) * row_stride + d] = sk[d];
@@ -382,88 +180,33 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   // ---- 2. attend: the chunk's slots before `position`, then `position` --------
   State<NH, EPL> st;
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    st.m[h] = -INFINITY;
-    st.l[h] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) st.acc[h][i] = 0.0f;
-  }
-  const int end = min(hi, position);
-  const size_t rs = static_cast<size_t>(row_stride);
-  for (int base = lo; base < end; base += n_groups * kUnroll) {  // uniform trip count
-    uint4 kr[kUnroll], vr[kUnroll];
-    bool ok[kUnroll];
-    float ks[kUnroll], vs[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u * n_groups + grp;
-      ok[u] = t < end && __ldg(mask_row + t) != 0;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      ks[u] = vs[u] = 0.0f;
-      if (ok[u]) {  // masked slots cost no bytes (loading them too was slower)
-        if (lm.valid) {
-          kr[u] = load_raw<T, KIND, PAIR>(k_rows + t * rs, lm, true);
-          vr[u] = load_raw<T, KIND, PAIR>(v_rows + t * rs, lm, true);
-        }
-        if constexpr (KIND != kFp) {
-          ks[u] = __ldg(k_scale + row0 + t);
-          vs[u] = __ldg(v_scale + row0 + t);
-        }
-      }
-    }
-    sweep<T, KIND, PAIR, kUnroll>(st, qv, kr, vr, ok, ks, vs, lm, G);
-  }
-  if (has_pos) {  // slot `position`, by group 0, at the same point in every kind
-    uint4 kr[1] = {make_uint4(0u, 0u, 0u, 0u)}, vr[1] = {make_uint4(0u, 0u, 0u, 0u)};
-    bool ok[1] = {grp == 0 && mask_row[position] != 0};
-    float ks[1] = {pos_ks}, vs[1] = {pos_vs};
-    if (ok[0] && lm.valid) {
-      kr[0] = load_raw<T, KIND, PAIR>(pos_k, lm, false);
-      vr[0] = load_raw<T, KIND, PAIR>(pos_v, lm, false);
-    }
-    sweep<T, KIND, PAIR, 1>(st, qv, kr, vr, ok, ks, vs, lm, G);
-  }
+  st.init();
+  attend_range<T, KIND, PAIR>(st, qv, k_rows, v_rows, static_cast<size_t>(row_stride),
+                              k_scale + row0, v_scale + row0, mask_row, lo, min(hi, position),
+                              n_groups, grp, lm, G);
+  if (has_pos)  // slot `position`, by group 0, at the same point in every kind
+    attend_pos<T, KIND, PAIR>(st, qv, pos_k, pos_v, pos_ks, pos_vs, mask_row[position] != 0,
+                              grp, lm, G);
 
   // ---- 3. merge the groups of the block, in group order ------------------------
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    if (lg == 0) {
-      gm[h * n_groups + grp] = st.m[h];
-      gl[h * n_groups + grp] = st.l[h];
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i)
-      if (lg * EPL + i < hd) gacc[(h * n_groups + grp) * hd + lg * EPL + i] = st.acc[h][i];
-  }
-  __syncthreads();
   const int P = NH * (2 + hd);  // one partial: m[NH], l[NH], acc[NH][hd]
   float* part = n_split > 1
                     ? scratch + ((static_cast<size_t>(b) * n_hb + hb) * n_split + s_idx) * P
                     : nullptr;
-  for (int idx = tid; idx < NH * hd; idx += kThreads) {
-    const int h = idx / hd, d = idx % hd;
-    float M = -INFINITY;
-    for (int g = 0; g < n_groups; ++g) M = fmaxf(M, gm[h * n_groups + g]);
-    float Lsum = 0.0f, A = 0.0f;
-    if (M != -INFINITY)
-      for (int g = 0; g < n_groups; ++g) {
-        const float mg = gm[h * n_groups + g];
-        const float f = mg == -INFINITY ? 0.0f : expf(mg - M);
-        Lsum += gl[h * n_groups + g] * f;
-        A += gacc[(h * n_groups + g) * hd + d] * f;
-      }
-    if (n_split == 1) {
-      ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
-          from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
-    } else {
-      if (d == 0) {
-        part[h] = M;
-        part[NH + h] = Lsum;
-      }
-      part[2 * NH + idx] = A;
-    }
-  }
+  merge_groups<NH, EPL, kThreads>(
+      st, gm, gl, gacc, n_groups, grp, lg, hd, tid, sync,
+      [&](int h, int d, int idx, float M, float Lsum, float A) {
+        if (n_split == 1) {
+          ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
+              from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
+        } else {
+          if (d == 0) {
+            part[h] = M;
+            part[NH + h] = Lsum;
+          }
+          part[2 * NH + idx] = A;
+        }
+      });
   if (n_split == 1) return;
 
   // ---- 4. the last chunk of (b, head) to finish merges the chunks, in order ----
@@ -495,6 +238,43 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   if (tid == 0) counters[b * n_hb + hb] = 0;  // ready for the next call
 }
 
+template <typename T, int KIND, bool APPEND, bool PAIR>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
+                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
+                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
+                        int B, int T_cap, int D, int n_head, int position, int layer,
+                        float q_scale, int row_stride, int chunk, int G) {
+  attention_block<T, KIND, APPEND, PAIR>(
+      q, k_new, v_new, k_cache_, v_cache_, k_scale, v_scale, key_mask, ctx, scratch, counters, B, T_cap, D, n_head, position, layer, q_scale, row_stride, chunk, G);
+}
+
+// int4: four blocks an SM (at most 128 registers a thread), the occupancy
+// these kernels had before their stages moved to decode_attention.cuh, where
+// the head-pair append took 147 registers and 3 blocks an SM (13% slower at
+// B=512). The other kinds keep the compiler's own choice: any second launch
+// bound (even 1) made the bf16 fp kernels up to 39% slower.
+template <typename T, int KIND, bool APPEND, bool PAIR>
+__global__ void __launch_bounds__(kThreads, 4)
+decode_attention_int4_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
+                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
+                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
+                        int B, int T_cap, int D, int n_head, int position, int layer,
+                        float q_scale, int row_stride, int chunk, int G) {
+  attention_block<T, KIND, APPEND, PAIR>(
+      q, k_new, v_new, k_cache_, v_cache_, k_scale, v_scale, key_mask, ctx, scratch, counters, B, T_cap, D, n_head, position, layer, q_scale, row_stride, chunk, G);
+}
+
+template <typename T, int KIND, bool APPEND, bool PAIR>
+constexpr auto kernel_of() {
+  if constexpr (KIND == kInt4)
+    return &decode_attention_int4_kernel<T, KIND, APPEND, PAIR>;
+  else
+    return &decode_attention_kernel<T, KIND, APPEND, PAIR>;
+}
+
 struct Args {
   const void *q, *k_new, *v_new;
   void *k_cache, *v_cache, *k_scale, *v_scale;
@@ -510,14 +290,13 @@ template <typename T, int KIND, bool APPEND, bool PAIR>
 int launch(const Args& a) {
   using K = Kind<T, KIND, PAIR>;
   const int hd = a.D / a.n_head;
-  int G = 1;  // lanes a head row takes: a power of two
-  while (G * K::EPL < hd) G <<= 1;
+  const int G = group_lanes<T, KIND, PAIR>(hd);
   if (G > 32) return static_cast<int>(cudaErrorInvalidValue);
   const int n_groups = kThreads / G;
   const int row_w = KIND == kInt4 ? a.D / 2 : a.D;
   const size_t stage = APPEND && KIND != kFp ? 2 * static_cast<size_t>((row_w + 15) & ~15) : 0;
   const size_t smem = stage + sizeof(float) * K::NH * n_groups * (2 + static_cast<size_t>(hd));
-  auto kernel = decode_attention_kernel<T, KIND, APPEND, PAIR>;
+  auto kernel = kernel_of<T, KIND, APPEND, PAIR>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

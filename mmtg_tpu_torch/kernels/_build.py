@@ -109,7 +109,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     )
     lib.mmtg_decode_attention.restype = i
     lib.mmtg_decode_block_fused.argtypes = (
-        [p] * 8 + [i] * 6 + [f, f, i, p]
+        [p] * 12 + [i] * 6 + [f, f, i, p]
     )
     lib.mmtg_decode_block_fused.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]

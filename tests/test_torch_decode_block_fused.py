@@ -149,3 +149,40 @@ def test_fused_scope_raises_outside_it(params):
                               mask, attn_impl="fused")
     with pytest.raises(ValueError):
         gpt2.gpt2_decode_step(tp, cfg, int8, x, 3, tt, mask, attn_impl="pallas")
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 512])
+@pytest.mark.parametrize("D,n_head", [(128, 4), (768, 12)])
+def test_launch_plan_covers_the_work_once(B, D, n_head):
+    """The whole-step kernel's grid and work split, as the wrapper hands them
+    to the kernel (132 SMs): every output column of every product and every
+    (row, head) of the attention belongs to exactly one work item, the K
+    ranges of a column tile are added in one fixed order, and a block's shared
+    memory fits Hopper's 232,448 bytes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        pl = mk.plan(B, D, L, T, n_head, dtype, sm_count=132)
+        assert pl.smem <= 232448 and pl.grid == 132 * pl.blocks_per_sm
+        for prod in pl.products:
+            # a split product's blocks wait for each other: one item a block
+            assert prod.splits == 1 or prod.items <= pl.grid
+            owned = [it for blk in range(pl.grid) for it in mk.items_of(prod, pl.grid, blk)]
+            assert len(owned) == len(set(owned)) == prod.items
+            for ct in range(prod.N // prod.nt):
+                ranges = [(s * prod.kt, (s + 1) * prod.kt) for c, s in owned if c == ct]
+                assert sorted(ranges) == mk.split_order(prod)
+            cols = sorted(n for ct, s in owned if s == 0
+                          for n in range(ct * prod.nt, (ct + 1) * prod.nt))
+            assert cols == list(range(prod.N))
+            order = mk.split_order(prod)
+            assert order[0][0] == 0 and order[-1][1] == prod.K
+            assert all(a[1] == b[0] for a, b in zip(order, order[1:]))
+        att = [it for blk in range(pl.grid) for it in mk.att_items_of(pl, n_head, blk)]
+        assert sorted(att) == [(b, h) for b in range(B) for h in range(n_head)]
+
+
+def test_plan_raises_when_no_split_fits(monkeypatch):
+    """A block whose shared memory holds no split of the products gets no
+    plan: plan raises, so the wrapper launches nothing."""
+    monkeypatch.setattr(mk, "SMEM_PER_BLOCK", 16384)
+    with pytest.raises(ValueError, match="no launch plan"):
+        mk.plan(64, 768, 12, 256, 12, torch.bfloat16, 132)
