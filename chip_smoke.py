@@ -66,8 +66,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
      device: the card), full width: concurrent requests through submit, one
      streamed over HTTP on a local port, /reload, a clean stop; every
      response held against generate with the same seeds.
-(Phases 11-14 run after phase 4.) It then prints the kernels' JSON line and,
-last, the device JSON line.
+ 15. the LSTM, RNN and TRM encoder channels at full width: for each,
+     decoding.generate at B=64 (bf16, int8 cache: 2640 launches of the
+     int8-append kernel and none of the GRU kernel), teacher-forced f32
+     logits through the kernels vs the plain versions, and 1 + 2 bf16 train
+     steps at B=64 (dropout, remat; mha_train_packed's counts asserted);
+ 16. mmtg_forward_infer (the no-cache inference forward) at full width, f32,
+     B=8, both type-id schemes: mha_train_packed's forward vs
+     attn_impl="plain", and its logits at the target positions vs the
+     cached decode's teacher-forced logits;
+ 17. the English variant (CLIP 512, vocab 50257, n_positions 1024): 1 + 3
+     bf16 train steps at B=64, generate at B=64 (int8 cache, the GRU kernel
+     at input width 512) and B=1 (bf16 cache); then at depth 2 the train CLI
+     bootstrapped from a model.safetensors snapshot with --profile_dir, the
+     generate CLI on its save path, eval on the output (BPE vocab, records
+     and table made by the phase; the native BPE encoder asserted loaded);
+ 18. the REPL (mmtg_tpu_torch.predict, default device) on phase 7's save path
+     with the swap probe, two indices; MMTGDataset's token columns through
+     the native row packer vs the Python framing, and both framings' rate
+     (rows a second) over 4096 rows.
+(Phases 11-14 run after phase 4, phases 15-18 after phase 10.) It then prints
+the kernels' JSON line and, last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
 and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
@@ -283,6 +302,9 @@ FUSED_TOL = {
 # rounding boundary moves the logits, most with int4's 15 levels.
 TEACHER_FORCED_TOL = {"model": 1e-3, "int8": 2e-3, "merged": 2e-3, "int4": 5e-3,
                       "fused": 2e-3, "fused_vs_per_layer": 2e-3}
+# mmtg_forward_infer's logits through mha_train_packed's f32 forward vs its
+# plain version: the attention sums in another order, nothing else differs
+INFER_TOL = 1e-4
 
 
 def _fused_weight_bytes_and_ops(p):
@@ -825,12 +847,15 @@ def phase_train_attention(results, gen):
     return lines
 
 
-def _full_width_inputs(dtype, seed):
+def _full_width_inputs(dtype, seed, mcfg=None, dcfg=None):
+    """Seeded parameters of ``mcfg`` (default: the repo's model) on the card,
+    a random WenLan / CLIP table and a maker of synthetic prompt batches."""
     import torch
 
     from mmtg_tpu_torch.params import init_params
 
-    mcfg, dcfg = model_configs()
+    if mcfg is None:
+        mcfg, dcfg = model_configs()
     params = init_params(mcfg, seed=seed, dtype=dtype, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     V, E, P = mcfg.gpt2.vocab_size, dcfg.wenlan_emb_size, dcfg.topic_prompt_length
@@ -1224,25 +1249,39 @@ def phase_serve(out, gpu, paths, model):
     return launches
 
 
-def phase_teacher_forced(out):
+TF_STEPS = 60  # teacher-forced tokens: past the 44-token window and two frames
+
+
+def _framed_tokens(b, K, seed):
+    """``[b, K]`` int32 teacher-forcing tokens on the sentence frame: START
+    opens and EOS closes every 22-token sentence, random ids between."""
     import torch
 
-    from mmtg_tpu_torch.configs import GenerateConfig, SpecialTokens
-    from mmtg_tpu_torch.decoding import teacher_forced_decode_logits
+    from mmtg_tpu_torch.configs import SpecialTokens
 
-    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.float32, 2)
-    batch = make_batch(8)
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    K = 60
-    tokens = torch.randint(103, 8000, (8, K), generator=gen, device=DEVICE,
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tokens = torch.randint(103, 8000, (b, K), generator=gen, device=DEVICE,
                            dtype=torch.int32)
     sp = SpecialTokens()
     tokens[:, 0] = sp.start_id
-    for j in range(K):  # the sentence frame: EOS closes, START opens
+    for j in range(K):
         if j % 22 == 21:
             tokens[:, j] = sp.eos_id
         elif j and j % 22 == 0:
             tokens[:, j] = sp.start_id
+    return tokens
+
+
+def phase_teacher_forced(out):
+    import torch
+
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.decoding import teacher_forced_decode_logits
+
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.float32, 2)
+    batch = make_batch(8)
+    K = TF_STEPS
+    tokens = _framed_tokens(8, K, 3)
     errs, kernel_logits = {}, {}
     forms = {"model": dict(cache_dtype="model"), "int8": dict(cache_dtype="int8"),
              "int4": dict(cache_dtype="int4"),
@@ -1764,6 +1803,428 @@ def phase_packed_cli(out, paths, tmp):
           f"{val1:.4f} -> {val2:.4f}, checkpoints {second}")
 
 
+CHANNEL_KINDS = ("LSTM", "RNN", "TRM")
+CHANNEL_TRAIN_STEPS = 2
+ENGLISH_CORPUS = [
+    "city lights are calling out my name tonight",
+    "we dance until the morning sun comes up",
+    "every heartbeat echoes down the empty street",
+    "hold me closer while the music plays",
+    "summer rain keeps falling on my mind",
+    "chasing shadows through the neon glow",
+    "your voice is like a melody I know",
+    "we were young and running with the wind",
+    "golden hours fade into the night",
+    "take my hand and never let it go",
+]
+ENGLISH_TRAIN_STEPS = 3
+FRAMING_ROWS = 4096  # rows whose token columns phase 18 frames both ways
+
+
+def _to_dtype(tree, dtype):
+    """The floating tensors of a batch or table dict cast to ``dtype``."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+
+
+def _delta(before, what, expected):
+    """The launches since ``before``, checked against ``expected`` (every
+    other kernel 0); returns (the new counts, the launches)."""
+    now = _counts()
+    got = {k: now[k] - before[k] for k in now}
+    _only(got, expected, what)
+    return now, got
+
+
+def phase_channels(out, gpu):
+    """The LSTM, RNN and TRM encoder channels at full width: generate at
+    B=64 (bf16, int8 cache; no fused_gru launch: it is for GRU channels),
+    teacher-forced f32 logits through the kernels vs the plain versions, and
+    bf16 train steps at B=64 (dropout and remat on)."""
+    import dataclasses
+
+    import torch
+
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.decoding import generate, teacher_forced_decode_logits
+    from mmtg_tpu_torch.params import tree_to
+
+    t_phase = time.perf_counter()
+    base_mcfg, dcfg = model_configs()
+    L = base_mcfg.gpt2.n_layer
+    train_batch = _train_batch(64, dcfg, 8)
+    tokens = _framed_tokens(8, TF_STEPS, 3)
+    steps = L * LENGTH
+    res, lines = {}, []
+    _reset_counts()  # ---- this path starts here ------------------------------
+    before = _counts()
+    for i, kind in enumerate(CHANNEL_KINDS):
+        mcfg = dataclasses.replace(
+            base_mcfg, image=dataclasses.replace(base_mcfg.image, type=kind),
+            text=dataclasses.replace(base_mcfg.text, type=kind))
+        _, _, params, const, make_batch = _full_width_inputs(torch.float32, 40 + i,
+                                                             mcfg, dcfg)
+        p16, c16 = tree_to(params, DEVICE, torch.bfloat16), _to_dtype(const, torch.bfloat16)
+        batch = make_batch(64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(p16, c16, mcfg, dcfg, GenerateConfig(cache_dtype="int8"),
+                        _to_dtype(batch, torch.bfloat16),
+                        torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        before, got = _delta(before, f"{kind} generate",
+                             {"decode_attention_int8_append": steps})
+        _check_tokens(toks, mcfg, dcfg, f"{kind} generate")
+        del p16, c16
+
+        small = {k: v[:8] for k, v in batch.items()}
+        gcfg = GenerateConfig(cache_dtype="int8")
+        a = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, small,
+                                         tokens, use_kernels=True)
+        b = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, small,
+                                         tokens, use_kernels=False)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(a).all()), f"{kind} teacher-forced: non-finite")
+        tf_err = (a - b).abs().max().item()
+        check(tf_err <= TEACHER_FORCED_TOL["int8"], f"{kind} teacher-forced f32 "
+              f"logits, kernels vs plain: {tf_err:.3g} > {TEACHER_FORCED_TOL['int8']}")
+        # the prefill takes START, then one cached step a later token
+        before, _ = _delta(before, f"{kind} teacher-forced",
+                           {"decode_attention_int8_append": L * (TF_STEPS - 1)})
+        del a, b
+
+        state, step = _train_state(params, mcfg, dcfg)
+        state, r = _timed_steps(step, state, const, [train_batch], 1,
+                                CHANNEL_TRAIN_STEPS)
+        check(all(v == v and abs(v) < 1e6 for v in r["losses"]),
+              f"{kind} train: loss not finite {r['losses']}")
+        # the warm-up step, then the timed ones (their counts restart at 0)
+        _only(r["launches"], {"mha_train_packed_fwd": 2 * L * CHANNEL_TRAIN_STEPS,
+                              "mha_train_packed_bwd": L * CHANNEL_TRAIN_STEPS},
+              f"{kind} train")
+        before = _counts()
+        res[kind] = dict(generate_wall_s=gen_s, generate_tok_per_s=64 * LENGTH / gen_s,
+                         generate_launches=got, teacher_forced_max_abs=tf_err,
+                         train_step_ms=r["step_ms"], train_losses=r["losses"],
+                         train_launches=r["launches"])
+        lines.append(f"{kind}: generate B=64 {gen_s:.3f} s ({64 * LENGTH / gen_s:.1f} "
+                     f"tok/s, {steps} int8 appends, 0 fused_gru), teacher-forced "
+                     f"{tf_err:.3g}, train step {r['step_ms']:.1f} ms loss "
+                     f"{r['losses'][-1]:.4f}")
+        del state, step, params, const
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    out["channels"] = dict(wall_s=wall, **res)
+    print(f"phase 15 encoder channels LSTM / RNN / TRM (full width; generate bf16 "
+          f"B=64 int8 cache, teacher-forced f32 B=8 kernels vs plain <= "
+          f"{TEACHER_FORCED_TOL['int8']}, {CHANNEL_TRAIN_STEPS} bf16 train steps B=64): "
+          f"ok; wall {wall:.1f} s on {gpu}; " + "; ".join(lines))
+
+
+def phase_forward_infer(out, gpu):
+    """mmtg_forward_infer at full width, f32, B=8, both type-id schemes: the
+    train-attention kernel's forward vs attn_impl="plain", and the logits at
+    the target positions vs the cached decode's teacher-forced logits."""
+    import torch
+
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.decoding import teacher_forced_decode_logits
+    from mmtg_tpu_torch.models.mmtg import mmtg_forward_infer
+
+    t_phase = time.perf_counter()
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.float32, 2)
+    L, P = mcfg.gpt2.n_layer, dcfg.topic_prompt_length
+    tokens = _framed_tokens(8, TF_STEPS, 3)
+    batch = dict(make_batch(8), targets=tokens)
+    res = {}
+    for scheme in ("train", "reference_infer"):
+        _reset_counts()  # ---- this path starts here --------------------------
+        with torch.no_grad():
+            a = mmtg_forward_infer(params, const, mcfg, dcfg, batch, scheme).logits
+        torch.cuda.synchronize()
+        _only(_counts(), {"mha_train_packed_fwd": L}, f"forward_infer {scheme}")
+        with torch.no_grad():
+            b = mmtg_forward_infer(params, const, mcfg, dcfg, batch, scheme,
+                                   attn_impl="plain").logits
+        tf = teacher_forced_decode_logits(
+            params, const, mcfg, dcfg,
+            GenerateConfig(cache_dtype="model", type_id_scheme=scheme),
+            batch, tokens, use_kernels=True)
+        torch.cuda.synchronize()
+        check(a.shape == (8, P + TF_STEPS, mcfg.gpt2.vocab_size)
+              and bool(torch.isfinite(a).all()), f"forward_infer {scheme}: logits")
+        plain_err = (a - b).abs().max().item()
+        cached_err = (a[:, P:] - tf).abs().max().item()
+        check(plain_err <= INFER_TOL, f"forward_infer {scheme}: kernel vs plain "
+              f"{plain_err:.3g} > {INFER_TOL}")
+        check(cached_err <= TEACHER_FORCED_TOL["model"], f"forward_infer {scheme}: "
+              f"vs the cached decode {cached_err:.3g} > {TEACHER_FORCED_TOL['model']}")
+        res[scheme] = dict(kernel_vs_plain=plain_err, vs_cached_decode=cached_err)
+    wall = time.perf_counter() - t_phase
+    out["forward_infer"] = dict(wall_s=wall, **res)
+    print(f"phase 16 mmtg_forward_infer (full width, f32, B=8, {TF_STEPS} target "
+          f"tokens, {L} forward launches of mha_train_packed): ok; wall {wall:.1f} s "
+          f"on {gpu}; " + "; ".join(
+              f"{k}: kernel vs plain {v['kernel_vs_plain']:.3g} (<= {INFER_TOL}), vs "
+              f"cached decode {v['vs_cached_decode']:.3g} (<= "
+              f"{TEACHER_FORCED_TOL['model']})" for k, v in res.items()))
+
+
+def _english_fixtures(tmp, clip_dim):
+    """A byte-level BPE vocab trained on an English corpus, English records
+    with CLIP embeddings of ``clip_dim``, a CLIP table over the vocab."""
+    import numpy as np
+
+    from mmtg_tpu_torch.bpe import train_bpe
+    from mmtg_tpu_torch.data import make_synthetic_records
+
+    vocab = os.path.join(tmp, "bpe_vocab")
+    tok = train_bpe(ENGLISH_CORPUS, vocab_size=600)
+    tok.save(vocab)
+    rng = np.random.default_rng(3)
+    paths = {"vocab": vocab}
+    for name, n in (("train", 64), ("val", 8), ("test", 2)):
+        records = make_synthetic_records(n, rng, emb_size=clip_dim,
+                                         lyrics_pool=ENGLISH_CORPUS, topic="city")
+        if name == "test":
+            for r in records:
+                r.pop("rating")
+        paths[name] = os.path.join(tmp, f"en_{name}.pkl")
+        with open(paths[name], "wb") as f:
+            pickle.dump(records, f)
+    paths["emb"] = os.path.join(tmp, "clip_emb.pkl")
+    with open(paths["emb"], "wb") as f:
+        pickle.dump({i: rng.standard_normal(clip_dim).astype(np.float32)
+                     for i in range(len(tok))}, f)
+    paths["ref"] = os.path.join(tmp, "en_ref.txt")
+    with open(paths["ref"], "w", encoding="utf-8") as f:
+        f.write("\n".join(["，".join(ENGLISH_CORPUS[:2])] * 2) + "\n")
+    return paths
+
+
+def phase_english(out, gpu, tmp):
+    """The English variant: at full width (CLIP 512, vocab 50257,
+    n_positions 1024) bf16 train steps at B=64 and generate at B=64 (int8
+    cache, fused_gru at input width 512) and B=1 (bf16 cache); then, at depth
+    2, the train CLI from a model.safetensors snapshot with a profiler trace,
+    the generate CLI on its save path and eval on the output."""
+    import dataclasses
+
+    import torch
+
+    from mmtg_tpu_torch import eval as teval
+    from mmtg_tpu_torch import generate as gen_cli
+    from mmtg_tpu_torch import train as train_cli
+    from mmtg_tpu_torch.bpe import load_tokenizer
+    from mmtg_tpu_torch.checkpoint import write_safetensors
+    from mmtg_tpu_torch.configs import GenerateConfig, english_variant
+    from mmtg_tpu_torch.decoding import generate
+    from mmtg_tpu_torch.models.gpt2 import export_hf_gpt2
+    from mmtg_tpu_torch.params import init_gpt2_params, tree_to
+
+    t_phase = time.perf_counter()
+    mcfg, dcfg = english_variant(clip_dim=512, gpt2_vocab=50257)
+    L, V = mcfg.gpt2.n_layer, mcfg.gpt2.vocab_size
+    _, _, params, const, make_batch = _full_width_inputs(torch.float32, 50, mcfg, dcfg)
+    # train: synthetic rows framed by the dataset code, content ids drawn over
+    # the whole vocab
+    batch = _train_batch(64, dcfg, 12)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for k in ("topic_ids", "targets"):
+        content = batch[k] >= 103
+        batch[k] = torch.where(content, torch.randint(
+            103, V, batch[k].shape, generator=gen, device=DEVICE,
+            dtype=batch[k].dtype), batch[k])
+    state, step = _train_state(params, mcfg, dcfg)
+    state, r = _timed_steps(step, state, const, [batch], 1, ENGLISH_TRAIN_STEPS)
+    _check_trained("english train", r, state)
+    _only(r["launches"], {"mha_train_packed_fwd": 2 * L * ENGLISH_TRAIN_STEPS,
+                          "mha_train_packed_bwd": L * ENGLISH_TRAIN_STEPS},
+          "english train")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    p16, c16 = tree_to(params, DEVICE, torch.bfloat16), _to_dtype(const, torch.bfloat16)
+    del params
+    _reset_counts()  # ---- the generate path starts here ----------------------
+    before, gen_res = _counts(), {}
+    for what, b, gcfg, expected in (
+            ("b64 int8 cache", 64, GenerateConfig(cache_dtype="int8"),
+             {"decode_attention_int8_append": L * LENGTH, "fused_gru": 2}),
+            ("b1 bf16 cache", 1, GenerateConfig(cache_dtype="model"),
+             {"decode_attention_fp_append": L * LENGTH, "fused_gru": 2})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(p16, c16, mcfg, dcfg, gcfg, _to_dtype(make_batch(b), torch.bfloat16),
+                        torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        before, got = _delta(before, f"english generate {what}", expected)
+        _check_tokens(toks, mcfg, dcfg, f"english generate {what}")
+        gen_res[what] = dict(wall_s=wall, tok_per_s=b * LENGTH / wall, launches=got)
+    del p16, c16
+    torch.cuda.empty_cache()
+
+    # the CLIs at depth 2 (default device: the card)
+    clip = str(dcfg.wenlan_emb_size)
+    paths = _english_fixtures(tmp, dcfg.wenlan_emb_size)
+    tok = load_tokenizer(paths["vocab"])
+    check(tok.native is not None, "english: the native BPE encoder did not load")
+    slow = load_tokenizer(paths["vocab"], use_native=False)
+    for line in ENGLISH_CORPUS:
+        check(tok.encode(line) == slow.encode(line),
+              f"english: native BPE ids differ from Python's on {line!r}")
+    cli_mcfg, cli_dcfg = english_variant(clip_dim=dcfg.wenlan_emb_size,
+                                         gpt2_vocab=len(tok))
+    cli_mcfg = dataclasses.replace(cli_mcfg, gpt2=dataclasses.replace(
+        cli_mcfg.gpt2, n_layer=2))
+    snapshot = os.path.join(tmp, "gpt2_snapshot")
+    os.makedirs(snapshot)
+    write_safetensors(os.path.join(snapshot, "model.safetensors"), export_hf_gpt2(
+        init_gpt2_params(cli_mcfg.gpt2, seed=6), cli_mcfg.gpt2))
+    save, trace = os.path.join(tmp, "en_ckpt"), os.path.join(tmp, "en_trace")
+    _reset_counts()
+    t0 = time.perf_counter()
+    val = train_cli.main(
+        ["--variant", "english", "--clip_dim", clip,
+         "--train_data_path", paths["train"], "--val_data_path", paths["val"],
+         "--vocab_path", paths["vocab"], "--token_emb_path", paths["emb"],
+         "--batch_size", "2", "--val_batch_size", "8", "--epochs", "1",
+         "--curriculums", "0,0", "--alpha", "0.2", "--lr", "1e-4",
+         "--val_interval_ratio", "1.0", "--log_interval", "8",
+         "--gpt2_ckpt", snapshot, "--profile_dir", trace,
+         "--save_model", "--save_path", save], mcfg=cli_mcfg, dcfg=cli_dcfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    check(val == val and abs(val) < 1e6, f"english train CLI: val loss {val}")
+    check(counts["mha_train_packed_bwd"] == 2 * 32
+          and counts["mha_train_packed_fwd"] > 2 * 2 * 32,
+          f"english train CLI: launch counts {counts}")
+    traces = [os.path.join(trace, f) for f in os.listdir(trace)]
+    check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+          f"english train CLI: --profile_dir wrote {traces}")
+    trace_mb = os.path.getsize(traces[0]) / 1e6
+    samples = os.path.join(tmp, "en_samples.txt")
+    _reset_counts()
+    t0 = time.perf_counter()
+    gen_cli.main(["--variant", "english", "--clip_dim", clip,
+                  "--data_path", paths["test"], "--model_path", save,
+                  "--tokenizer_path", paths["vocab"], "--token_emb_path", paths["emb"],
+                  "--batch_size", "4", "--n_samples", "2", "--save_samples",
+                  "--save_samples_path", samples], mcfg=cli_mcfg, dcfg=cli_dcfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    _only(_counts(), {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2},
+          "english generate CLI")
+    with open(samples, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(len(lines) == 4 and all(ln.strip() for ln in lines),
+          f"english generate CLI wrote {lines}")
+    check(not any(c in "".join(lines) for c in "ĠĊ"),
+          "english generate CLI: byte-alphabet symbols in the output")
+    metrics = teval.evaluate_files(samples, paths["ref"])
+    wall = time.perf_counter() - t_phase
+    out["english"] = dict(wall_s=wall, train=r, generate=gen_res,
+                          train_cli_s=train_s, train_cli_val_loss=val,
+                          trace_mb=trace_mb, generate_cli_s=gen_s, metrics=metrics)
+    print(f"phase 17 English variant (CLIP 512, vocab {V}, n_positions "
+          f"{mcfg.gpt2.n_positions}): ok; wall {wall:.1f} s on {gpu}; train B=64 "
+          f"{r['step_ms']:.1f} ms a step, loss {r['losses'][0]:.4f} -> "
+          f"{r['losses'][-1]:.4f}; " + "; ".join(
+              f"generate {k} {v['wall_s']:.3f} s ({v['tok_per_s']:.1f} tok/s)"
+              for k, v in gen_res.items())
+          + f"; CLIs at depth 2: train from model.safetensors 32 steps {train_s:.1f} s "
+          f"(trace {trace_mb:.1f} MB), generate {gen_s:.1f} s, distinct-1 "
+          f"{metrics['distinct1']:.3f}, BLEU-1 {metrics['bleu1']:.3f}; first: "
+          f"{lines[0][:50]!r}")
+
+
+def phase_predict(out, gpu, paths, tmp):
+    """The REPL (default device) on phase 7's save path, fed two indices and
+    q with the swap probe; then MMTGDataset's token columns through the
+    native row packer against the Python framing on phase 7's records."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from mmtg_tpu_torch import predict
+    from mmtg_tpu_torch.data import MMTGDataset, encode_lyrics, encode_topic
+    from mmtg_tpu_torch.tokenizer import WordPieceTokenizer
+
+    t_phase = time.perf_counter()
+    mcfg, dcfg = model_configs()
+    mcfg = dataclasses.replace(mcfg, gpt2=dataclasses.replace(mcfg.gpt2, n_layer=2))
+    n_samples = 2
+    stdin, stdout = sys.stdin, io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.stdin = io.StringIO("0\n1\nq\n")
+        with contextlib.redirect_stdout(stdout):
+            predict.main(["--data_path", paths["test"],
+                          "--model_path", os.path.join(tmp, "ckpt"),
+                          "--tokenizer_path", paths["vocab"],
+                          "--token_emb_path", paths["emb"],
+                          "--n_samples", str(n_samples), "--swap_probe"],
+                         mcfg=mcfg, dcfg=dcfg)
+    finally:
+        sys.stdin = stdin
+    repl_s = time.perf_counter() - t0
+    text = stdout.getvalue()
+    lyrics = [ln for ln in text.splitlines() if ln.startswith("  [")]
+    check(len(lyrics) == 2 * 2 * n_samples and all(len(ln) > 12 for ln in lyrics)
+          and text.count("swap probe") == 2, f"predict printed {text!r}")
+    calls = 2 * 2  # two indices, each plain and swapped
+    _only(_counts(), {"decode_attention_int8_append": calls * 2 * LENGTH,
+                      "fused_gru": 2 * calls}, "predict")
+
+    native = WordPieceTokenizer.from_file(paths["vocab"])
+    check(native.native is not None, "the native WordPiece tokenizer did not load")
+    python = WordPieceTokenizer.from_file(paths["vocab"], use_native=False)
+    a = MMTGDataset(paths["train"], native, dcfg, if_train=True).arrays()
+    b = MMTGDataset(paths["train"], python, dcfg, if_train=True).arrays()
+    keys = ("topic_ids", "tpw_attention_mask", "tpw_type_ids", "targets",
+            "attention_mask", "type_ids")
+    for k in keys:
+        check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+              f"native pack_rows: column {k} differs from the Python framing")
+    # the token columns' rate (rows a second), the records repeated to a
+    # corpus where the framing, not the call, takes the time
+    with open(paths["train"], "rb") as f:
+        records = pickle.load(f)
+    records = (records * (FRAMING_ROWS // len(records) + 1))[:FRAMING_ROWS]
+    t0 = time.perf_counter()
+    cols = native.native.pack_rows(
+        [r["topic"] for r in records], [list(r["lyrics"]) for r in records],
+        topic_len=dcfg.topic_prompt_length, max_sent=dcfg.max_sent_length,
+        pad_id=python.pad_token_id, start_id=python.convert_tokens_to_ids("[#START#]"),
+        eos_id=python.convert_tokens_to_ids("[#EOS#]"), sep_id=python.sep_token_id)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    framed = [encode_lyrics(python, r["lyrics"], dcfg)[0] for r in records]
+    topics = [encode_topic(python, r["topic"], dcfg)[0] for r in records]
+    python_s = time.perf_counter() - t0
+    check(np.array_equal(cols["targets"], np.asarray(framed, np.int32))
+          and np.array_equal(cols["topic_ids"], np.asarray(topics, np.int32)),
+          f"native pack_rows over {FRAMING_ROWS} rows differs from the Python framing")
+    rates = dict(native_rows_per_s=FRAMING_ROWS / native_s,
+                 python_rows_per_s=FRAMING_ROWS / python_s)
+    wall = time.perf_counter() - t_phase
+    out["predict"] = dict(wall_s=wall, repl_s=repl_s, lines=len(lyrics),
+                          dataset_rows=len(a["targets"]), framing_rows=FRAMING_ROWS,
+                          **rates)
+    print(f"phase 18 predict REPL (default device, 2 layers, indices 0 and 1 with "
+          f"the swap probe, {n_samples} samples each): ok; {len(lyrics)} lines in "
+          f"{repl_s:.1f} s; native pack_rows columns equal the Python framing's on "
+          f"{len(a['targets'])} rows; token columns of {FRAMING_ROWS} rows: native "
+          f"{rates['native_rows_per_s']:.0f} rows/s, Python "
+          f"{rates['python_rows_per_s']:.0f} rows/s; wall {wall:.1f} s on {gpu}; "
+          f"first: {lyrics[0][:50]!r}")
+
+
 # (name, source, the TPU kernel it replaces, the phase whose run counts its
 # launches, the key of its phase-2 result at its main path's shape)
 _TA = "mmtg_tpu_torch/csrc/train_attention.cu"
@@ -1850,6 +2311,10 @@ def main(argv=None) -> int:
         launches["train_packed"] = phase_train_packed(out, gpu, args.profile)
         launches["train_head_major"] = phase_train_head_major(out, gpu)
         phase_packed_cli(out, paths, tmp)
+        phase_channels(out, gpu)
+        phase_forward_infer(out, gpu)
+        phase_english(out, gpu, tmp)
+        phase_predict(out, gpu, paths, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

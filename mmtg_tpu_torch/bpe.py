@@ -1,6 +1,7 @@
-"""Pure-Python byte-level BPE tokenizer (GPT-2 style) for the English
-variant (the port's own copy of :mod:`mmtg_tpu.bpe`; the C++ encoder is not
-ported, every call takes the Python path).
+"""Byte-level BPE tokenizer (GPT-2 style) for the English variant (the
+port's own copy of :mod:`mmtg_tpu.bpe`): pure Python, with the C++ encoder
+of ``native/bpe.cc`` (:mod:`mmtg_tpu_torch.native`) as its fast path for
+``encode`` when a compiler is present — the same ids either way.
 
 The reference frames English adaptation as supported (reference
 ``README.md:19-20``, ``:86``): CLIP embeddings + an English GPT-2. An
@@ -190,7 +191,10 @@ class ByteLevelBPETokenizer:
     # -- constructors ------------------------------------------------------
 
     @classmethod
-    def from_files(cls, vocab_json: str, merges_txt: str, **kw):
+    def from_files(cls, vocab_json: str, merges_txt: str,
+                   use_native: bool = True, **kw):
+        """``use_native`` loads the C++ encoder of the same files as the
+        fast path (``None`` without a compiler: the Python path)."""
         with open(vocab_json, encoding="utf-8") as f:
             vocab = json.load(f)
         merges: List[Tuple[str, str]] = []
@@ -201,7 +205,12 @@ class ByteLevelBPETokenizer:
                 parts = line.rstrip("\n").split(" ")
                 if len(parts) == 2:
                     merges.append((parts[0], parts[1]))
-        return cls(vocab, merges, **kw)
+        tk = cls(vocab, merges, **kw)
+        if use_native:
+            from mmtg_tpu_torch.native import load_native_bpe
+
+            tk.native = load_native_bpe(vocab_json, merges_txt)
+        return tk
 
     @classmethod
     def from_dir(cls, path: str, **kw):
@@ -267,8 +276,13 @@ class ByteLevelBPETokenizer:
             tokens.extend(self.bpe(mapped))
         return tokens
 
+    native = None  # a mmtg_tpu_torch.native.NativeBPE, set by from_files
+
     def encode(self, text: str) -> List[int]:
-        """Text → ids."""
+        """Text → ids, through the C++ encoder when it is loaded (and the
+        text holds no NUL, where a C string would end)."""
+        if self.native is not None and "\0" not in text:
+            return self.native.encode(text)
         return self.convert_tokens_to_ids(self.tokenize(text))
 
     def decode(self, ids: Iterable[int], skip_special_tokens: bool = True) -> str:

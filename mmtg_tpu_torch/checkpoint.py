@@ -3,18 +3,28 @@
 The reference model is itself PyTorch, so this is a direct name map between
 its ``MMTG.state_dict()`` (``model.py:330-354``; optionally
 ``module.``-prefixed by ``nn.DataParallel``) and the port's parameter tree:
-``nn.Linear`` / ``nn.GRU`` weights are transposed to ``x @ W`` orientation
-and the per-layer GPT-2 tensors are stacked.
+``nn.Linear`` and ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` weights are
+transposed to ``x @ W`` orientation (a stack's gate count follows from the
+shapes) and the per-layer GPT-2 tensors are stacked. A TRM channel has no
+reference names (the reference never implements it): a model with one
+raises on ``.pth`` import and export, and travels in the port's own train
+states.
 
 Train states (:func:`save_train_state` / :func:`restore_train_state`) are
 written in the port's own format, one ``torch.save`` file per step;
 :func:`load_model_params` reads the parameters of either kind of file.
 Reading the JAX package's Orbax directories is not ported yet.
+
+:func:`read_safetensors` / :func:`write_safetensors` read and write the
+``safetensors`` format (a Hugging Face snapshot's ``model.safetensors``) by
+hand, without the ``safetensors`` package.
 """
 
 from __future__ import annotations
 
 import glob
+import json
+import math
 import os
 from typing import Dict, Tuple
 
@@ -32,10 +42,20 @@ def strip_prefix(state: Dict, prefix: str = "module.") -> Dict:
     return state
 
 
+def _check_reference_channels(mcfg: ModelConfig) -> None:
+    for name, ch in (("image", mcfg.image), ("text", mcfg.text)):
+        if ch.type == "TRM":
+            raise ValueError(
+                f"the {name} channel is a TRM channel, which the reference "
+                "model never implements: it has no .pth names (the port's "
+                "step_*.pt train states carry it)")
+
+
 def import_reference_state_dict(state: Dict[str, torch.Tensor],
                                 mcfg: ModelConfig) -> Dict:
     """Reference ``MMTG.state_dict()`` → the port's parameter tree (CPU
     tensors in the state dict's dtype)."""
+    _check_reference_channels(mcfg)
     state = strip_prefix(state)
     get = lambda k: torch.as_tensor(state[k]).detach()  # noqa: E731
 
@@ -47,7 +67,7 @@ def import_reference_state_dict(state: Dict[str, torch.Tensor],
         return {"g": get(f"{name}.weight").clone(),
                 "b": get(f"{name}.bias").clone()}
 
-    def gru(prefix, num_layers):
+    def rnn(prefix, num_layers):
         return {"layers": [
             {"w_ih": get(f"{prefix}.weight_ih_l{k}").T.contiguous(),
              "w_hh": get(f"{prefix}.weight_hh_l{k}").T.contiguous(),
@@ -64,8 +84,8 @@ def import_reference_state_dict(state: Dict[str, torch.Tensor],
     return {
         "encoder": {
             "topic_fc": linear("encoder.topic_fc"),
-            "image": gru("encoder.rnns_image", mcfg.image.num_layers),
-            "text": gru("encoder.rnns_text", mcfg.text.num_layers),
+            "image": rnn("encoder.rnns_image", mcfg.image.num_layers),
+            "text": rnn("encoder.rnns_text", mcfg.text.num_layers),
         },
         "ln_topic": ln("ln_layer1"),
         "ln_image": ln("ln_layer2"),
@@ -89,6 +109,7 @@ def export_reference_state_dict(params: Dict, mcfg: ModelConfig
                                 ) -> Dict[str, torch.Tensor]:
     """The port's parameter tree → a reference ``MMTG.state_dict()``-shaped
     dict of CPU tensors (inverse of :func:`import_reference_state_dict`)."""
+    _check_reference_channels(mcfg)
     out: Dict[str, torch.Tensor] = {}
     t = lambda x: x.detach().cpu()  # noqa: E731
 
@@ -100,7 +121,7 @@ def export_reference_state_dict(params: Dict, mcfg: ModelConfig
         out[f"{name}.weight"] = t(p["g"]).clone()
         out[f"{name}.bias"] = t(p["b"]).clone()
 
-    def put_gru(prefix, p):
+    def put_rnn(prefix, p):
         for k, layer in enumerate(p["layers"]):
             out[f"{prefix}.weight_ih_l{k}"] = t(layer["w_ih"]).T.contiguous()
             out[f"{prefix}.weight_hh_l{k}"] = t(layer["w_hh"]).T.contiguous()
@@ -108,8 +129,8 @@ def export_reference_state_dict(params: Dict, mcfg: ModelConfig
             out[f"{prefix}.bias_hh_l{k}"] = t(layer["b_hh"]).clone()
 
     put_linear("encoder.topic_fc", params["encoder"]["topic_fc"])
-    put_gru("encoder.rnns_image", params["encoder"]["image"])
-    put_gru("encoder.rnns_text", params["encoder"]["text"])
+    put_rnn("encoder.rnns_image", params["encoder"]["image"])
+    put_rnn("encoder.rnns_text", params["encoder"]["text"])
     put_ln("ln_layer1", params["ln_topic"])
     put_ln("ln_layer2", params["ln_image"])
     put_ln("ln_layer3", params["ln_text"])
@@ -237,3 +258,73 @@ def restore_train_state(directory: str, state) -> Tuple[object, int]:
     tree_map(load_into, state.opt_state, raw["opt_state"])
     state.rng.set_state(raw["rng_state"])
     return state._replace(step=int(raw["step"])), int(raw["step"])
+
+
+# safetensors: an 8-byte little-endian header length, a JSON header mapping
+# each name to its dtype, shape and [begin, end) byte offsets into the data
+# that follows (an optional "__metadata__" entry of strings), raw
+# little-endian tensor bytes
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+              "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+              "BOOL": torch.bool}
+_ST_CODES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, as CPU tensors in their
+    stored dtype. Raises ``ValueError`` on a malformed file or a dtype
+    outside F64 / F32 / F16 / BF16 / I64 / I32 / I16 / I8 / U8 / BOOL."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    if len(data) < 8:
+        raise ValueError(f"{path}: too short for a safetensors header")
+    n = int.from_bytes(data[:8], "little")
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header of {n} bytes runs past the file")
+    header = json.loads(bytes(data[8:8 + n]).decode("utf-8"))
+    header.pop("__metadata__", None)
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']!r}, "
+                             f"not one of {sorted(_ST_DTYPES)}")
+        dtype = _ST_DTYPES[info["dtype"]]
+        shape = [int(d) for d in info["shape"]]
+        lo, hi = (int(o) for o in info["data_offsets"])
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        if hi - lo != nbytes or lo < 0 or base + hi > len(data):
+            raise ValueError(f"{path}: {name} {info['dtype']}{shape} does not "
+                             f"fit its offsets [{lo}, {hi})")
+        flat = torch.empty(0, dtype=dtype)
+        if nbytes:  # a copy: aligned, and independent of the file's buffer
+            flat = torch.frombuffer(data, dtype=torch.uint8, count=nbytes,
+                                    offset=base + lo).clone().view(dtype)
+        out[name] = flat.reshape(shape)
+    return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (names sorted, each contiguous on the CPU) as one
+    ``.safetensors`` file that :func:`read_safetensors` and the
+    ``safetensors`` package read."""
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        if t.dtype not in _ST_CODES:
+            raise ValueError(f"write_safetensors: {name} has dtype {t.dtype}")
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    os.replace(tmp, path)

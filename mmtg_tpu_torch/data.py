@@ -1,6 +1,8 @@
 """Data pipeline: pkl samples → packed, device-ready arrays (the port's own
-copy of :mod:`mmtg_tpu.data`; the C++ row packer is not ported, rows are
-framed in Python).
+copy of :mod:`mmtg_tpu.data`). The token columns come from one threaded
+call of the C++ row packer (``wp_pack_rows``, :mod:`mmtg_tpu_torch.native`)
+when the tokenizer's C++ fast path is loaded and the corpus fits the fixed
+22-token grid, else from the Python framing below — bit for bit the same.
 
 Reimplements the reference dataset semantics (``MyDataset.py:14-118``) with
 a columnar layout: instead of per-item Python assembly feeding a torch
@@ -172,18 +174,41 @@ class MMTGDataset:
         # and ``_ARRAY_KEYS`` exclude it).
         self.scores = np.full((n, seq_len), np.nan, np.float32)
 
+        # Token columns: one threaded native call when the C++ WordPiece
+        # tokenizer is loaded and the corpus matches the reference framing
+        # contract (2 sentences a step: the fixed 22-token grid; no NUL,
+        # where a C string ends); otherwise the per-sample Python framing.
+        native = getattr(tokenizer, "native", None)
+        packed = (
+            n > 0 and hasattr(native, "pack_rows")
+            and all(len(item["lyrics"]) == 2 * seq_len for item in raw)
+            and cfg.target_length == 2 * seq_len * (cfg.max_sent_length + 2) + 1
+            and not any("\0" in s for item in raw
+                        for s in (item["topic"], *item["lyrics"])))
+        if packed:
+            cols.update(native.pack_rows(
+                [item["topic"] for item in raw],
+                [list(item["lyrics"]) for item in raw],
+                topic_len=cfg.topic_prompt_length,
+                max_sent=cfg.max_sent_length,
+                pad_id=tokenizer.pad_token_id,
+                start_id=tokenizer.convert_tokens_to_ids("[#START#]"),
+                eos_id=tokenizer.convert_tokens_to_ids("[#EOS#]"),
+                sep_id=tokenizer.sep_token_id))
+
         for i, item in enumerate(raw):
             for k in range(seq_len):
                 if f"score_{k}" in item:
                     self.scores[i, k] = float(item[f"score_{k}"])
-            tids, tmask, ttype = encode_topic(tokenizer, item["topic"], cfg)
-            lids, lmask, ltype = encode_lyrics(tokenizer, item["lyrics"], cfg)
-            cols["topic_ids"][i] = tids
-            cols["tpw_attention_mask"][i] = tmask
-            cols["tpw_type_ids"][i] = ttype
-            cols["targets"][i] = lids
-            cols["attention_mask"][i] = lmask
-            cols["type_ids"][i] = ltype
+            if not packed:
+                tids, tmask, ttype = encode_topic(tokenizer, item["topic"], cfg)
+                lids, lmask, ltype = encode_lyrics(tokenizer, item["lyrics"], cfg)
+                cols["topic_ids"][i] = tids
+                cols["tpw_attention_mask"][i] = tmask
+                cols["tpw_type_ids"][i] = ttype
+                cols["targets"][i] = lids
+                cols["attention_mask"][i] = lmask
+                cols["type_ids"][i] = ltype
             cols["topic_emb"][i] = np.asarray(item["topic_emb"], np.float32)
             cols["img_embs"][i] = np.stack(
                 [np.asarray(item[f"img_{k}_emb"], np.float32) for k in range(seq_len)]

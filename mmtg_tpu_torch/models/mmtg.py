@@ -1,8 +1,9 @@
 """Top-level MMTG model (:mod:`mmtg_tpu.models.mmtg`): encoder → LN →
 alpha ×2 → beta, the WenLan gather, the fused-window addition, the
-2048→512→768 projector, the type-id schemes, and the teacher-forced train
+2048→512→768 projector, the type-id schemes, the teacher-forced train
 forwards :func:`mmtg_forward_train` and, over packed rows,
-:func:`mmtg_forward_train_packed`."""
+:func:`mmtg_forward_train_packed`, and the no-cache inference forward
+:func:`mmtg_forward_infer`."""
 
 from __future__ import annotations
 
@@ -220,3 +221,44 @@ def mmtg_forward_train_packed(
     if not lm_head:
         return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)
     return MMTGOutput(logits=out, kl_per_sample=kl, lm_loss=None)
+
+
+def mmtg_forward_infer(
+    params: Dict,
+    const: Dict,
+    mcfg: ModelConfig,
+    dcfg: DataConfig,
+    batch: Dict[str, torch.Tensor],
+    type_id_scheme: str = "train",
+    attn_impl: str = "auto",
+) -> MMTGOutput:
+    """Non-cached inference forward over a (possibly partial) target prefix
+    ``batch["targets"]`` ``[B, K]`` (:func:`mmtg_tpu.models.mmtg.mmtg_forward_infer`):
+    the oracle that cached generation is held against, and the no-cache
+    baseline a benchmark times.
+
+    Type ids (``"train"`` or ``"reference_infer"`` scheme) and the targets'
+    pad mask are computed per row, vectorised. The GPT-2 stack runs with no
+    cache and no dropout through ``attn_impl`` (``"auto"``: the train
+    attention kernel's forward on the sequence padded to a multiple of 128
+    for CUDA tensors, its plain version on the CPU; ``"plain"``: the plain
+    version). Returns logits ``[B, 15 + K, V]`` and the alpha KL."""
+    fused, kl = encode_experiences(params, mcfg, batch["topic_emb"],
+                                   batch["img_embs"], batch["r_embs"])
+    targets = batch["targets"]
+    embeds = decoder_input_embeds(params, const["wenlan_table"], dcfg, fused,
+                                  batch["topic_ids"], targets)
+    scheme = (infer_scheme_type_ids if type_id_scheme == "reference_infer"
+              else train_scheme_type_ids)
+    positions = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    tgt_types = scheme(positions, targets, dcfg)
+    tgt_mask = (targets != SPECIAL.pad_id).to(torch.int32)
+    type_ids = torch.cat([batch["tpw_type_ids"].to(torch.int32), tgt_types], dim=1)
+    attn_mask = torch.cat([batch["tpw_attention_mask"].to(torch.int32), tgt_mask],
+                          dim=1)
+    L = embeds.shape[1]
+    logits, _ = gpt2_forward(
+        params["gpt2"], mcfg.gpt2, embeds,
+        torch.arange(L, device=embeds.device)[None, :], type_ids.long(),
+        attn_mask, deterministic=True, attn_impl=attn_impl)
+    return MMTGOutput(logits=logits, kl_per_sample=kl, lm_loss=None)

@@ -1,7 +1,7 @@
 """A counter-based PRNG in torch integer ops: JAX's threefry2x32, bit for bit.
 
 What ``jax.random`` does for the JAX engine, for the port: ``PRNGKey``,
-``fold_in``, the random bits, and the uniform / Gumbel / categorical draws
+``fold_in``, ``split``, the random bits, and the uniform / Gumbel / categorical draws
 behind ``jax.random.categorical`` — so that a decode keyed per row
 (``row_seeds``) samples the JAX engine's tokens, and a row's stream depends
 on nothing batch-shaped (a ``torch.Generator`` is one stream for the whole
@@ -61,6 +61,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack([o1, o2], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one key ``[2]``: keys ``[num, 2]``.
+    In the partitionable variant key ``i`` is ``threefry2x32(key, (0, i))``,
+    which is ``fold_in(key, i)``."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -1,13 +1,19 @@
-"""GRU scan with torch-exact numerics (:func:`mmtg_tpu.ops.rnn.rnn_forward`).
+"""Recurrent cells with torch-exact numerics (:func:`mmtg_tpu.ops.rnn.rnn_forward`).
 
-Params keep the JAX package's layout: ``{"layers": [{"w_ih": [in, 3H],
-"w_hh": [H, 3H], "b_ih": [3H], "b_hh": [3H]}, ...]}`` (``x @ W``
-orientation). Gates are stacked [r, z, n];
-``n = tanh(Wx + b_in + r * (Uh + b_hn))`` — the hidden bias sits inside the
-reset product, as in ``torch.nn.GRU``. Differentiable under autograd (the
-train step runs this scan, as the JAX package does). Inter-layer dropout only
-(torch semantics: between layers when there are several; the reference's
-single-layer GRUs see none). The LSTM / RNN cells are not ported yet.
+Params keep the JAX package's layout: ``{"layers": [{"w_ih": [in, G·H],
+"w_hh": [H, G·H], "b_ih": [G·H], "b_hh": [G·H]}, ...]}`` (``x @ W``
+orientation; ``G`` gates: 3 for GRU, 4 for LSTM, 1 for RNN), so a reference
+``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` state dict imports by a transpose:
+
+  * GRU gates stacked [r, z, n]; ``n = tanh(Wx + b_in + r * (Uh + b_hn))`` —
+    the hidden bias sits inside the reset product, as in ``torch.nn.GRU``.
+  * LSTM gates stacked [i, f, g, o]; ``c' = σ(f)·c + σ(i)·tanh(g)``,
+    ``h' = σ(o)·tanh(c')``.
+  * RNN(relu): ``h' = relu(Wx + b_ih + Uh + b_hh)``.
+
+Differentiable under autograd (the train step runs this scan, as the JAX
+package does). Inter-layer dropout only (torch semantics: between layers
+when there are several; the reference's single-layer channels see none).
 """
 
 from __future__ import annotations
@@ -16,34 +22,56 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+GATES = {"RNN": 1, "GRU": 3, "LSTM": 4}
+
+
+def _gru_step(xp, h, c, w, b):
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    hr, hz, hn = (h @ w + b).chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h, c
+
+
+def _lstm_step(xp, h, c, w, b):
+    i, f, g, o = (xp + h @ w + b).chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _relu_step(xp, h, c, w, b):
+    return torch.relu(xp + h @ w + b), c
+
+
+_STEPS = {"GRU": _gru_step, "LSTM": _lstm_step, "RNN": _relu_step}
+
 
 def rnn_forward(params: Dict[str, List[Dict[str, torch.Tensor]]],
                 x: torch.Tensor, kind: str = "GRU",
                 dropout_rate: float = 0.0,
                 dropout_gen: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a (multi-layer) GRU stack over ``x`` ``[T, B, in]`` in x's
-    dtype. Returns (outputs ``[T, B, H]``, final hidden ``[layers, B, H]``).
-    With ``dropout_gen`` (a generator on any device: it only draws the
-    mask's seed) and ``dropout_rate > 0`` the outputs between layers are
-    dropped out."""
-    if kind != "GRU":
-        raise NotImplementedError(f"rnn kind {kind!r}: only GRU is ported")
+    """Run a (multi-layer) ``kind`` stack (``"GRU"``, ``"LSTM"`` or
+    ``"RNN"``) over ``x`` ``[T, B, in]`` in x's dtype. Returns (outputs
+    ``[T, B, H]``, final hidden ``[layers, B, H]``; for an LSTM the final
+    h's, not the c's). With ``dropout_gen`` (a generator on any device: it
+    only draws the mask's seed) and ``dropout_rate > 0`` the outputs between
+    layers are dropped out."""
+    if kind not in _STEPS:
+        raise ValueError(f"unknown rnn kind: {kind!r} (one of {sorted(_STEPS)})")
+    step = _STEPS[kind]
     finals = []
     out = x
     n_layers = len(params["layers"])
     for li, lp in enumerate(params["layers"]):
         H = lp["w_hh"].shape[0]
-        x_proj = out @ lp["w_ih"] + lp["b_ih"]  # [T, B, 3H], one matmul
+        x_proj = out @ lp["w_ih"] + lp["b_ih"]  # [T, B, G·H], one matmul
         h = torch.zeros(x.shape[1], H, dtype=x.dtype, device=x.device)
+        c = torch.zeros_like(h)
         ys = []
         for t in range(x_proj.shape[0]):
-            xr, xz, xn = x_proj[t].split(H, dim=-1)
-            hr, hz, hn = (h @ lp["w_hh"] + lp["b_hh"]).split(H, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
-            n = torch.tanh(xn + r * hn)
-            h = (1.0 - z) * n + z * h
+            h, c = step(x_proj[t], h, c, lp["w_hh"], lp["b_hh"])
             ys.append(h)
         finals.append(h)
         out = torch.stack(ys)

@@ -3,8 +3,9 @@ pytree (parameters and AdamW moments), a seeded initializer for machines
 without JAX, and the small tree helpers the trainer uses.
 
 The tree is the JAX package's own (``mmtg_tpu.models.mmtg.init_mmtg_params``):
-nested dicts (and the GRU ``layers`` list) of tensors, stacked ``[L, ...]``
-GPT-2 layers, ``x @ W`` weights (``w_ih`` is ``[in, 3H]``). So the bridge is
+nested dicts (and the recurrent channels' ``layers`` list) of tensors,
+stacked ``[L, ...]`` GPT-2 layers, ``x @ W`` weights (a GRU's ``w_ih`` is
+``[in, 3H]``). So the bridge is
 a copy, leaf for leaf.
 """
 
@@ -95,24 +96,50 @@ class _Init:
         q = q[:rows, :cols] if rows >= cols else q.T[:rows, :cols]
         return q.T.contiguous()
 
-    def gru(self, input_dim, hidden, num_layers):
-        """torch-default GRU init with the reference's layer-0 overrides
-        (Xavier-normal ``w_ih``, orthogonal ``w_hh``)."""
+    def rnn(self, kind, input_dim, hidden, num_layers):
+        """torch-default ``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN`` init
+        (U(-1/√H, 1/√H)) with the reference's layer-0 overrides
+        (Xavier-normal ``w_ih``, orthogonal ``w_hh`` over the torch-shaped
+        ``[gates·H, H]`` matrix)."""
+        from mmtg_tpu_torch.ops.rnn import GATES
+
+        G = GATES[kind] * hidden
         bound = 1.0 / math.sqrt(hidden)
         layers = []
         for layer in range(num_layers):
             in_dim = input_dim if layer == 0 else hidden
             if layer == 0:
-                w_ih = self.normal((in_dim, 3 * hidden),
-                                   math.sqrt(2.0 / (3 * hidden + in_dim)))
-                w_hh = self.orthogonal(3 * hidden, hidden)
+                w_ih = self.normal((in_dim, G), math.sqrt(2.0 / (G + in_dim)))
+                w_hh = self.orthogonal(G, hidden)
             else:
-                w_ih = self.uniform((in_dim, 3 * hidden), bound)
-                w_hh = self.uniform((hidden, 3 * hidden), bound)
+                w_ih = self.uniform((in_dim, G), bound)
+                w_hh = self.uniform((hidden, G), bound)
             layers.append({"w_ih": w_ih, "w_hh": w_hh,
-                           "b_ih": self.uniform((3 * hidden,), bound),
-                           "b_hh": self.uniform((3 * hidden,), bound)})
+                           "b_ih": self.uniform((G,), bound),
+                           "b_hh": self.uniform((G,), bound)})
         return {"layers": layers}
+
+    def trm(self, input_dim, D):
+        """The TRM channel's tree (``mmtg_tpu.models.encoder._init_trm_channel``):
+        a pre-LN transformer block over the experience steps, N(0, 0.02)
+        weights, zero biases, a 32-row position table."""
+        nrm = lambda *shape: self.normal(shape, 0.02)  # noqa: E731
+        return {
+            "in_proj": self.linear(input_dim, D),
+            "pos": nrm(32, D),
+            "ln1_g": torch.ones(D), "ln1_b": torch.zeros(D),
+            "qkv_w": nrm(D, 3 * D), "qkv_b": torch.zeros(3 * D),
+            "proj_w": nrm(D, D), "proj_b": torch.zeros(D),
+            "ln2_g": torch.ones(D), "ln2_b": torch.zeros(D),
+            "fc_w": nrm(D, 4 * D), "fc_b": torch.zeros(4 * D),
+            "out_w": nrm(4 * D, D), "out_b": torch.zeros(D),
+        }
+
+    def channel(self, ch):
+        """One image / text channel's tree for its ``ChannelConfig``."""
+        if ch.type == "TRM":
+            return self.trm(ch.input_dim, ch.hidden_dim)
+        return self.rnn(ch.type, ch.input_dim, ch.hidden_dim, ch.num_layers)
 
 
 def _gpt2_tree(init: _Init, g) -> Dict:
@@ -151,10 +178,7 @@ def init_params(mcfg: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.float32, device="cpu") -> Dict:
     """Seeded random parameters with the shapes and distributions of
     ``mmtg_tpu.models.mmtg.init_mmtg_params`` (not its bits: the draws come
-    from a ``torch.Generator``). GRU channels only."""
-    for ch in (mcfg.image, mcfg.text):
-        if ch.type != "GRU":
-            raise NotImplementedError(f"channel type {ch.type!r} is not ported")
+    from a ``torch.Generator``), for GRU, LSTM, RNN and TRM channels."""
     init = _Init(seed)
     H = mcfg.topic.hidden_dim
     ln = lambda n: {"g": torch.ones(n), "b": torch.zeros(n)}  # noqa: E731
@@ -162,10 +186,8 @@ def init_params(mcfg: ModelConfig, seed: int = 0,
     tree = {
         "encoder": {
             "topic_fc": init.linear(mcfg.topic.input_dim, H, xavier=True),
-            "image": init.gru(mcfg.image.input_dim, mcfg.image.hidden_dim,
-                              mcfg.image.num_layers),
-            "text": init.gru(mcfg.text.input_dim, mcfg.text.hidden_dim,
-                             mcfg.text.num_layers),
+            "image": init.channel(mcfg.image),
+            "text": init.channel(mcfg.text),
         },
         "ln_topic": ln(H),
         "ln_image": ln(H),

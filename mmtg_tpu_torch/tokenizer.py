@@ -1,6 +1,7 @@
-"""Pure-Python BERT-style WordPiece tokenizer (the port's own copy of
-:mod:`mmtg_tpu.tokenizer`; the C++ accelerator is not ported, every call
-takes the Python path).
+"""BERT-style WordPiece tokenizer (the port's own copy of
+:mod:`mmtg_tpu.tokenizer`): pure Python, with the C++ tokenizer of
+``native/wordpiece.cc`` (:mod:`mmtg_tpu_torch.native`) as its fast path for
+``encode`` when a compiler is present — the same ids either way.
 
 Drop-in replacement for the HF ``BertTokenizer`` the reference loads from
 ``vocab.txt`` (reference ``train.py:65``, ``generate.py:185``) — no HF
@@ -81,17 +82,33 @@ class WordPieceTokenizer:
     # -- constructors ------------------------------------------------------
 
     @classmethod
-    def from_file(cls, vocab_path: str, **kw) -> "WordPieceTokenizer":
+    def from_file(cls, vocab_path: str, use_native: bool = True,
+                  **kw) -> "WordPieceTokenizer":
+        """``use_native`` loads the C++ tokenizer of the same file as the
+        fast path (``None`` without a compiler: the Python path)."""
         vocab: Dict[str, int] = {}
         with open(vocab_path, encoding="utf-8") as f:
             for idx, line in enumerate(f):
                 token = line.rstrip("\n")
                 if token:
                     vocab[token] = idx
-        return cls(vocab, **kw)
+        tk = cls(vocab, **kw)
+        if use_native:
+            from mmtg_tpu_torch.native import load_native_tokenizer
+
+            tk.native = load_native_tokenizer(vocab_path)
+        return tk
+
+    # -- fast encode (native when loaded) ----------------------------------
+
+    native = None  # a mmtg_tpu_torch.native.NativeWordPiece, set by from_file
 
     def encode(self, text: str) -> List[int]:
-        """``convert_tokens_to_ids(tokenize(text))``."""
+        """``convert_tokens_to_ids(tokenize(text))``, through the C++
+        tokenizer when it is loaded (and the text holds no NUL, where a C
+        string would end)."""
+        if self.native is not None and "\0" not in text:
+            return self.native.tokenize_to_ids(text)
         return self.convert_tokens_to_ids(self.tokenize(text))
 
     # -- id helpers (HF-compatible surface) --------------------------------

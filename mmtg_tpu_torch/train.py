@@ -20,14 +20,19 @@ through a differentiable cast. The train state is UPDATED IN PLACE by a step
         --val_data_path val.pkl --vocab_path vocab/vocab.txt \\
         --token_emb_path token_id2emb_dict.pkl --save_model --save_path ckpt
 
+``--profile_dir DIR`` writes a ``torch.profiler`` Chrome trace of steps
+10-30 of the first epoch into DIR (:func:`mmtg_tpu_torch.utils.logging.maybe_profile`).
+``--gpt2_ckpt`` reads ``pytorch_model.bin`` and ``model.safetensors``
+snapshots and reference ``.pth`` files.
+
 Not ported yet (the flags exist and raise): meshes (``--mesh_*``),
-``--zero1``, ``--multihost``, ``--profile_dir``; selective remat policies;
-Orbax and safetensors checkpoints.
+``--zero1``, ``--multihost``; selective remat policies; Orbax checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import time
@@ -51,7 +56,12 @@ from mmtg_tpu_torch.models.mmtg import (
     mmtg_forward_train_packed,
 )
 from mmtg_tpu_torch.params import init_params, tree_leaves, tree_map
-from mmtg_tpu_torch.utils.logging import StepTimer, format_time, setup_logger
+from mmtg_tpu_torch.utils.logging import (
+    StepTimer,
+    format_time,
+    maybe_profile,
+    setup_logger,
+)
 
 
 class TrainState(NamedTuple):
@@ -386,7 +396,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="rows per packed step (0 = auto: about the token "
                         "budget of --batch_size parity rows)")
     p.add_argument("--profile_dir", default="", type=str,
-                   help="not ported yet (profiler trace of steps 10-30)")
+                   help="write a torch.profiler trace of steps 10-30 of the "
+                        "first epoch into this directory")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection (fail fast on NaN)")
     p.add_argument("--dtype", default="bfloat16",
@@ -442,12 +453,13 @@ def parse_curriculums(s: str) -> Tuple[int, int]:
 def load_gpt2_ckpt_into(params: Dict, path: str, mcfg: ModelConfig) -> None:
     """Initialize ``params["gpt2"]`` (and, when present, the projectors)
     from ``--gpt2_ckpt``: a raw HF model directory holding
-    ``pytorch_model.bin``, or a torch ``.pth`` / ``.ckpt`` file — the
-    reference's phase-1 ``GPT2_Decoder`` state dict (``gpt2.``-prefixed +
-    projectors, optionally ``state_dict``-wrapped) or a raw HF
+    ``pytorch_model.bin`` (read first when both are there, as in the JAX
+    package) or ``model.safetensors``, or a torch ``.pth`` / ``.ckpt`` file
+    — the reference's phase-1 ``GPT2_Decoder`` state dict (``gpt2.``-prefixed
+    + projectors, optionally ``state_dict``-wrapped) or a raw HF
     ``GPT2LMHeadModel`` state dict (``transformer.``-prefixed). Orbax
-    directories and ``model.safetensors`` are not ported yet."""
-    from mmtg_tpu_torch.checkpoint import strip_prefix
+    directories are not ported yet."""
+    from mmtg_tpu_torch.checkpoint import read_safetensors, strip_prefix
     from mmtg_tpu_torch.models.gpt2 import import_hf_gpt2
 
     def checked(gpt2):
@@ -461,12 +473,20 @@ def load_gpt2_ckpt_into(params: Dict, path: str, mcfg: ModelConfig) -> None:
 
     if os.path.isdir(path):
         hf_bin = os.path.join(path, "pytorch_model.bin")
-        if not os.path.exists(hf_bin):
+        hf_st = os.path.join(path, "model.safetensors")
+        if os.path.exists(hf_bin):
+            raw = torch.load(hf_bin, map_location="cpu", weights_only=False)
+        elif os.path.exists(hf_st):
+            raw = read_safetensors(hf_st)
+        else:
             raise NotImplementedError(
-                f"--gpt2_ckpt {path}: only directories holding "
-                "pytorch_model.bin load in the port (Orbax and safetensors "
-                "are not ported yet)")
-        path = hf_bin
+                f"--gpt2_ckpt {path}: a directory must hold pytorch_model.bin "
+                "or model.safetensors (Orbax directories are not ported yet)")
+        raw = strip_prefix(raw)
+        if not any(k.startswith("transformer.") for k in raw):
+            raw = {f"transformer.{k}": v for k, v in raw.items()}  # GPT2Model save
+        params["gpt2"] = checked(import_hf_gpt2(raw, mcfg.gpt2))
+        return
     raw = torch.load(path, map_location="cpu", weights_only=False)
     if "state_dict" in raw:
         raw = raw["state_dict"]
@@ -495,7 +515,6 @@ def _reject_unported(args) -> None:
         ("--mesh_pipe", args.mesh_pipe != 1),
         ("--zero1", args.zero1),
         ("--multihost", args.multihost),
-        ("--profile_dir", bool(args.profile_dir)),
     ]
     for flag, used in unported:
         if used:
@@ -645,13 +664,19 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
         logger.info("Epoch %d/%d (stage %d)", epoch + 1, tcfg.epochs, stage)
 
         avg_loss, seen_steps, kept_total = 0.0, 0, 0.0
+        trace = contextlib.ExitStack()  # steps 10-30 of the first epoch
         for step, batch in enumerate(batch_iter):
             tb = _to_device(batch, device)
+            if args.profile_dir and epoch == 0 and step == 10:
+                trace.enter_context(maybe_profile(args.profile_dir))
+                logger.info("Tracing steps 10-30 into %s", args.profile_dir)
             timer.start()
             state, metrics = train_step(state, const, tb, stage)
             avg_loss += float(metrics["loss"])  # waits for the device
             kept_total += float(metrics["kept"])
             timer.stop()
+            if step == 30:
+                trace.close()
             seen_steps += 1
             if step > 0 and (step + 1) % tcfg.log_interval == 0:
                 logger.info(
@@ -672,6 +697,7 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
                     if args.save_model and args.save_path:
                         _save(args.save_path, state, "best_val", logger)
 
+        trace.close()  # an epoch of fewer than 31 steps: trace what ran
         val_loss, _ = evaluate(eval_step, state.params, const, valid_data, vbs,
                                stage, device)
         logger.info("End eval of epoch %d. Val. Loss: %.4f", epoch + 1, val_loss)

@@ -5,11 +5,14 @@ Keeps the reference's observability surface (CLI-selected log file with
 step/val logs — ``train.py:58-63``, ``utils.py:13-20``) and adds per-step
 wall-time and samples/sec counters. :class:`StepTimer` waits for the CUDA
 device before it reads the clock, so a step's time includes its kernels.
+:func:`maybe_profile` is the ``torch.profiler`` trace hook.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from typing import Optional
 
@@ -86,3 +89,28 @@ class StepTimer:
             return 0.0
         avg = sum(self.times) / len(self.times)
         return units_per_step / avg
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str]):
+    """``torch.profiler`` trace of the enclosed work (host ops, and the CUDA
+    kernels when a card is present), written on exit as a Chrome / Perfetto
+    trace ``<trace_dir>/trace_<pid>_<ns>.json``; a no-op for an empty
+    ``trace_dir``."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()  # the kernels of the traced work
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

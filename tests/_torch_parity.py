@@ -90,11 +90,12 @@ def _params_and_table(mcfg, dcfg, rng):
     return jax.tree.unflatten(treedef, leaves), table
 
 
-def make_train_setup(tokenizer, n=4, seed=11, ratings=None):
+def make_train_setup(tokenizer, n=4, seed=11, ratings=None, mcfg=None):
     """One train batch (``make_synthetic_records`` through ``MMTGDataset``,
     ids folded into the tiny vocab) and one parameter tree, for both
-    packages."""
-    mcfg, dcfg = train_configs()
+    packages; ``mcfg`` (the JAX package's) replaces the train-slice model."""
+    tiny, dcfg = train_configs()
+    mcfg = mcfg or tiny
     rng = np.random.default_rng(seed)
     records = make_synthetic_records(n, rng, emb_size=dcfg.wenlan_emb_size)
     if ratings is not None:

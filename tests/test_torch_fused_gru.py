@@ -63,6 +63,14 @@ def test_fused_gru_bf16_keeps_f32_state():
 
 
 def test_other_cells_are_not_ported():
-    p, x = _setup(2)
-    with pytest.raises(NotImplementedError):
-        rnn_forward(from_jax_numpy(p), torch.from_numpy(x), "LSTM")
+    """The LSTM and RNN(relu) cells are ported since (test_torch_rnn.py holds
+    them to JAX in full): here they run beside the GRU on the same inputs
+    and equal the JAX scan; a kind that names no cell raises."""
+    _, x = _setup(2)
+    for kind in ("LSTM", "RNN"):
+        p = init_rnn_params(jax.random.PRNGKey(1), kind, I, H, 1)
+        ref, _ = jax_rnn_forward(p, jnp.asarray(x), kind)
+        out, _ = rnn_forward(from_jax_numpy(p), torch.from_numpy(x), kind)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    with pytest.raises(ValueError, match="unknown rnn kind"):
+        rnn_forward(from_jax_numpy(_setup(2)[0]), torch.from_numpy(x), "TRM")

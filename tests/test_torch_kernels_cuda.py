@@ -676,3 +676,89 @@ def test_train_attention_long_rows_dqkv_is_reproducible(cuda, dtype):
         runs.append((ctx, torch.autograd.grad((ctx * co).sum(), a)[0]))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", [1, 64])
+def test_fused_gru_at_the_english_input_width(cuda, dtype, tol, B):
+    """The English variant's channels: CLIP input width 512, H=512 (the
+    input projection is outside the kernel, which checks only H)."""
+    T, I, H = 5, 512, 512
+    x = torch.randn(T, B, I, generator=cuda, device="cuda").to(dtype)
+    w_ih = (torch.randn(I, 3 * H, generator=cuda, device="cuda") * I ** -0.5).to(dtype)
+    w_hh = (torch.randn(H, 3 * H, generator=cuda, device="cuda") * H ** -0.5).to(dtype)
+    b_ih, b_hh = ((torch.randn(3 * H, generator=cuda, device="cuda") * 0.1).to(dtype)
+                  for _ in range(2))
+    before = fg.fused_gru.launches
+    out = fg.fused_gru(x, w_ih, w_hh, b_ih, b_hh)
+    ref = fg.fused_gru_plain(x, w_ih, w_hh, b_ih, b_hh)
+    torch.cuda.synchronize()
+    assert fg.fused_gru.launches == before + 1
+    assert out.dtype == dtype and out.shape == (T, B, H)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T_real", [16, 17, 100, 127, 128, 129, 200, 236, 237])
+def test_mha_train_packed_forward_over_infer_prefixes(cuda, dtype, tol, T_real):
+    """mmtg_forward_infer's shapes: the topic prompt plus a target prefix of
+    any length (16..237 tokens), padded to a multiple of 128 with -1e30 key
+    bias on the pad; forward only (no gradient), 12 heads of 64, no
+    dropout: one forward launch, the real rows within tolerance of the plain
+    version."""
+    B, H, hd = 2, 12, 64
+    Tp = (T_real + 127) // 128 * 128
+    qkv, qb, _, _, seed = _train_attention_case(cuda, B, Tp, H, hd, dtype)
+    bias = torch.zeros(B, Tp, device="cuda")
+    bias[:, T_real:] = ta.NEG_INF
+    bias[1, 3:5] = ta.NEG_INF  # PAD slots inside a topic prompt
+    before = (ta.mha_train_packed.fwd_launches, ta.mha_train_packed.bwd_launches)
+    with torch.no_grad():
+        out = ta.mha_train_packed(qkv, qb, bias, seed, H, 0.0, hd ** -0.5)
+        ref = ta.mha_train_packed_plain(qkv, qb, bias, seed, H, 0.0, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert (ta.mha_train_packed.fwd_launches, ta.mha_train_packed.bwd_launches) == (
+        before[0] + 1, before[1])
+    assert out.dtype == dtype and out.shape == (B, Tp, H * hd)
+    assert (out[:, :T_real].float() - ref[:, :T_real].float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("scheme", ["train", "reference_infer"])
+def test_mmtg_forward_infer_kernel_matches_plain(cuda, scheme):
+    """The no-cache inference forward on the card at a small size (2 layers,
+    2 heads of 64), f32: the train-attention kernel's forward and its plain
+    version give the same logits."""
+    from mmtg_tpu_torch.configs import ChannelConfig, DataConfig, GPT2Config, ModelConfig
+    from mmtg_tpu_torch.models.mmtg import mmtg_forward_infer
+    from mmtg_tpu_torch.params import init_params
+
+    mcfg = ModelConfig(
+        topic=ChannelConfig(input_dim=64, hidden_dim=32, type="MLP"),
+        image=ChannelConfig(input_dim=64, hidden_dim=32, type="LSTM"),
+        text=ChannelConfig(input_dim=64, hidden_dim=32, type="TRM"),
+        self_att_hidden_size=32, self_att_heads=4, mm_att_out_dim=64,
+        gpt2=GPT2Config(vocab_size=300, n_positions=256, n_ctx=250, n_embd=128,
+                        n_layer=2, n_head=2))
+    dcfg = DataConfig(wenlan_emb_size=64)
+    params = init_params(mcfg, seed=0, device="cuda")
+    g = cuda
+    B, K = 3, 150
+    batch = {
+        "topic_ids": torch.randint(103, 300, (B, 15), generator=g, device="cuda"),
+        "tpw_attention_mask": torch.ones(B, 15, dtype=torch.int32, device="cuda"),
+        "tpw_type_ids": torch.ones(B, 15, dtype=torch.int32, device="cuda"),
+        "topic_emb": torch.randn(B, 64, generator=g, device="cuda"),
+        "img_embs": torch.randn(B, 5, 64, generator=g, device="cuda"),
+        "r_embs": torch.randn(B, 5, 64, generator=g, device="cuda"),
+        "targets": torch.randint(103, 300, (B, K), generator=g, device="cuda"),
+    }
+    batch["targets"][1, 100:] = 0  # a row padded early
+    table = {"wenlan_table": torch.randn(300, 64, generator=g, device="cuda")}
+    before = ta.mha_train_packed.fwd_launches
+    a = mmtg_forward_infer(params, table, mcfg, dcfg, batch, scheme)
+    assert ta.mha_train_packed.fwd_launches == before + mcfg.gpt2.n_layer
+    b = mmtg_forward_infer(params, table, mcfg, dcfg, batch, scheme, attn_impl="plain")
+    torch.cuda.synchronize()
+    assert ta.mha_train_packed.fwd_launches == before + mcfg.gpt2.n_layer
+    assert a.logits.shape == (B, 15 + K, 300)
+    assert (a.logits - b.logits).abs().max().item() <= 1e-4

@@ -37,7 +37,8 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.pack", "mmtg_tpu_torch.eval",
                  "mmtg_tpu_torch.pretrain", "mmtg_tpu_torch.serve",
                  "mmtg_tpu_torch.ops.prng", "mmtg_tpu_torch.ops.sampling",
-                 "mmtg_tpu_torch.ops.decode_megakernel"):
+                 "mmtg_tpu_torch.ops.decode_megakernel",
+                 "mmtg_tpu_torch.predict", "mmtg_tpu_torch.native"):
         assert name in mods
 
 
@@ -76,7 +77,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             "mmtg_tpu_torch/pretrain.py", "mmtg_tpu_torch/ops/train_attention.py",
             "mmtg_tpu_torch/kernels/_build.py", "chip_smoke.py",
             "mmtg_tpu_torch/serve.py", "mmtg_tpu_torch/ops/prng.py",
-            "mmtg_tpu_torch/ops/decode_megakernel.py"} <= names
+            "mmtg_tpu_torch/ops/decode_megakernel.py",
+            "mmtg_tpu_torch/predict.py", "mmtg_tpu_torch/native.py"} <= names
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _IMPORT.findall(f.read())

@@ -38,6 +38,20 @@ def test_prngkey_and_fold_in_match_jax(seed):
             _words(jax.random.fold_in(jk, jnp.int32(data))))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches_jax(seed):
+    """The REPL's key chain: split, keep the first, draw from the second."""
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for num in (2, 3):
+        np.testing.assert_array_equal(prng.split(tk, num).numpy(),
+                                      _words(jax.random.split(jk, num)))
+    for _ in range(3):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = prng.split(tk)
+        np.testing.assert_array_equal(tsub.numpy(), _words(jsub))
+    np.testing.assert_array_equal(tk.numpy(), _words(jk))
+
+
 @settings(max_examples=40, deadline=None)
 @given(seed=I32, data=I32, n=st.integers(1, 40))
 def test_fold_in_and_bits_match_jax_for_any_seed(seed, data, n):
