@@ -85,8 +85,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
      with the swap probe, two indices; MMTGDataset's token columns through
      the native row packer vs the Python framing, and both framings' rate
      (rows a second) over 4096 rows.
-(Phases 11-14 run after phase 4, phases 15-18 after phase 10.) It then prints
-the kernels' JSON line and, last, the device JSON line.
+ 19. the sharded serving path over torch.distributed, full width, B=64, 220
+     tokens, ranks started as child processes by `python -m
+     torch.distributed.run` (each launch with its own time limit; a failed
+     rank fails the phase) on the cards there are (the backend by the rule
+     of parallel/mesh.py: gloo when ranks share a card): on the meshes
+     (2, 1), (1, 2) and (2, 2), generate_sharded in bf16 and f32 (wall,
+     launches a rank, all-reduces a step and their time, TP ranks' tokens
+     checked equal), an int8 cache and (DP-only) the whole-step kernel on
+     two sentence frames, generate_stream_sharded = generate_sharded token
+     for token, f32 step logits of the sharded decode on forced tokens
+     within 1e-4 of the single-device step, the share of f32 rows equal to
+     single-device generate (reported), and per rank the decode kernels
+     and the GRU at the shard shapes against their plain versions; then
+     `python -m mmtg_tpu_torch.serve` on a (2, 2) mesh under torchrun (f32,
+     buckets 4,8): a window of three one-shot and one streamed request over
+     HTTP, /reload, one more request, each held against generate_sharded on
+     the mesh, SIGTERM to rank 0 and every rank exiting 0.
+(Phases 11-14 run after phase 4, phases 15-18 after phase 10, phase 19 last.)
+It then prints its total time, the card's name and power limit, the
+kernels' JSON line (with each mesh kernel's launches a rank on phase 19's
+meshes) and, last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
 and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
@@ -235,10 +254,10 @@ DECODE_WRAPPERS = (
 )
 
 
-def _attention_case(dtype, kind, gen, B=B_ATT):
+def _attention_case(dtype, kind, gen, B=B_ATT, D=D):
     """q, k_new, v_new, a key mask with holes, and a cache of ``kind`` (fp /
-    int8 / int4 / merged) filled everywhere: (q, k_new, v_new, mask, caches,
-    scales) with caches = [k, v] or [kv]."""
+    int8 / int4 / merged) filled everywhere, ``D`` lanes a row: (q, k_new,
+    v_new, mask, caches, scales) with caches = [k, v] or [kv]."""
     import torch
 
     dev = DEVICE
@@ -260,9 +279,9 @@ def _attention_case(dtype, kind, gen, B=B_ATT):
     return q, k_new, v_new, mask, caches, scales
 
 
-def _decode_calls(da, name, kind, append, q, k_new, v_new, mask):
-    """(kernel call, plain call) of one wrapper, each taking (caches, scales,
-    position, layer)."""
+def _decode_calls(da, name, kind, append, q, k_new, v_new, mask, H=H):
+    """(kernel call, plain call) of one wrapper over ``H`` heads, each taking
+    (caches, scales, position, layer)."""
     kernel = getattr(da, name)
     new = (k_new, v_new) if append else ()
 
@@ -432,18 +451,20 @@ def phase_block_fused(results, gen, B=B_ATT):
     return lines
 
 
-def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen):
+def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen, H=H, D=D,
+                     tag=None):
     """One decode-attention wrapper (the kernel) vs its plain version at
-    batch ``B``: ctx within TOL and the cache and scales bit for bit at every
-    position of POSITIONS; then device times of the kernel, the plain version
-    and (fp cache) one SDPA call at TIMED_POSITION, and the bound. Stores the
-    result under (name, dtype) at B_ATT, else (name, dtype, "B<B>")."""
+    batch ``B``, ``H`` heads of ``D / H`` lanes: ctx within TOL and the
+    cache and scales bit for bit at every position of POSITIONS; then device
+    times of the kernel, the plain version and (fp cache) one SDPA call at
+    TIMED_POSITION, and the bound. Stores the result under (name, dtype) at
+    B_ATT, else (name, dtype, "B<B>"), with ``tag`` appended when given."""
     import torch
 
     dname = str(dtype).split(".")[1]
-    q, k_new, v_new, mask, base_c, base_s = _attention_case(dtype, kind, gen, B)
+    q, k_new, v_new, mask, base_c, base_s = _attention_case(dtype, kind, gen, B, D)
     run_kernel, run_plain = _decode_calls(da, name, kind, append, q, k_new,
-                                          v_new, mask)
+                                          v_new, mask, H)
     err = 0.0
     for pos in POSITIONS:
         layer = pos % L
@@ -505,12 +526,13 @@ def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen):
         nbytes += 2 * B * D * e + 2 * B * row * c
         nbytes += 2 * 4 * B if kind != "fp" else 0
     key = (name, dname) if B == B_ATT else (name, dname, f"B{B}")
+    key += (tag,) if tag else ()
     results[key] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         **bound(nbytes, 4.0 * n_live * D, dname))
     del base_c, base_s, caches, scales
     torch.cuda.empty_cache()
-    return (f"{name}[{dname} B={B}] err {err:.3g} kernel {ms:.4f} ms "
+    return (f"{name}[{dname} B={B} H={H} D={D}] err {err:.3g} kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms library "
             f"{'none' if library_ms is None else format(library_ms, '.4f') + ' ms'}"
             f" bound {results[key]['bound_ms']:.4f} ms")
@@ -909,18 +931,18 @@ def _only(launches, expected, what):
     check(launches == want, f"{what}: launch counts {launches} != {want}")
 
 
-def _check_tokens(toks, mcfg, dcfg, what):
+def _check_tokens(toks, mcfg, dcfg, what, length=LENGTH):
     import torch
 
     from mmtg_tpu_torch.configs import SpecialTokens
     from mmtg_tpu_torch.ops.sampling import frame_forced_token
 
-    check(toks.shape == (toks.shape[0], LENGTH + 1) and toks.dtype == torch.int32,
+    check(toks.shape == (toks.shape[0], length + 1) and toks.dtype == torch.int32,
           f"{what}: tokens {tuple(toks.shape)} {toks.dtype}")
     V = mcfg.gpt2.vocab_size
     check(bool(((toks >= 0) & (toks < V)).all()), f"{what}: token id out of range")
     check(bool((toks[:, 0] == SpecialTokens().start_id).all()), f"{what}: no START")
-    for i in range(LENGTH):
+    for i in range(length):
         forced, fid = frame_forced_token(i, dcfg.sent_frame_length)
         if forced:
             check(bool((toks[:, i + 1] == fid).all()),
@@ -2225,6 +2247,465 @@ def phase_predict(out, gpu, paths, tmp):
           f"first: {lyrics[0][:50]!r}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the sharded serving path over a (data, model) process mesh
+
+MESH_B = 64
+MESH_JOBS = (  # (ranks, meshes) of each torchrun job; every mesh of a job
+    (2, ((2, 1), (1, 2))),  # uses all its ranks
+    (4, ((2, 2),)),
+)
+MESH_RUN_TIMEOUT_S = 480  # one torchrun job, its ranks' start included
+MESH_LOGIT_TOL = 1e-4  # f32 sharded step vs single-device step, max-abs
+AR_REPS = 50
+# the runs that only show a kernel on the mesh path decode two sentence frames
+SHORT_LENGTH = 44
+MESH_JOB_CMD = (os.path.abspath(__file__), "--mesh-job")  # + the spec's path
+
+
+def _mesh_runs(dp, tp):
+    """(what, dtype name, GenerateConfig changes, expected launches a rank)
+    of one mesh: the meshed 'auto' (full-precision cache) in bf16 at full
+    length; at SHORT_LENGTH an explicit int8 cache (DP-only and TP) and the
+    whole-step kernel on the DP-only mesh, where it is in scope."""
+    runs = [("bf16 auto", "bfloat16", {},
+             {"decode_attention_fp_append": 12 * LENGTH, "fused_gru": 2})]
+    if (dp, tp) != (2, 2):
+        runs.append(("bf16 int8 cache", "bfloat16",
+                     dict(cache_dtype="int8", length=SHORT_LENGTH),
+                     {"decode_attention_int8_append": 12 * SHORT_LENGTH,
+                      "fused_gru": 2}))
+    if tp == 1:
+        runs.append(("bf16 fused", "bfloat16",
+                     dict(cache_dtype="int8", weight_dtype="model", attn_impl="fused",
+                          length=SHORT_LENGTH),
+                     {"decode_block_fused": SHORT_LENGTH, "fused_gru": 2}))
+    return runs
+
+
+def _serve_window(samples, seeds, bucket, dtype):
+    """A window as GenerationService._pack makes it: the rows, then pad rows
+    that repeat row 0 with seed 0, up to the bucket; on the card."""
+    import numpy as np
+    import torch
+
+    from mmtg_tpu_torch import serve
+
+    rows = list(samples) + [samples[0]] * (bucket - len(samples))
+    batch = {}
+    for k in serve.SAMPLE_KEYS:
+        arr = np.stack([np.asarray(r[k]) for r in rows])
+        batch[k] = (torch.from_numpy(arr.astype(np.float32)).to(DEVICE, dtype)
+                    if k in ("topic_emb", "img_embs", "r_embs")
+                    else torch.from_numpy(arr.astype(np.int32)).to(DEVICE))
+    seeds = torch.tensor(list(seeds) + [0] * (bucket - len(seeds)), dtype=torch.int32,
+                         device=DEVICE)
+    return batch, seeds
+
+
+def mesh_job(spec_path):
+    """One rank of phase 19, started by torchrun: every run of _mesh_runs on
+    each mesh of the job, f32 against the single-device engine, streamed
+    against one-shot, the all-reduce's time, the decode kernels and the GRU
+    at the shard shapes against their plain versions; with a serve spec,
+    the windows the meshed service will decode. Writes rank<r>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mmtg_tpu_torch import decoding, serve
+    from mmtg_tpu_torch.configs import GenerateConfig
+    from mmtg_tpu_torch.kernels import _build
+    from mmtg_tpu_torch.models import gpt2
+    from mmtg_tpu_torch.ops import decode_attention as da
+    from mmtg_tpu_torch.ops import fused_gru as fg
+    from mmtg_tpu_torch.ops import prng
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = pmesh.init_distributed("cuda")
+    t0 = time.perf_counter()
+    _build.load()  # the library phase 1 built; a rank waits if one is building
+    res = dict(rank=info.rank, world=info.world_size, backend=info.backend,
+               device=str(info.device), load_s=time.perf_counter() - t0, meshes={})
+    inputs = {}
+    for dname in ("bfloat16", "float32"):
+        mcfg, dcfg, params, const, make_batch = _full_width_inputs(
+            getattr(torch, dname), 0)
+        inputs[dname] = (params, const, make_batch(MESH_B))
+    key = prng.PRNGKey(3, device=DEVICE)
+    seeds = torch.arange(MESH_B, dtype=torch.int32, device=DEVICE) * 7 + 1
+    ref = None
+    if info.rank == 0:  # the single-device f32 engine on the global batch
+        params, const, batch = inputs["float32"]
+        # the cache the meshed 'auto' resolves to
+        ref = decoding.generate(params, const, mcfg, dcfg,
+                                GenerateConfig(cache_dtype="model", weight_dtype="auto"),
+                                batch, key, row_seeds=seeds)
+    with torch.no_grad():
+        for j, (dp, tp) in enumerate(spec["meshes"]):
+            mesh = pmesh.make_mesh((dp, tp), info.device)
+            data_group, model_group = pmesh.groups(mesh)
+            rows = pmesh.local_rows(MESH_B, mesh)
+            m = dict(coords=list(pmesh.mesh_coords(mesh)), runs={})
+            if j == 0:  # warm-up (cuBLAS handles, the allocator), untimed
+                for dname in ("bfloat16", "float32"):
+                    params, const, batch = inputs[dname]
+                    decoding.generate_sharded(
+                        params, const, mcfg, dcfg, GenerateConfig(length=22), batch,
+                        key, mesh, row_seeds=seeds)
+            for what, dname, change, expected in _mesh_runs(dp, tp):
+                params, const, batch = inputs[dname]
+                gcfg = GenerateConfig(**{"cache_dtype": "auto", "weight_dtype": "auto",
+                                         **change})
+                torch.cuda.synchronize()
+                dist.barrier()
+                _reset_counts()  # ---- the main path starts here ----------------
+                sums = gpt2.tp_sum.calls
+                t0 = time.perf_counter()
+                toks = decoding.generate_sharded(params, const, mcfg, dcfg, gcfg, batch,
+                                                 key, mesh, row_seeds=seeds)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _counts()  # ---- read just after the main path ------
+                _only(launches, expected, f"phase 19 {dp}x{tp} {what}")
+                _check_tokens(toks, mcfg, dcfg, f"phase 19 {dp}x{tp} {what}",
+                              gcfg.length)
+                m["runs"][what] = dict(wall_s=wall, launches=launches,
+                                       length=gcfg.length,
+                                       all_reduces_per_step=(gpt2.tp_sum.calls - sums)
+                                       / gcfg.length)
+            # f32: the sharded engine, streamed vs one-shot, vs one device
+            params, const, batch = inputs["float32"]
+            gcfg = GenerateConfig(cache_dtype="auto", weight_dtype="auto")
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            toks = decoding.generate_sharded(params, const, mcfg, dcfg, gcfg, batch, key,
+                                             mesh, row_seeds=seeds)
+            torch.cuda.synchronize()
+            m["runs"]["f32 auto"] = dict(wall_s=time.perf_counter() - t0)
+            blocks = list(decoding.generate_stream_sharded(
+                params, const, mcfg, dcfg, gcfg, batch, key, mesh, row_seeds=seeds))
+            check(torch.equal(torch.cat(blocks, 1), toks[:, 1:]),
+                  f"phase 19 {dp}x{tp}: generate_stream_sharded differs from "
+                  "generate_sharded")
+            m["stream_blocks"] = len(blocks)
+            if ref is not None:
+                m["f32_rows_equal_single_device"] = float(
+                    (toks == ref).all(dim=1).float().mean())
+            # the step's f32 logits on the same forced tokens: sharded vs one device
+            local = {k: v[rows] for k, v in batch.items()}
+            forced = toks[rows, :TF_STEPS]
+            g = mcfg.gpt2
+            fp = GenerateConfig(cache_dtype="model", weight_dtype="model")
+            sharded = decoding.teacher_forced_decode_logits(
+                pmesh.shard_decode_params(params, mesh, g.n_head, g.head_dim), const,
+                mcfg, dcfg, fp, local, forced,
+                tp_group=model_group if tp > 1 else None)
+            single = decoding.teacher_forced_decode_logits(params, const, mcfg, dcfg,
+                                                           fp, local, forced)
+            err = (sharded - single).abs().max().item()
+            check(err <= MESH_LOGIT_TOL, f"phase 19 {dp}x{tp}: f32 sharded step logits "
+                  f"{err:.3g} from the single-device step's > {MESH_LOGIT_TOL}")
+            m["f32_logits_max_abs"] = err
+            if tp > 1:  # one all-reduce of the step's [B/dp, 768] partial sum
+                for dname in ("bfloat16", "float32"):
+                    x = torch.randn(MESH_B // dp, 768, device=DEVICE).to(getattr(torch, dname))
+                    for _ in range(5):
+                        dist.all_reduce(x, group=model_group)
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    for _ in range(AR_REPS):
+                        dist.all_reduce(x, group=model_group)
+                    end.record()
+                    end.synchronize()
+                    m[f"all_reduce_ms_{dname}"] = dict(
+                        device=start.elapsed_time(end) / AR_REPS,
+                        host=(time.perf_counter() - t0) * 1e3 / AR_REPS)
+            # the kernels at this rank's shard shapes vs their plain versions
+            gen = torch.Generator(device=DEVICE).manual_seed(19)
+            results, lines = {}, []
+            for name, kind in (("decode_attention_fp_append", "fp"),
+                               ("decode_attention_int8_append", "int8")):
+                for dtype in (torch.bfloat16, torch.float32):
+                    lines.append(_decode_vs_plain(results, da, name, kind, True, dtype,
+                                                  MESH_B // dp, gen, H=12 // tp,
+                                                  D=768 // tp, tag=f"H{12 // tp}"))
+            for dtype in (torch.bfloat16, torch.float32):
+                lines.append(_gru_vs_plain(results, fg, dtype, MESH_B // dp, gen))
+            m["kernels"] = {"|".join(k): v for k, v in results.items()}
+            m["kernel_lines"] = lines
+            res["meshes"][f"{dp}x{tp}"] = m
+            dist.barrier()
+        serve_spec = spec.get("serve")
+        if serve_spec:  # the windows the meshed service will decode, same mesh
+            s = serve._serving_setup(serve.build_arg_parser().parse_args(
+                serve_spec["argv"]), mcfg, dcfg)
+            gcfg = serve._service_gcfg(s["gcfg"], s["buckets"], meshed=True)
+            samples = [dict(np.load(p)) for p in serve_spec["samples"]]
+            res["serve_windows"] = {}
+            for name, idx, wseeds in serve_spec["windows"]:
+                batch, wseeds = _serve_window([samples[i] for i in idx], wseeds,
+                                              serve_spec["bucket"],
+                                              s["const"]["wenlan_table"].dtype)
+                toks = decoding.generate_sharded(
+                    s["params"], s["const"], mcfg, dcfg, gcfg, batch,
+                    prng.PRNGKey(serve_spec["seed"], device=DEVICE), s["mesh"],
+                    row_seeds=wseeds)
+                res["serve_windows"][name] = toks[:len(idx)].cpu().tolist()
+    with open(os.path.join(spec["out"], f"rank{info.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _stop_torchrun(proc, grace_s=60.0):
+    """End a ``torchrun`` and its ranks. SIGTERM first: the launcher starts
+    each rank in a session of its own and stops them itself on SIGTERM,
+    while a SIGKILL to it would leave them running."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(grace_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(grace_s)
+
+
+def _torchrun(nproc, args, timeout, cwd):
+    """``python -m torch.distributed.run --standalone`` of ``args`` (a
+    script or ``-m module`` and its flags) with ``nproc`` ranks; raises with
+    the end of the output when a rank fails or the time runs out (the
+    launcher and its ranks then stopped)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop_torchrun(proc)
+        raise
+    check(proc.returncode == 0, f"torchrun {' '.join(args[:2])} ... exited "
+          f"{proc.returncode}:\n{stdout[-4000:]}\n{stderr[-8000:]}")
+
+
+SERVE_SEED, SERVE_BUCKETS = 5, "4,8"
+# the service's first window: (sample, seed) of three one-shot requests and,
+# last, a streamed one
+SERVE_WINDOW = ([0, 1, 2, 4], [40, 41, 42, 77])
+SERVE_CMD = ("-m", "mmtg_tpu_torch.serve")
+
+
+def _mesh_serve(out, paths, tmp, samples, want, model):
+    """``python -m mmtg_tpu_torch.serve`` on a (2, 2) mesh under torchrun,
+    default device (the card): four requests over HTTP on a local port that
+    share one window — three one-shot, one streamed — then a /reload and one
+    more request, each held against generate_sharded on the same mesh with
+    the same seeds (``want``: the window as the service packs it); then
+    SIGTERM to rank 0, which stops its followers, and every rank exits 0."""
+    import json as _json
+    import queue
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mmtg_tpu_torch import serve
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "4", *SERVE_CMD,
+           *_serve_argv(paths, model), "--mesh_data", "2", "--mesh_model", "2",
+           "--port", "0", "--no_warmup"]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    log = []
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+
+    def post(path, body, ctype=serve.NPZ_CONTENT_TYPE):
+        req = urllib.request.Request(f"http://localhost:{port}{path}", data=body,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        port = pid = None
+        deadline = time.monotonic() + MESH_RUN_TIMEOUT_S
+        while port is None:
+            line = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+            log.append(line)
+            found = re.search(r"Serving on http://\S+:(\d+) .*pid (\d+)", line)
+            if found:
+                port, pid = int(found.group(1)), int(found.group(2))
+        up_s = time.perf_counter() - t_start
+        got, took = [None] * 4, [None] * 4
+
+        def request(i):
+            t = time.perf_counter()
+            path = "/generate" if i < 3 else "/generate_stream"
+            got[i] = post(path, serve.encode_request_npz(
+                samples[SERVE_WINDOW[0][i]], seed=SERVE_WINDOW[1][i]))
+            took[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(4)]
+        for t in threads:  # in the window's row order, inside max_wait_ms
+            t.start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(300)
+        window_s = max(took)
+        raw = got[3]
+        got = [_json.loads(g) for g in got[:3]]
+        events = [_json.loads(ev[len("data: "):]) for ev in raw.decode().split("\n\n")
+                  if ev.startswith("data: ")]
+        check(events[-1].get("done") is True and events[-1]["tokens_total"] == LENGTH,
+              f"phase 19 serve stream: last event {events[-1]}")
+        streamed = [t for ev in events[:-1] for t in ev["tokens"]]
+        check(_json.loads(post("/reload", _json.dumps({"model_path": model}).encode(),
+                               "application/json"))["ok"] is True, "phase 19 /reload")
+        again = _json.loads(post("/generate", serve.encode_request_npz(samples[0], seed=40)))
+        for i in range(3):
+            check(got[i]["tokens"] == want[i], f"phase 19 serve: response {i} differs "
+                  "from generate_sharded with the same seeds on the same mesh")
+        check(streamed == want[3][1:], "phase 19 serve: the streamed response differs "
+              "from generate_sharded with the same seed")
+        check(again["tokens"] == want[0], "phase 19 serve: after /reload the response "
+              "differs from generate_sharded")
+        os.kill(pid, signal.SIGTERM)  # rank 0 drains and stops its followers
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"phase 19 serve: torchrun exited {rc}")
+    finally:
+        _stop_torchrun(proc)
+        reader.join(60)
+        while not lines.empty():
+            log.append(lines.get())
+        with open(os.path.join(tmp, "mesh_serve.log"), "w") as f:
+            f.writelines(log)
+    stopped = [ln for ln in log if re.search(r"Follower rank \d stopped after \d+ windows", ln)]
+    check(len(stopped) == 3, "phase 19 serve: not every follower stopped:\n"
+          + "".join(log[-40:]))
+    backend = next((re.search(r"backend (\w+)", ln).group(1) for ln in log
+                    if "backend" in ln), "?")
+    return dict(up_s=up_s, window_of_4_s=window_s, stream_s=took[3], backend=backend,
+                followers=[ln[ln.index("Follower"):].strip() for ln in stopped])
+
+
+def _serve_argv(paths, model):
+    return ["--model_path", model, "--tokenizer_path", paths["vocab"],
+            "--token_emb_path", paths["emb"], "--buckets", SERVE_BUCKETS,
+            "--max_wait_ms", "500", "--seed", str(SERVE_SEED)]
+
+
+def phase_mesh(out, gpu, paths, tmp):
+    """Phase 19: the sharded serving path (see the module docstring)."""
+    import numpy as np
+
+    from mmtg_tpu_torch import serve
+    from mmtg_tpu_torch.data import MMTGDataset, make_synthetic_records
+    from mmtg_tpu_torch.tokenizer import WordPieceTokenizer
+
+    import torch
+
+    here = os.path.abspath(__file__)
+    mcfg, dcfg = model_configs()
+    t_phase = time.perf_counter()
+    model = _reference_checkpoint(tmp)
+    records = make_synthetic_records(5, np.random.default_rng(3),
+                                     emb_size=dcfg.wenlan_emb_size)
+    for r in records:
+        r.pop("rating")
+    ds = MMTGDataset.from_records(records, WordPieceTokenizer.from_file(paths["vocab"]),
+                                  dcfg, if_train=False)
+    samples = [{k: np.asarray(ds[i][k]) for k in serve.SAMPLE_KEYS} for i in range(5)]
+    sample_files = []
+    for i, smp in enumerate(samples):
+        sample_files.append(os.path.join(tmp, f"mesh_sample{i}.npz"))
+        np.savez(sample_files[-1], **smp)
+    ranks, meshes, lines = {}, {}, []
+    for nproc, job_meshes in MESH_JOBS:
+        job_dir = os.path.join(tmp, f"mesh_job{nproc}")
+        os.makedirs(job_dir, exist_ok=True)
+        spec = dict(meshes=[list(m) for m in job_meshes], out=job_dir)
+        if (2, 2) in job_meshes:  # the service's window of bucket 4
+            spec["serve"] = dict(
+                argv=_serve_argv(paths, model) + ["--mesh_data", "2", "--mesh_model", "2"],
+                samples=sample_files, bucket=4, seed=SERVE_SEED,
+                windows=[("window", *SERVE_WINDOW)])
+        spec_path = os.path.join(job_dir, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        _torchrun(nproc, [*MESH_JOB_CMD, spec_path], MESH_RUN_TIMEOUT_S,
+                  os.path.dirname(here))
+        job_s = time.perf_counter() - t0
+        got = []
+        for r in range(nproc):
+            with open(os.path.join(job_dir, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        ranks[nproc] = got
+        for dp, tp in job_meshes:
+            name = f"{dp}x{tp}"
+            per_rank = [g["meshes"][name] for g in got]
+            m = dict(per_rank[0], job_s=job_s, backend=got[0]["backend"],
+                     load_s=[g["load_s"] for g in got])
+            for what in m["runs"]:
+                if "launches" in m["runs"][what]:
+                    for pr in per_rank[1:]:
+                        check(pr["runs"][what]["launches"] == m["runs"][what]["launches"],
+                              f"phase 19 {name} {what}: ranks launched differently")
+                m["runs"][what]["wall_s_ranks"] = [pr["runs"][what]["wall_s"]
+                                                   for pr in per_rank]
+            m["f32_logits_max_abs_ranks"] = [pr["f32_logits_max_abs"] for pr in per_rank]
+            m["kernel_lines_ranks"] = [pr["kernel_lines"] for pr in per_rank]
+            meshes[name] = m
+            ar = m.get("all_reduce_ms_bfloat16")
+            steps = m["runs"]["bf16 auto"]
+            lines.append(
+                f"{name} ({m['backend']}): generate_sharded B={MESH_B} {LENGTH} tokens "
+                f"bf16 {steps['wall_s']:.2f} s, f32 {m['runs']['f32 auto']['wall_s']:.2f} s; "
+                f"{steps['all_reduces_per_step']:g} all-reduces a step"
+                + (f" at {ar['device']:.3f} ms each on the device ({ar['host']:.3f} ms host) "
+                   f"= {ar['device'] * steps['all_reduces_per_step']:.1f} ms a step"
+                   if ar else "")
+                + "; launches a rank " + ", ".join(
+                    f"{what}: {dict((k, v) for k, v in r['launches'].items() if v)}"
+                    for what, r in m["runs"].items() if "launches" in r)
+                + f"; TP ranks agree; f32 step logits max-abs "
+                f"{max(m['f32_logits_max_abs_ranks']):.3g} (<= {MESH_LOGIT_TOL}); f32 rows "
+                f"equal to single-device generate {m.get('f32_rows_equal_single_device', 0):.3f}; "
+                f"streamed = one-shot ({m['stream_blocks']} blocks); kernels at the shard "
+                f"shapes = plain: " + " | ".join(m["kernel_lines"]))
+    want = ranks[4][0]["serve_windows"]["window"]
+    srv = _mesh_serve(out, paths, tmp, samples, want, model)
+    os.remove(model)
+    wall = time.perf_counter() - t_phase
+    out["mesh"] = dict(meshes=meshes, serve=srv, phase_s=wall)
+    torch.cuda.synchronize()
+    print(f"phase 19 sharded serving over torch.distributed ({torch.cuda.device_count()} "
+          f"card(s), on {gpu}, {wall:.1f} s): ok; " + "; ".join(lines)
+          + f"; serve (2,2) under torchrun ({srv['backend']}, f32, buckets {SERVE_BUCKETS}): "
+          f"up in {srv['up_s']:.1f} s, 3 one-shot and 1 streamed request in one window "
+          f"{srv['window_of_4_s']:.2f} s (the stream {srv['stream_s']:.2f} s), /reload, "
+          f"every response = generate_sharded on the mesh; every rank stopped cleanly "
+          f"({'; '.join(srv['followers'])})")
+    return {name: m["runs"] for name, m in meshes.items()}
+
+
 # (name, source, the TPU kernel it replaces, the phase whose run counts its
 # launches, the key of its phase-2 result at its main path's shape)
 _TA = "mmtg_tpu_torch/csrc/train_attention.cu"
@@ -2252,6 +2733,11 @@ KERNELS = [
 ]
 
 
+# the kernels the sharded path runs (phase 19)
+MESH_KERNELS = ("decode_attention_int8_append", "decode_attention_fp_append",
+                "fused_gru", "decode_block_fused")
+
+
 def _write_json(path, out):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2270,6 +2756,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (the kernels against their plain "
                          "versions): no main path, no kernels line")
+    ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2281,8 +2768,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mmtg_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if args.mesh_job:  # one rank of phase 19, started by phase_mesh
+        return mesh_job(args.mesh_job)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     out = {"torch": torch.__version__, "cuda": torch.version.cuda}
     phase_build(out, args.build_serial)
     gpu = gpu_line()
@@ -2315,6 +2805,7 @@ def main(argv=None) -> int:
         phase_forward_infer(out, gpu)
         phase_english(out, gpu, tmp)
         phase_predict(out, gpu, paths, tmp)
+        launches["mesh"] = phase_mesh(out, gpu, paths, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2343,6 +2834,14 @@ def main(argv=None) -> int:
                                  f"B{b}": {k: results[(name, "bfloat16", f"B{b}")][k]
                                            for k in ("ms", "per_layer_step_ms", "bound_ms")}
                                  for b in OTHER_BATCHES})
+        if name in MESH_KERNELS:
+            # each mesh's runs (phase 19), launches of one rank
+            extra["mesh_launches_per_rank"] = {
+                mesh: sum(run["launches"][name] for run in runs.values()
+                          if "launches" in run)
+                for mesh, runs in launches["mesh"].items()}
+            check(any(extra["mesh_launches_per_rank"].values()),
+                  f"{name} was not launched on the mesh path (phase 19)")
         check(n > 0, f"{name} was not launched on its path ({path})")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2351,7 +2850,9 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"], dtype="bfloat16",
             f32_max_abs_err=f32["max_abs_err"], **extra))
     out["kernels"] = kernels
+    out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
+    print(f"chip_smoke: 19 phases in {out['total_s']:.1f} s")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

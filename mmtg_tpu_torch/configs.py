@@ -165,7 +165,7 @@ class TrainConfig:
     # Extras absent in the reference:
     dtype: str = "float32"  # compute dtype; 'bfloat16' keeps f32 masters
     remat: bool = True  # recompute each GPT-2 block in the backward
-    mesh_shape: Tuple[int, int] = (1, 1)  # (data, model); meshes not ported
+    mesh_shape: Tuple[int, int] = (1, 1)  # (data, model); training meshes not ported
     # Train attention: "auto" / "kernel" = the hand-written kernels on the
     # standard slab (ops/train_attention.py: mha_train_packed, or
     # mha_train_packed_seg on packed rows; CPU tensors take the plain

@@ -5,13 +5,21 @@ Same flags and file-to-file behavior: every test row is replicated
 ``n_samples`` times and whole batches decode through
 :func:`mmtg_tpu_torch.decoding.generate`. The model is what the port's train
 CLI wrote (its ``--save_path``, best-val stream first, or one ``step_*.pt``)
-or a reference ``.pth`` (Orbax directories are not ported yet); the mesh flags
-are accepted for parity and raise unless left at 1.
+or a reference ``.pth`` (Orbax directories are not ported yet).
 
     python -m mmtg_tpu_torch.generate --data_path test.pkl \\
         --model_path model.pth --tokenizer_path vocab/vocab.txt \\
         --token_emb_path token_id2emb_dict.pkl --n_samples 2 \\
         --save_samples --save_samples_path out.txt
+
+Over a ``(data, model)`` mesh, every rank started by ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node N -m
+mmtg_tpu_torch.generate ... --mesh_data D --mesh_model M``; ``--mesh_data 0``
+= N / M): batches decode through
+:func:`mmtg_tpu_torch.decoding.generate_sharded` with one threefry stream
+per sample, keyed on ``--seed`` and the sample's global index (as the JAX
+CLI), so the samples do not depend on the mesh's shape; rank 0 alone
+writes them.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 from mmtg_tpu_torch.configs import DataConfig, GenerateConfig, ModelConfig
 from mmtg_tpu_torch.utils.logging import setup_logger
 from mmtg_tpu_torch.decoding import generate as generate_batch
-from mmtg_tpu_torch.decoding import postprocess_tokens
+from mmtg_tpu_torch.decoding import generate_sharded, postprocess_tokens
+from mmtg_tpu_torch.ops import prng
 from mmtg_tpu_torch.params import tree_to
 
 
@@ -84,9 +93,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip_dim", default=512, type=int,
                    help="CLIP embedding width for --variant english")
     p.add_argument("--mesh_data", default=1, type=int,
-                   help="parity flag: meshes are not ported (must be 1)")
+                   help="data-parallel size of the (data, model) mesh, under "
+                        "torchrun; 0 = the world size / --mesh_model")
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="parity flag: meshes are not ported (must be 1)")
+                   help="tensor-parallel size of the mesh, under torchrun")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: cuda; pass 'cpu' to run "
                         "without a GPU)")
@@ -104,6 +114,29 @@ def resolve_device(name: str | None) -> torch.device:
                 "False); pass --device cpu to run on the CPU")
         name = "cuda"
     return torch.device(name)
+
+
+def mesh_from_args(args, device: torch.device):
+    """``(mesh, device)`` of ``--mesh_data`` / ``--mesh_model``: ``(None,
+    device)`` for the default ``(1, 1)``; else this rank joins the job
+    ``torchrun`` started (:func:`mmtg_tpu_torch.parallel.mesh.
+    init_distributed`: its card, or the CPU, and the backend the rule picks,
+    which is logged) and the mesh is made. Without a launcher it raises."""
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+
+    if (args.mesh_data, args.mesh_model) == (1, 1):
+        return None, device
+    if not torch.distributed.is_initialized() and "RANK" not in os.environ:
+        raise RuntimeError(f"--mesh_data {args.mesh_data} --mesh_model "
+                           f"{args.mesh_model}: a mesh needs one process a rank; "
+                           f"{pmesh.LAUNCH_HINT}")
+    info = pmesh.init_distributed(device)
+    dp = args.mesh_data or max(info.world_size // args.mesh_model, 1)
+    mesh = pmesh.make_mesh((dp, args.mesh_model), info.device)
+    setup_logger().info("rank %d of %d on %s, backend %s, mesh (data %d, "
+                        "model %d)", info.rank, info.world_size, info.device,
+                        info.backend, dp, args.mesh_model)
+    return mesh, info.device
 
 
 def load_params(model_path: str, mcfg: ModelConfig, device="cpu") -> Dict:
@@ -135,14 +168,11 @@ def main(argv=None, mcfg: ModelConfig | None = None,
          dcfg: DataConfig | None = None) -> None:
     """CLI entry; ``mcfg`` / ``dcfg`` are injectable for small test models."""
     args = build_arg_parser().parse_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise NotImplementedError("mesh decoding is not ported (use "
-                                  "--mesh_data 1 --mesh_model 1)")
     from mmtg_tpu_torch.bpe import load_tokenizer
     from mmtg_tpu_torch.data import MMTGDataset, load_token_embedding_table
 
     logger = setup_logger()
-    device = resolve_device(args.device)
+    mesh, device = mesh_from_args(args, resolve_device(args.device))
     if mcfg is None or dcfg is None:
         if args.variant == "english":
             from mmtg_tpu_torch.configs import english_variant
@@ -158,9 +188,14 @@ def main(argv=None, mcfg: ModelConfig | None = None,
     if weight_dtype == "auto":
         weight_dtype = "int8" if args.batch_size <= 32 else "model"
     cache_dtype = args.cache_dtype
+    decode_b = max(args.batch_size // args.n_samples, 1) * args.n_samples
     if cache_dtype == "auto":
-        decode_b = max(args.batch_size // args.n_samples, 1) * args.n_samples
-        cache_dtype = "model" if decode_b <= 1 else "int8"
+        # any meshed run resolves the model dtype (resolve_cache_dtype)
+        cache_dtype = "model" if decode_b <= 1 or mesh is not None else "int8"
+    if mesh is not None and decode_b % mesh.size(0):
+        raise ValueError(f"decode batch {decode_b} (batch_size // n_samples * "
+                         f"n_samples) must divide over the data axis "
+                         f"({mesh.size(0)}); adjust --batch_size")
     gcfg = GenerateConfig(
         batch_size=args.batch_size, seed=args.seed,
         temperature=args.temperature, top_k=args.topk, top_p=args.topp,
@@ -195,8 +230,17 @@ def main(argv=None, mcfg: ModelConfig | None = None,
         n_pad = rows_per_batch - len(rows)  # the final batch keeps its shape
         batch = replicate_batch(rows + [rows[-1]] * n_pad, args.n_samples,
                                 device)
-        toks = generate_batch(params, const, mcfg, dcfg, gcfg, batch,
-                              generator).cpu().numpy()
+        if mesh is None:
+            toks = generate_batch(params, const, mcfg, dcfg, gcfg, batch,
+                                  generator).cpu().numpy()
+        else:
+            # one stream per sample, keyed on its global index
+            base = lo * args.n_samples
+            seeds = torch.arange(base, base + decode_b, dtype=torch.int32,
+                                 device=device)
+            toks = generate_sharded(params, const, mcfg, dcfg, gcfg, batch,
+                                    prng.PRNGKey(args.seed, device=device), mesh,
+                                    row_seeds=seeds).cpu().numpy()
         tokens_generated += toks.shape[0] * gcfg.length
         for r in range(len(rows) * args.n_samples):
             # one sample per line: byte-level BPE can decode to line breaks
@@ -206,6 +250,8 @@ def main(argv=None, mcfg: ModelConfig | None = None,
     logger.info("Generated %d sequences (%.1f tokens/s) in %.1fs",
                 len(outputs), tokens_generated / dt, dt)
 
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        return  # rank 0 alone writes the samples
     if args.save_samples and args.save_samples_path:
         os.makedirs(os.path.dirname(args.save_samples_path) or ".", exist_ok=True)
         with open(args.save_samples_path, "w", encoding="utf-8") as f:

@@ -9,6 +9,12 @@ builds anew and an unchanged one is reused. Nothing is built at import:
 :func:`load` runs on the first kernel launch, and only on a machine with the
 CUDA toolkit.
 
+Processes that start together (the ranks of a ``torchrun`` job) build once:
+:func:`build` holds an exclusive ``fcntl.flock`` on ``build/kernels/.lock``
+while it checks for the library and compiles, so the first process runs the
+compilers and the others wait, then find the library. The lock goes with the
+process that holds it, so a killed build leaves nothing to clean up.
+
 Flags: ``sm_90a`` (Hopper), ``-O3``, and deliberately NO
 ``--use_fast_math`` — it makes ``/`` approximate, and the int8 cache writes
 must stay bit-identical to the plain PyTorch version.
@@ -16,7 +22,9 @@ must stay bit-identical to the plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -63,13 +71,33 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmmtg_kernels_{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def build_lock(directory: str):
+    """An exclusive lock on ``directory`` across processes (``flock`` on
+    ``directory/.lock``, released when the block ends or the process dies)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> str:
     """Compile the sources if their library is not built yet; returns its
-    path. The ptxas report goes to ``<library>.log``."""
+    path. The ptxas report goes to ``<library>.log``. One process at a time
+    (:func:`build_lock`): the others wait and reuse its library."""
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not os.path.exists(out):  # built while this process waited
+            _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
     nvcc = _nvcc()
     tmp = f"{out}.tmp{os.getpid()}"
     objs, procs = [], []
@@ -98,8 +126,7 @@ def build() -> str:
                 os.remove(obj)
     with open(out + ".log", "w") as f:
         f.write(log + link.stdout + link.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+    os.replace(tmp, out)  # atomic: a reader sees all or nothing
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -10,8 +10,12 @@ The full-sequence forward (:func:`gpt2_forward`) serves training (dropout,
 per-block remat, attention through the hand-written train-attention kernels,
 :mod:`mmtg_tpu_torch.ops.train_attention`, with a key-padding mask or, for
 packed rows, segment ids) and the prefill (:func:`prefill_cache`, plain
-PyTorch attention — the JAX package runs XLA attention there too). No tensor
-/ pipeline parallelism, no selective remat policies. The one-token decode
+PyTorch attention — the JAX package runs XLA attention there too). No
+pipeline parallelism, no selective remat policies; tensor parallelism in the
+prefill and the decode step only (``tp_group``: this rank holds its heads'
+QKV / MLP columns and the matching rows of the two output projections,
+:mod:`mmtg_tpu_torch.parallel.mesh`, and the row-parallel partial products
+are summed over the group before their replicated bias). The one-token decode
 step (:func:`gpt2_decode_step`) attends, for CUDA tensors, through the
 hand-written decode-attention kernel
 (:mod:`mmtg_tpu_torch.ops.decode_attention`: full-precision, int8, int4 and
@@ -26,6 +30,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from mmtg_tpu_torch.configs import GPT2Config
@@ -159,6 +164,19 @@ def _dropout(x, rate: float, seed):
     return torch.where(bits >= thr, x / keep_p, torch.zeros_like(x))
 
 
+def tp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The row-parallel partial product ``x`` summed over the ``model``
+    group (``all_reduce`` in place; ``group=None``: no tensor parallelism).
+    ``tp_sum.calls`` counts the reductions."""
+    if group is not None:
+        tp_sum.calls += 1
+        dist.all_reduce(x, group=group)
+    return x
+
+
+tp_sum.calls = 0
+
+
 _ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel",
                "kernel_padded": "kernel_padded", "plain": "plain"}
 # the segment id of the slots that pad a packed row to a multiple of 128: they
@@ -180,6 +198,7 @@ def gpt2_forward(
     attn_impl: str = "auto",
     lm_head: bool = True,
     segment_ids: Optional[torch.Tensor] = None,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward (train / prefill / teacher forcing).
 
@@ -214,6 +233,10 @@ def gpt2_forward(
         :func:`~mmtg_tpu_torch.ops.train_attention.mha_train_packed_seg`
         (only the standard slab takes segment ids, as in the JAX package),
         ``"plain"`` its plain version.
+      tp_group: the ``model`` process group of a tensor-parallel prefill
+        (``return_kv`` only): ``params`` are this rank's shard, the head
+        count and width come from its QKV columns, and the returned k/v hold
+        its heads only.
     Returns:
       (logits ``[B, T, V]`` or hidden, per-layer (k, v) each ``[L, B, T,
       D]`` when ``return_kv``).
@@ -233,6 +256,10 @@ def gpt2_forward(
     if return_kv and segment_ids is not None:
         raise ValueError("gpt2_forward: segment_ids is train-path only (no "
                          "return_kv)")
+    if tp_group is not None and not return_kv:
+        raise NotImplementedError("gpt2_forward: tensor parallelism is ported "
+                                  "for the prefill (return_kv) only; the train "
+                                  "path's is the next parallelism slice")
     embd_seed, layer_seeds, attn_seeds = None, [(None, None)] * L, None
     if dropout:
         draws = torch.randint(0, 2 ** 31 - 1, (1 + 3 * L,), generator=dropout_gen,
@@ -245,7 +272,9 @@ def gpt2_forward(
     attn_rate = cfg.attn_pdrop if dropout else 0.0
 
     hd = cfg.head_dim
-    n_head = D // hd
+    # local (under TP: this shard's) width and head count, from the QKV columns
+    D_kv = params["h"]["attn_w"].shape[-1] // 3
+    n_head = D_kv // hd
     T_real = T
     if return_kv:
         scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype,
@@ -292,14 +321,14 @@ def gpt2_forward(
         k = v = None
         w_proj = p["attn_proj_w"][l]
         if return_kv:
-            q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D, dim=-1)
+            q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D_kv, dim=-1)
             qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
                           for t in (q, k, v))
             # f32-accumulated score dot, then the model dtype (as the JAX
             # einsum with preferred_element_type=f32)
             scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
             probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
-            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D)
+            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D_kv)
         else:
             # the projection bias is added inside the attention function
             w_qkv, b_qkv = p["attn_w"][l], p["attn_b"][l]
@@ -308,11 +337,11 @@ def gpt2_forward(
                 w_proj = pad_proj_weights(w_proj, n_head, hd)
             ctx = attend(a @ w_qkv, b_qkv, bias, attn_seeds[l:l + 1], n_head,
                          attn_rate, 1.0 / math.sqrt(hd))
-        attn_out = ctx @ w_proj + p["attn_proj_b"][l]
+        attn_out = tp_sum(ctx @ w_proj, tp_group) + p["attn_proj_b"][l]
         h = h + _dropout(attn_out, cfg.resid_pdrop, k_resid1)
         m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], eps)
         m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])
-        m = m @ p["mlp_proj_w"][l] + p["mlp_proj_b"][l]
+        m = tp_sum(m @ p["mlp_proj_w"][l], tp_group) + p["mlp_proj_b"][l]
         return h + _dropout(m, cfg.resid_pdrop, k_resid2), k, v
 
     ks, vs = [], []
@@ -345,15 +374,17 @@ def prefill_cache(
     attention_mask: torch.Tensor,
     capacity: int,
     cache_dtype: str = "model",
+    tp_group=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt once; return its logits and a cache of ``capacity``
     slots holding the prompt's k/v (``cache_dtype`` ``"model"``, ``"int8"``
-    or ``"int4"``)."""
+    or ``"int4"``). Under ``tp_group`` the cache holds this shard's heads
+    (a quantized one scaled over them alone, as in the JAX package)."""
     if cache_dtype not in _CACHE_KINDS:
         raise ValueError(f"unknown cache kind {cache_dtype!r}")
     logits, (k, v) = gpt2_forward(params, cfg, inputs_embeds, position_ids,
                                   token_type_ids, attention_mask,
-                                  return_kv=True)
+                                  return_kv=True, tp_group=tp_group)
     L, B, T, D = k.shape
 
     def padded(x):
@@ -389,6 +420,7 @@ def gpt2_decode_step(
     key_mask: torch.Tensor,
     use_kernels: bool = True,
     attn_impl: str = "kernel",
+    tp_group=None,
 ) -> torch.Tensor:
     """One-token KV-cached decode step; returns logits ``[B, V]``.
 
@@ -400,26 +432,30 @@ def gpt2_decode_step(
     of the per-layer loop; it needs an int8 split cache and full-precision
     weights and raises otherwise (``decoding.resolve_attn_impl`` gates it).
     ``use_kernels=False`` runs the plain PyTorch versions on any device (a
-    reference for the kernel path).
+    reference for the kernel path). ``tp_group``: a tensor-parallel step on
+    this rank's shard (:func:`gpt2_forward`); the cache holds its heads, the
+    per-layer kernels attend over them, and the logits are the whole
+    vocabulary's on every rank (the LM head is replicated).
     """
     if attn_impl not in ("kernel", "fused"):
         raise ValueError(f"attn_impl {attn_impl!r}: 'kernel' or 'fused'")
-    D = x_embed.shape[-1]
-    n_head = D // cfg.head_dim
     p = params["h"]
-    kind = cache.kind(D)
+    # local (under TP: this shard's) width and head count, from the QKV columns
+    D_kv = p["attn_w"].shape[-1] // 3
+    n_head = D_kv // cfg.head_dim
+    kind = cache.kind(D_kv)
     h = x_embed + params["wpe"][position] + params["wte"][token_type_id]
     if attn_impl == "fused":
-        if kind != "int8" or cache.merged or "attn_w_q" in p:
-            raise ValueError("attn_impl='fused' needs an int8 split cache and "
-                             "full-precision weights")
+        if kind != "int8" or cache.merged or "attn_w_q" in p or tp_group is not None:
+            raise ValueError("attn_impl='fused' needs an int8 split cache, "
+                             "full-precision weights and no tensor parallelism")
         block = decode_block_fused if use_kernels else decode_block_fused_plain
         h = block(h.contiguous(), p, cache.k, cache.v, cache.k_scale,
                   cache.v_scale, key_mask, position, n_head=n_head,
                   eps=cfg.layer_norm_epsilon)
     else:
         h = _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels,
-                           kind, n_head)
+                           kind, n_head, tp_group)
     h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
     if "wte_q" in params:
         return ((h @ params["wte_q"].T.to(h.dtype)) * params["wte_s"].T).to(h.dtype)
@@ -427,9 +463,9 @@ def gpt2_decode_step(
 
 
 def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
-                   n_head):
+                   n_head, tp_group=None):
     """The per-layer decode loop: one append + attention call a layer."""
-    D = h.shape[-1]
+    D_kv = p["attn_w"].shape[-1] // 3
     scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
     if not use_kernels:
         attend = functools.partial(decode_attention_append_plain,
@@ -447,33 +483,43 @@ def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
             k_cache=cache.k, v_cache=cache.v, **scales)
     for l in range(cfg.n_layer):
         a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
-        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D, dim=-1)
+        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D_kv, dim=-1)
         ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
                      key_mask=key_mask, position=position, layer=l,
                      n_head=n_head)
-        h = h + _mm(ctx, p, l, "attn_proj_w") + p["attn_proj_b"][l]
+        h = h + tp_sum(_mm(ctx, p, l, "attn_proj_w"), tp_group) + p["attn_proj_b"][l]
         m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
         m = gelu_new(_mm(m, p, l, "mlp_fc_w") + p["mlp_fc_b"][l])
-        h = h + _mm(m, p, l, "mlp_proj_w") + p["mlp_proj_b"][l]
+        h = h + tp_sum(_mm(m, p, l, "mlp_proj_w"), tp_group) + p["mlp_proj_b"][l]
     return h
 
 
-def quantize_decode_weights(params: Dict) -> Dict:
+def quantize_decode_weights(params: Dict, scale_group=None) -> Dict:
     """Weight-only int8 for the decode loop
     (:func:`mmtg_tpu.models.gpt2.quantize_decode_weights`): per-output-
     channel abs-max over the four glue matmuls (``[L, in, out]`` → scales
     ``[L, 1, out]``) and per-vocab-row over ``wte`` (scales ``[V, 1]``).
-    The full-precision weights stay in the returned dict."""
+    The full-precision weights stay in the returned dict.
+
+    ``scale_group``: the ``model`` group of a tensor-parallel shard. The
+    row-parallel projections hold only their input rows there, so their
+    abs-max is taken over the group (``all_reduce`` MAX) and the scales are
+    the unsharded ones; column shards hold whole output channels already."""
     out = dict(params)
     h = dict(params["h"])
 
-    def q(w, dim):
+    def q(w, dim, group=None):
         w = w.float()
-        s = true_div(w.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8), 127.0)
+        absmax = w.abs().amax(dim=dim, keepdim=True)
+        if group is not None:
+            dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+        s = true_div(absmax.clamp_min(1e-8), 127.0)
         return torch.round(w / s).clamp(-127, 127).to(torch.int8), s
 
     for key in ("attn_w", "attn_proj_w", "mlp_fc_w", "mlp_proj_w"):
-        h[key + "_q"], h[key + "_s"] = q(h[key], 1)
+        row_parallel = key in ("attn_proj_w", "mlp_proj_w")
+        h[key + "_q"], h[key + "_s"] = q(h[key], 1,
+                                         scale_group if row_parallel else None)
     out["h"] = h
     out["wte_q"], out["wte_s"] = q(params["wte"], 1)
     return out

@@ -8,7 +8,8 @@ WordPiece tokenizer and ``wp_pack_rows``, the threaded row packer) and
 ``native/Makefile``) into ``build/native/lib<name>_<hash>.so`` under the
 repository root (``build/`` is git-ignored); the hash covers the source and
 the flags, so an edited source builds anew and an unchanged one is reused.
-Nothing is built at import, nothing is written under ``native/``, and the
+Processes that start together build once (``kernels._build.build_lock`` on
+``build/native/``). Nothing is built at import, nothing is written under ``native/``, and the
 libraries tracked there are never loaded.
 
 The loaders return ``None`` when no C++ compiler is found: callers then keep
@@ -28,6 +29,8 @@ import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from mmtg_tpu_torch.kernels._build import build_lock
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_SRC = os.path.join(_REPO, "native")
@@ -66,15 +69,20 @@ def build(name: str) -> Optional[str]:
     cxx = compiler()
     if cxx is None:
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not os.path.exists(out):  # built while this process waited
+            _compile(cxx, name, out)
+    return out
+
+
+def _compile(cxx: str, name: str, out: str) -> None:
     tmp = f"{out}.tmp{os.getpid()}"
     proc = subprocess.run(
         [cxx, *CXXFLAGS, "-o", tmp, os.path.join(NATIVE_SRC, f"{name}.cc")],
         capture_output=True, text=True, timeout=600, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"{cxx} failed on native/{name}.cc:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+    os.replace(tmp, out)  # atomic: a reader sees all or nothing
 
 
 def _bind_wordpiece(lib: ctypes.CDLL) -> None:

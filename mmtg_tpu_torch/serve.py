@@ -26,11 +26,20 @@ fixed sizes and decodes each batch through
   assembled result at the end. A streamed response is TOKEN-IDENTICAL to the
   batched one for the same (sample, seed).
 
-Single device: ``mesh`` must be ``None`` and ``--mesh_data`` /
-``--mesh_model`` 1 (meshed services wait for the parallelism slice). Unlike
-the JAX service, whose dispatch returns before the device has finished, the
-PyTorch decode is a host loop: the batcher thread is busy for the length of
-a decode, and the overlap between windows is the delivery only.
+* **Meshed serving** (``mesh=``, or ``--mesh_data`` / ``--mesh_model``
+  under ``torchrun``): windows decode data x tensor-parallel through
+  :func:`~mmtg_tpu_torch.decoding.generate_sharded` /
+  :func:`~mmtg_tpu_torch.decoding.generate_stream_sharded`. Rank 0 runs the
+  service and the HTTP front; every other rank runs :func:`serve_follower`,
+  which receives each window's operation, batch, seeds and chunk by
+  ``broadcast`` from rank 0's batcher thread and makes the same call in
+  step. ``/reload`` reaches the followers the same way, before the next
+  window; :meth:`GenerationService.stop` ends them. Per-request streams
+  make every response the single-device one, token for token.
+
+Unlike the JAX service, whose dispatch returns before the device has
+finished, the PyTorch decode is a host loop: the batcher thread is busy for
+the length of a decode, and the overlap between windows is the delivery only.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -54,7 +64,8 @@ from mmtg_tpu_torch import decoding
 from mmtg_tpu_torch.configs import (DataConfig, GenerateConfig, ModelConfig,
                                     SpecialTokens)
 from mmtg_tpu_torch.ops import prng
-from mmtg_tpu_torch.params import tree_map
+from mmtg_tpu_torch.params import tree_leaves, tree_map
+from mmtg_tpu_torch.parallel import mesh as pmesh
 
 # the reference-keyed per-sample arrays a request must carry
 SAMPLE_KEYS = (
@@ -135,6 +146,125 @@ def _to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+# what rank 0's batcher tells the followers, first word of each broadcast
+# header [op, bucket, chunk]
+_OP_STOP, _OP_DECODE, _OP_STREAM, _OP_RELOAD = range(4)
+
+
+def _service_gcfg(gcfg: GenerateConfig, buckets: Sequence[int],
+                  meshed: bool) -> GenerateConfig:
+    """``auto`` precisions resolved ONCE from the LARGEST bucket: every
+    bucket must share one weight AND cache precision or the same (request,
+    seed) would decode differently by the bucket its window landed in —
+    breaking batch-composition invariance. A meshed service's cache resolves
+    to the model dtype (``decoding.resolve_cache_dtype(sharded=True)``)."""
+    if "auto" not in (gcfg.weight_dtype, gcfg.cache_dtype):
+        return gcfg
+    return dataclasses.replace(
+        gcfg,
+        weight_dtype=decoding.resolve_weight_dtype(gcfg, max(buckets)),
+        cache_dtype=decoding.resolve_cache_dtype(gcfg, max(buckets),
+                                                 sharded=meshed),
+    )
+
+
+def _expected_shapes(mcfg: ModelConfig, dcfg: DataConfig) -> Dict[str, tuple]:
+    P, m = dcfg.topic_prompt_length, mcfg
+    return {
+        "topic_ids": (P,),
+        "tpw_attention_mask": (P,),
+        "tpw_type_ids": (P,),
+        "topic_emb": (m.topic.input_dim,),
+        "img_embs": (m.seq_len, m.image.input_dim),
+        "r_embs": (m.seq_len, m.text.input_dim),
+    }
+
+
+def _window_buffers(mcfg, dcfg, bucket: int, ftype, device):
+    """Empty tensors of a packed window of ``bucket`` rows (what
+    :meth:`GenerationService._pack` makes), for a follower to receive into."""
+    batch = {k: torch.empty((bucket,) + shape,
+                            dtype=ftype if k in _FLOAT_KEYS else torch.int32,
+                            device=device)
+             for k, shape in _expected_shapes(mcfg, dcfg).items()}
+    return batch, torch.empty(bucket, dtype=torch.int32, device=device)
+
+
+def _broadcast_window(batch, seeds) -> None:
+    for k in SAMPLE_KEYS:
+        torch.distributed.broadcast(batch[k], src=0)
+    torch.distributed.broadcast(seeds, src=0)
+
+
+def _broadcast_tree(tree) -> None:
+    for leaf in tree_leaves(tree):
+        torch.distributed.broadcast(leaf, src=0)
+
+
+class _MeshedParams:
+    """What every rank of a meshed service keeps of the weights: its TP
+    shard (the decode reads nothing else) and the full tree's shapes and
+    dtypes (on the ``meta`` device), which ``/reload`` checks and receives
+    into."""
+
+    def __init__(self, params, mcfg: ModelConfig, mesh):
+        self.mcfg, self.mesh = mcfg, mesh
+        self.template = tree_map(lambda x: torch.empty_like(x, device="meta"),
+                                 params)
+        self.local = self.shard(params)
+
+    def shard(self, params):
+        """This rank's TP shard of a full tree."""
+        g = self.mcfg.gpt2
+        return pmesh.shard_decode_params(params, self.mesh, g.n_head, g.head_dim)
+
+    def receive(self, device) -> None:
+        """Take the full tree rank 0 broadcasts, keep this rank's shard."""
+        full = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=device), self.template)
+        _broadcast_tree(full)
+        self.local = self.shard(full)
+
+
+def serve_follower(params, const, mcfg: ModelConfig, dcfg: DataConfig,
+                   gcfg: GenerateConfig, mesh, buckets: Sequence[int],
+                   base_seed: int = 0) -> int:
+    """The loop of a meshed service's rank other than 0: receive each
+    window rank 0 decodes and make the same sharded call with it, until rank
+    0 stops. Takes what the service on rank 0 was given (the same
+    ``buckets`` and ``base_seed``, so ``auto`` resolves alike); returns the
+    number of windows decoded. A failed call raises here as on rank 0."""
+    if torch.distributed.get_rank() == 0:
+        raise RuntimeError("serve_follower runs on the ranks other than 0; "
+                           "rank 0 runs GenerationService(mesh=...)")
+    device = const["wenlan_table"].device
+    gcfg = _service_gcfg(gcfg, buckets, meshed=True)
+    rng = prng.PRNGKey(base_seed, device=device)
+    weights = _MeshedParams(params, mcfg, mesh)
+    del params
+    header = torch.empty(3, dtype=torch.int64, device=device)
+    windows = 0
+    while True:
+        torch.distributed.broadcast(header, src=0)
+        op, bucket, chunk = (int(v) for v in header.tolist())
+        if op == _OP_STOP:
+            return windows
+        if op == _OP_RELOAD:
+            weights.receive(device)
+            continue
+        batch, seeds = _window_buffers(mcfg, dcfg, bucket,
+                                       const["wenlan_table"].dtype, device)
+        _broadcast_window(batch, seeds)
+        args = (weights.local, const, mcfg, dcfg, gcfg, batch, rng, mesh)
+        if op == _OP_DECODE:
+            decoding.generate_sharded(*args, row_seeds=seeds)
+        else:
+            for _ in decoding.generate_stream_sharded(*args, row_seeds=seeds,
+                                                      chunk=chunk):
+                pass
+        windows += 1
+
+
 class GenerationService:
     """Threaded window-batching front over the decode engine.
 
@@ -148,7 +278,12 @@ class GenerationService:
         immediately (lowest latency, worst fill).
       base_seed: service-wide PRNG base; together with the per-request
         ``seed`` it fully determines a response.
-      mesh: must be ``None`` (meshed serving is not ported).
+      mesh: optional ``(data, model)`` mesh
+        (:func:`mmtg_tpu_torch.parallel.mesh.make_mesh`); the service then
+        runs on rank 0, decodes every window over the mesh, and the other
+        ranks run :func:`serve_follower` with the same arguments. Every
+        bucket must divide by the mesh's data size. Responses equal the
+        single-device ones token for token.
     """
 
     def __init__(
@@ -168,27 +303,27 @@ class GenerationService:
         if list(buckets) != sorted(set(int(b) for b in buckets)) or not buckets:
             raise ValueError(f"buckets must be ascending and unique: {buckets}")
         if mesh is not None:
-            raise NotImplementedError(
-                "meshed serving is not ported (the parallelism slice); pass "
-                "mesh=None")
-        self.mesh = None
-        self.params = params
+            dp = pmesh.mesh_sizes(mesh)[0]
+            bad = [b for b in buckets if int(b) % dp]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the mesh data "
+                                 f"axis ({dp})")
+            if torch.distributed.get_rank() != 0:
+                raise RuntimeError("a meshed GenerationService runs on rank 0; "
+                                   "the other ranks run serve_follower")
+        self.mesh = mesh
+        # a meshed service keeps its TP shard (self.params) and the full
+        # tree's shapes; a /reload waits in _new_params for the next window
+        self._weights = (_MeshedParams(params, mcfg, mesh) if mesh is not None
+                         else None)
+        self.params = params if mesh is None else self._weights.local
+        self._new_params = None
         self.const = const
         self.mcfg = mcfg
         self.dcfg = dcfg
         self.device = const["wenlan_table"].device
         self.buckets = tuple(int(b) for b in buckets)
-        if "auto" in (gcfg.weight_dtype, gcfg.cache_dtype):
-            # resolve ONCE from the LARGEST bucket: every bucket must share
-            # one weight AND cache precision or the same (request, seed)
-            # would decode differently depending on which bucket its window
-            # landed in — breaking batch-composition invariance
-            gcfg = dataclasses.replace(
-                gcfg,
-                weight_dtype=decoding.resolve_weight_dtype(gcfg, max(self.buckets)),
-                cache_dtype=decoding.resolve_cache_dtype(gcfg, max(self.buckets)),
-            )
-        self.gcfg = gcfg
+        self.gcfg = _service_gcfg(gcfg, self.buckets, mesh is not None)
         self.max_wait_ms = float(max_wait_ms)
         self._rng = prng.PRNGKey(base_seed, device=self.device)
         self.max_queue_depth = int(max_queue_depth)
@@ -435,15 +570,22 @@ class GenerationService:
                 return [shapes(v) for v in tree]
             return tuple(tree.shape)
 
-        if shapes(self.params) != shapes(new_params):
+        old = self.params if self.mesh is None else self._weights.template
+        if shapes(old) != shapes(new_params):
             raise ValueError(
                 "new params do not match the serving model's tree/shapes — "
                 "a different architecture needs a new service"
             )
         # f32 checkpoints into a bf16 serving model is the normal flow
-        self.params = tree_map(
-            lambda n, o: n.to(device=o.device, dtype=o.dtype), new_params,
-            self.params)
+        new_params = tree_map(
+            lambda n, o: n.to(device=self.device, dtype=o.dtype), new_params, old)
+        if self.mesh is None:
+            self.params = new_params
+        else:
+            # the followers must take it between two windows: the batcher
+            # broadcasts it before its next one (_sync_params)
+            with self._lock:
+                self._new_params = new_params
 
     def stats(self) -> Dict:
         with self._lock:
@@ -476,15 +618,7 @@ class GenerationService:
     # ---- internals -------------------------------------------------------
 
     def _expected_shapes(self) -> Dict[str, tuple]:
-        P, m = self.dcfg.topic_prompt_length, self.mcfg
-        return {
-            "topic_ids": (P,),
-            "tpw_attention_mask": (P,),
-            "tpw_type_ids": (P,),
-            "topic_emb": (m.topic.input_dim,),
-            "img_embs": (m.seq_len, m.image.input_dim),
-            "r_embs": (m.seq_len, m.text.input_dim),
-        }
+        return _expected_shapes(self.mcfg, self.dcfg)
 
     def _validate(self, sample: Dict) -> None:
         """Strict per-key shape check at the edge. Anything less lets one
@@ -532,7 +666,34 @@ class GenerationService:
                              dtype=torch.int32, device=self.device)
         return batch, seeds
 
+    def _sync_params(self) -> None:
+        """Meshed: hand a pending ``/reload`` to the followers (batcher
+        thread, between windows) and keep this rank's shard of it."""
+        with self._lock:
+            new, self._new_params = self._new_params, None
+        if new is None:
+            return
+        self._send(_OP_RELOAD)
+        _broadcast_tree(new)
+        self._weights.local = self._weights.shard(new)
+        self.params = self._weights.local
+
+    def _send(self, op: int, bucket: int = 0, chunk: int = 0) -> None:
+        torch.distributed.broadcast(torch.tensor(
+            [op, bucket, chunk], dtype=torch.int64, device=self.device), src=0)
+
+    def _send_window(self, op: int, batch, seeds, chunk: int = 0) -> None:
+        """Meshed: the followers take the window rank 0 is about to decode."""
+        self._sync_params()
+        self._send(op, seeds.shape[0], chunk)
+        _broadcast_window(batch, seeds)
+
     def _decode(self, batch, seeds):
+        if self.mesh is not None:
+            self._send_window(_OP_DECODE, batch, seeds)
+            return decoding.generate_sharded(
+                self.params, self.const, self.mcfg, self.dcfg, self.gcfg, batch,
+                self._rng, self.mesh, row_seeds=seeds)
         return decoding.generate(self.params, self.const, self.mcfg, self.dcfg,
                                  self.gcfg, batch, self._rng, row_seeds=seeds)
 
@@ -543,9 +704,15 @@ class GenerationService:
         the per-step PRNG folds in the GLOBAL step index, so chunking never
         changes a token. The params snapshot is this call's read of
         ``self.params`` — hot-swap safe per window, like ``_decode``."""
+        chunk = self.dcfg.sent_frame_length
+        if self.mesh is not None:
+            self._send_window(_OP_STREAM, batch, seeds, chunk)
+            return decoding.generate_stream_sharded(
+                self.params, self.const, self.mcfg, self.dcfg, self.gcfg, batch,
+                self._rng, self.mesh, row_seeds=seeds, chunk=chunk)
         return decoding.generate_stream(
             self.params, self.const, self.mcfg, self.dcfg, self.gcfg, batch,
-            self._rng, row_seeds=seeds, chunk=self.dcfg.sent_frame_length)
+            self._rng, row_seeds=seeds, chunk=chunk)
 
     def _loop(self) -> None:
         """Batcher thread body: the dispatch loop plus the crash contract.
@@ -558,6 +725,8 @@ class GenerationService:
         """
         try:
             self._dispatch_loop()
+            if self.mesh is not None:
+                self._send(_OP_STOP)  # graceful drain: the followers return
         except BaseException as e:
             with self._lock:
                 self._stats["errors"] += 1
@@ -645,7 +814,9 @@ class GenerationService:
                     with self._lock:
                         self._inflight_count -= 1
                     self._fail_window(reqs, e)
-                if isinstance(e, Exception):
+                # on a mesh the followers' place in the window is unknown
+                # after a failure: the engine is down
+                if isinstance(e, Exception) and self.mesh is None:
                     continue
                 raise
             self._inflight.put((reqs, bucket, tokens))
@@ -974,21 +1145,16 @@ def build_arg_parser():
     return p
 
 
-def build_service(args, mcfg: Optional[ModelConfig] = None,
-                  dcfg: Optional[DataConfig] = None):
-    """Everything between parsed args and a started service: device,
-    tokenizer, configs (or the injected tiny test ones), checkpoint, WenLan
-    table, bucket parsing. Returns ``(service, tokenizer)`` — split from
-    :func:`main` so the CLI wiring is testable without ``serve_forever``."""
+def _serving_setup(args, mcfg: Optional[ModelConfig], dcfg: Optional[DataConfig]):
+    """What the service and its followers are built from: device, mesh
+    (``None`` without mesh flags), tokenizer, configs (or the injected tiny
+    test ones), GenerateConfig, checkpoint, WenLan table, buckets."""
     from mmtg_tpu_torch.bpe import load_tokenizer
     from mmtg_tpu_torch.data import load_token_embedding_table
-    from mmtg_tpu_torch.generate import load_params, resolve_device
+    from mmtg_tpu_torch.generate import load_params, mesh_from_args, resolve_device
 
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            "serving over a mesh is not ported (the parallelism slice); use "
-            "--mesh_data 1 --mesh_model 1")
     device = resolve_device(args.device)
+    mesh, device = mesh_from_args(args, device)
     tokenizer = load_tokenizer(args.tokenizer_path)
     if mcfg is None or dcfg is None:
         if args.variant == "english":
@@ -1017,6 +1183,16 @@ def build_service(args, mcfg: Optional[ModelConfig] = None,
     params = load_params(args.model_path, mcfg, device)
     table = torch.from_numpy(load_token_embedding_table(
         args.token_emb_path, len(tokenizer), dcfg.wenlan_emb_size)).to(device)
+    return dict(mesh=mesh, tokenizer=tokenizer, mcfg=mcfg, dcfg=dcfg, gcfg=gcfg,
+                params=params, const={"wenlan_table": table}, buckets=buckets)
+
+
+def build_service(args, mcfg: Optional[ModelConfig] = None,
+                  dcfg: Optional[DataConfig] = None):
+    """Everything between parsed args and a started service (on rank 0 of
+    a meshed job). Returns ``(service, tokenizer)`` — split from
+    :func:`main` so the CLI wiring is testable without ``serve_forever``."""
+    s = _serving_setup(args, mcfg, dcfg)
     if getattr(args, "max_streams", None) is not None:
         import warnings
 
@@ -1026,14 +1202,24 @@ def build_service(args, mcfg: Optional[ModelConfig] = None,
             DeprecationWarning, stacklevel=2,
         )
     service = GenerationService(
-        params, {"wenlan_table": table}, mcfg, dcfg, gcfg,
-        buckets=buckets,
+        s["params"], s["const"], s["mcfg"], s["dcfg"], s["gcfg"],
+        buckets=s["buckets"],
         max_wait_ms=args.max_wait_ms,
         base_seed=args.seed,
+        mesh=s["mesh"],
         max_queue_depth=args.max_queue_depth,
         stall_unhealthy_s=args.stall_unhealthy_s,
     ).start()
-    return service, tokenizer
+    return service, s["tokenizer"]
+
+
+def run_follower(args, mcfg: Optional[ModelConfig] = None,
+                 dcfg: Optional[DataConfig] = None) -> int:
+    """A meshed CLI's rank other than 0: :func:`serve_follower` on what
+    :func:`build_service` builds on rank 0, until rank 0 stops."""
+    s = _serving_setup(args, mcfg, dcfg)
+    return serve_follower(s["params"], s["const"], s["mcfg"], s["dcfg"],
+                          s["gcfg"], s["mesh"], s["buckets"], base_seed=args.seed)
 
 
 def main(argv=None, mcfg: Optional[ModelConfig] = None,
@@ -1042,14 +1228,22 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
     from mmtg_tpu_torch.utils.logging import setup_logger
 
     logger = setup_logger()
+    meshed = (args.mesh_data, args.mesh_model) != (1, 1)
+    if meshed and int(os.environ.get("RANK", "0")) != 0:
+        # rank 0 alone binds the port; the others follow its windows
+        n = run_follower(args, mcfg, dcfg)
+        logger.info("Follower rank %d stopped after %d windows",
+                    torch.distributed.get_rank(), n)
+        torch.distributed.destroy_process_group()
+        return
     service, tokenizer = build_service(args, mcfg, dcfg)
     if not args.no_warmup:
         logger.info("Warming up buckets %s ...", args.buckets)
         service.warmup()
     httpd = serve_http(service, args.host, args.port, tokenizer=tokenizer)
-    logger.info("Serving on http://%s:%d (buckets %s, window %.0f ms, %s)",
+    logger.info("Serving on http://%s:%d (buckets %s, window %.0f ms, %s, pid %d)",
                 args.host, httpd.server_address[1], args.buckets,
-                args.max_wait_ms, service.device)
+                args.max_wait_ms, service.device, os.getpid())
     # SIGTERM (systemd/k8s stop) must drain like Ctrl-C does: raise
     # KeyboardInterrupt out of serve_forever so the finally block runs
     # httpd.shutdown() + service.stop() (stop() serves what's queued)
@@ -1067,6 +1261,8 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
         httpd.shutdown()
         httpd.server_close()
         service.stop()
+        if service.mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

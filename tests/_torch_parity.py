@@ -3,6 +3,9 @@ config: one JAX parameter tree (``init_mmtg_params``) handed to the port
 through ``params.from_jax_numpy``, and one batch made from a seed (a parity
 batch, or a packed one from ``PackedBatcher.batches``)."""
 
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +46,36 @@ def make_setup(mcfg, dcfg, tokenizer, seed=7, jax_init=True):
         tconst={"wenlan_table": torch.from_numpy(table)},
         tbatch={k: torch.from_numpy(v) for k, v in np_batch.items()},
     )
+
+
+def stop_torchrun(proc, grace_s: float = 60.0) -> None:
+    """End a ``torchrun`` started with ``subprocess.Popen`` and its ranks.
+    SIGTERM first: the launcher starts each rank in a session of its own and
+    stops them itself on SIGTERM, while a SIGKILL to it would orphan them."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(grace_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(grace_s)
+
+
+def run_torchrun(nproc: int, args, timeout: float, **kw):
+    """``python -m torch.distributed.run --standalone`` of ``args`` with
+    ``nproc`` ranks and a time limit; the output captured. On the limit the
+    launcher and its ranks are stopped (:func:`stop_torchrun`) and
+    ``subprocess.TimeoutExpired`` raises."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, **kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_torchrun(proc)
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
 def to_port_config(cfg):

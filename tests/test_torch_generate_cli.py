@@ -63,14 +63,19 @@ def test_cli_writes_one_line_per_sample(files, reference_vocab_path,
 ])
 def test_cli_unported_flags_raise(files, reference_vocab_path, tiny_model_cfg,
                                   tiny_data_cfg, extra):
-    """Meshes and approximate top-k are not ported and raise; the int4 cache
-    and the whole-step kernel are, and write their samples."""
+    """Approximate top-k is not ported and raises; a mesh flag without
+    torchrun raises (a mesh needs one process a rank); the int4 cache and the
+    whole-step kernel are ported, and write their samples."""
     out = str(files[0] / f"samples_{extra[1]}.txt")
     run = lambda: cli.main(  # noqa: E731
         _args(files, reference_vocab_path, "--batch_size", "2", "--n_samples", "1",
               "--save_samples", "--save_samples_path", out, *extra),
         mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
-    if extra[0] in ("--mesh_data", "--topk_impl"):
+    if extra[0] == "--mesh_data":
+        with pytest.raises(RuntimeError, match="torchrun"):
+            run()
+        return
+    if extra[0] == "--topk_impl":
         with pytest.raises(NotImplementedError):
             run()
         return

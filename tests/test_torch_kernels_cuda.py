@@ -762,3 +762,53 @@ def test_mmtg_forward_infer_kernel_matches_plain(cuda, scheme):
     assert ta.mha_train_packed.fwd_launches == before + mcfg.gpt2.n_layer
     assert a.logits.shape == (B, 15 + K, 300)
     assert (a.logits - b.logits).abs().max().item() <= 1e-4
+
+
+# The sharded decode's shapes: a tensor-parallel rank holds 12/tp heads of 64
+# lanes (tp = 2: 6 heads, D 384; tp = 4: 3 heads, D 192 — an odd head count
+# leaves the int4 head-pair route) and B/dp rows of the batch.
+SHARD_HEADS = [6, 3]
+SHARD_ROWS = [32, 16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("H", SHARD_HEADS)
+@pytest.mark.parametrize("B", SHARD_ROWS)
+@pytest.mark.parametrize("position", [0, 64, 235])
+def test_append_kernels_at_the_shard_shapes(cuda, dtype, kind, H, B, position):
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, 64,
+                                                         L=12)
+    kernel = {"fp": da.decode_attention_fp_append,
+              "int8": da.decode_attention_int8_append,
+              "int4": da.decode_attention_int4_append}[kind]
+    kc = [c.clone() for c in caches + scales]
+    pc = [c.clone() for c in caches + scales]
+    before = kernel.launches
+    ctx = kernel(q, k_new, v_new, *kc, mask, position, 7, n_head=H)
+    ref = da.decode_attention_append_plain(q, k_new, v_new, pc[0], pc[1], mask,
+                                           position, 7, H, *pc[2:])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for a, b in zip(kc, pc):  # appended bytes and scales bit for bit
+        assert torch.equal(a, b)
+    assert (ctx.float() - ref.float()).abs().max().item() <= DECODE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", SHARD_ROWS)
+def test_fused_gru_at_the_shard_rows(cuda, dtype, tol, B):
+    """The encoder's GRU (in 2048, H 512) on a data shard's B/dp rows."""
+    T, I, H = 5, 2048, 512
+    x = torch.randn(T, B, I, generator=cuda, device="cuda").to(dtype)
+    w_ih = (torch.randn(I, 3 * H, generator=cuda, device="cuda") * 0.02).to(dtype)
+    w_hh = (torch.randn(H, 3 * H, generator=cuda, device="cuda") * 0.05).to(dtype)
+    b_ih, b_hh = ((torch.randn(3 * H, generator=cuda, device="cuda") * 0.05).to(dtype)
+                  for _ in range(2))
+    before = fg.fused_gru.launches
+    out = fg.fused_gru(x, w_ih, w_hh, b_ih, b_hh)
+    ref = fg.fused_gru_plain(x, w_ih, w_hh, b_ih, b_hh)
+    torch.cuda.synchronize()
+    assert fg.fused_gru.launches == before + 1
+    assert out.dtype == dtype and out.shape == (T, B, H)
+    assert (out.float() - ref.float()).abs().max().item() <= tol

@@ -38,7 +38,8 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.pretrain", "mmtg_tpu_torch.serve",
                  "mmtg_tpu_torch.ops.prng", "mmtg_tpu_torch.ops.sampling",
                  "mmtg_tpu_torch.ops.decode_megakernel",
-                 "mmtg_tpu_torch.predict", "mmtg_tpu_torch.native"):
+                 "mmtg_tpu_torch.predict", "mmtg_tpu_torch.native",
+                 "mmtg_tpu_torch.parallel", "mmtg_tpu_torch.parallel.mesh"):
         assert name in mods
 
 

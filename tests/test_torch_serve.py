@@ -155,8 +155,10 @@ def test_bucket_choice_and_padding(serve_setup):
     assert batch["topic_ids"].dtype == torch.int32
     with pytest.raises(ValueError):
         _service(serve_setup, buckets=(4, 2))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        _service(serve_setup, buckets=(2,), mesh=object())
+    # a mesh whose data size does not divide a bucket
+    mesh = type("Mesh", (), {"size": lambda self, dim: (4, 1)[dim]})()
+    with pytest.raises(ValueError, match="not divisible by the mesh data axis"):
+        _service(serve_setup, buckets=(2, 4), mesh=mesh)
 
 
 def test_service_batches_and_matches_direct(serve_setup):
@@ -644,8 +646,9 @@ def test_serve_cli_build_service_and_reload(serve_setup, cli_artifacts):
 def test_serve_cli_flags(serve_setup, cli_artifacts, monkeypatch):
     _, _, mcfg, dcfg, _, _ = serve_setup
     parse = serve.build_arg_parser().parse_args
+    # a mesh flag without torchrun: no job to join
     for extra in (("--mesh_data", "2"), ("--mesh_model", "2")):
-        with pytest.raises(NotImplementedError, match="parallelism"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             serve.build_service(parse(_cli_args(cli_artifacts, *extra)), mcfg, dcfg)
     # no --device and no GPU: raises rather than serve from the CPU unasked
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
