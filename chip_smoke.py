@@ -110,8 +110,9 @@ meshes) and, last, the device JSON line.
 and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
 parallel build; --kernels-only stops after phase 2 (to time another
-checkout's kernels with this script's measurements). Without a CUDA device it
-exits non-zero and prints no result.
+checkout's kernels with this script's measurements); --mesh-train-only runs
+phase 1 and phase 20 alone. Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -663,14 +664,17 @@ def packed_batches(dcfg, n_samples, rows, seed, emb_size=None, row_len=PACK_T):
 
 
 def _attention_vs_plain(results, name, fn, plain, dtype, B, qkv, qb, mask, co, scale,
-                        sdpa_inputs, nbytes, pairs, hd_ops, tols=TRAIN_TOL):
+                        sdpa_inputs, nbytes, pairs, hd_ops, tols=TRAIN_TOL, heads=H,
+                        key=None):
     """One train-attention function (kernels) vs its plain version on the
     same inputs: ctx, dqkv, dqb at rate 0 and 0.1; then device times of the
     kernels, the plain version and one SDPA call at rate 0.1, and the bound.
     ``sdpa_inputs()`` -> (q, k, v [B, H, T, hd], boolean mask); ``nbytes`` =
     (forward, backward) bytes of the function's own inputs and outputs;
     ``pairs`` = the (i, j) pairs that may attend, summed over batch and
-    heads; ``hd_ops`` the head width the products run over."""
+    heads; ``hd_ops`` the head width the products run over; ``heads`` the
+    head count (a TP rank's: fewer); the result is stored under ``(name,
+    dtype name, key or B)``."""
     import torch
 
     dname = str(dtype).split(".")[1]
@@ -681,7 +685,7 @@ def _attention_vs_plain(results, name, fn, plain, dtype, B, qkv, qb, mask, co, s
         for f in (fn, plain):
             a = qkv.clone().requires_grad_(True)
             b = qb.clone().requires_grad_(True)
-            ctx = f(a, b, mask, seed, H, rate, scale)
+            ctx = f(a, b, mask, seed, heads, rate, scale)
             dqkv, dqb = torch.autograd.grad(ctx, (a, b), co)
             torch.cuda.synchronize()
             outs.append((ctx.detach().float(), dqkv.float(), dqb.float()))
@@ -709,10 +713,10 @@ def _attention_vs_plain(results, name, fn, plain, dtype, B, qkv, qb, mask, co, s
     for label, f in (("kernel", fn), ("plain", plain)):
         with torch.no_grad():
             timed[f"{label}_fwd"] = device_ms(
-                lambda: f(qkv, qb, mask, seed, H, rate, scale), reps=11, warmup=2)
+                lambda: f(qkv, qb, mask, seed, heads, rate, scale), reps=11, warmup=2)
         a = qkv.clone().requires_grad_(True)
         b = qb.clone().requires_grad_(True)
-        ctx = f(a, b, mask, seed, H, rate, scale)
+        ctx = f(a, b, mask, seed, heads, rate, scale)
         timed[f"{label}_bwd"] = device_ms(
             lambda: torch.autograd.grad(ctx, (a, b), co, retain_graph=True),
             reps=11, warmup=2)
@@ -732,7 +736,7 @@ def _attention_vs_plain(results, name, fn, plain, dtype, B, qkv, qb, mask, co, s
         reps=11, warmup=2)
     del q, k, v, out, do, attn_mask
     torch.cuda.empty_cache()
-    results[(name, dname, B)] = dict(
+    results[(name, dname, B if key is None else key)] = dict(
         max_abs_err=max(errs["ctx_rate0.1"], errs["dqkv_rate0.1"]), errs=errs,
         ms=timed["kernel_fwd"] + timed["kernel_bwd"],
         plain_ms=timed["plain_fwd"] + timed["plain_bwd"],
@@ -2706,6 +2710,447 @@ def phase_mesh(out, gpu, paths, tmp):
     return {name: m["runs"] for name, m in meshes.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: training over the mesh (data, tensor, ZeRO-1, pipeline)
+
+MESH_TRAIN_B, MESH_TRAIN_F32_B = 32, 8  # global batches: bf16 timed, f32 compared
+MESH_PIPE_MICRO = 4
+MESH_PACK_ROWS, MESH_PACK_F32_ROWS = 16, 4  # packed rows of PACK_T, global
+# name -> (second mesh axis, shape, zero1, attn_impl, packed rows, timed steps)
+MESH_TRAIN_RUNS = {
+    "dp": ("model", (2, 1), False, "auto", False, 3),
+    "tp": ("model", (1, 2), False, "auto", False, 3),
+    "zero1": ("model", (2, 1), True, "auto", False, 3),
+    "pipe": ("pipe", (1, 2), False, "auto", False, 3),
+    "packed": ("model", (2, 1), False, "auto", True, 3),
+    "tp_head_major": ("model", (1, 2), False, "kernel_padded", False, 1),
+    "dp_tp": ("model", (2, 2), False, "auto", False, 3),
+}
+MESH_TRAIN_JOBS = ((2, ("dp", "tp", "zero1", "pipe", "packed", "tp_head_major")),
+                   (4, ("dp_tp",)))
+MESH_TRAIN_TIMEOUT_S = 420  # one torchrun job, its ranks' start included
+MESH_TRAIN_CMD = (os.path.abspath(__file__), "--mesh-train-job")  # + the spec's path
+# #9 on a data rank's 8 packed rows: a short segment's ctx is close to its own
+# v row, so |ctx| reaches 4-6 where one bf16 step is 0.03125 (the bf16
+# forward rounds the un-normalised probabilities: within one step)
+SHARD_SEG_TOL = {"float32": SEG_TOL["float32"], "bfloat16": (3.2e-2, 8e-2, 2e-2)}
+
+
+def _mesh_train_fn(name):
+    """The train-attention function a run's layers call."""
+    _, _, _, impl, packed, _ = MESH_TRAIN_RUNS[name]
+    return ("mha_train_packed_seg" if packed else
+            "mha_train" if impl == "kernel_padded" else "mha_train_packed")
+
+
+def _mesh_train_launches(name, steps, n_layer=L):
+    """Launches a rank in ``steps`` steps: a forward, the remat forward and a
+    backward a layer; a stage runs its layers on each micro-batch (the
+    backward recomputes the stage's forward)."""
+    axis, shape, *_ = MESH_TRAIN_RUNS[name]
+    fn = _mesh_train_fn(name)
+    per = n_layer // shape[1] * MESH_PIPE_MICRO if axis == "pipe" else n_layer
+    return {f"{fn}_fwd": 2 * per * steps, f"{fn}_bwd": per * steps}
+
+
+def _mesh_for(name, device):
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+    from mmtg_tpu_torch.parallel.pipeline import make_dp_pp_mesh
+
+    axis, shape, *_ = MESH_TRAIN_RUNS[name]
+    if axis == "pipe":
+        mesh = make_dp_pp_mesh(*shape, device)
+        return mesh, (mesh, MESH_PIPE_MICRO)
+    return pmesh.make_mesh(shape, device), None
+
+
+def _replicated_bit_equal(params, layout):
+    """Every leaf the ranks hold whole, bit-equal on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from mmtg_tpu_torch.params import tree_leaves
+
+    ok = True
+    for leaf, sharded in zip(tree_leaves(params), layout.sharded_mask(params)):
+        if not sharded:
+            parts = [torch.empty_like(leaf) for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, leaf.detach().contiguous())
+            ok &= all(torch.equal(p, parts[0]) for p in parts)
+    return ok
+
+
+def _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const, batch):
+    """1 warm-up + the run's timed bf16 steps (dropout, remat) on this rank's
+    rows, then one step with every collective timed."""
+    import torch
+    import torch.distributed as dist
+
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.configs import TrainConfig
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+    from mmtg_tpu_torch.params import tree_leaves
+
+    _, _, zero1, impl, _, steps = MESH_TRAIN_RUNS[name]
+    tcfg = TrainConfig(dtype="bfloat16", remat=True, lr=1e-4, alpha=0.2, attn_impl=impl)
+    full, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params, device=DEVICE)
+    state = ttrain.shard_train_state(full, mcfg, mesh, zero1=zero1)
+    del full
+    step = ttrain.make_train_step(mcfg, dcfg, tcfg, tx, pp=pp, zero1=zero1, mesh=mesh)
+    local = {k: v[pmesh.local_rows(v.shape[0], mesh)] for k, v in batch.items()}
+    state, _ = step(state, const, local, 3)  # also the schedule's rate-0 update
+    torch.cuda.synchronize()
+    dist.barrier()
+    pmesh.comm.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # ---- the main path starts here ------------------------------
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, const, local, 3)
+        losses.append(float(m["loss"]))  # waits for the card
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = _counts()  # ---- read just after the main path --------------------
+    calls = {k: v / steps for k, v in pmesh.comm.calls.items()}
+    mbytes = {k: v / steps / 1e6 for k, v in pmesh.comm.bytes.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    what = f"phase 20 {name}"
+    _only(launches, _mesh_train_launches(name, steps), what)
+    check(all(x == x and abs(x) < 1e6 for x in losses), f"{what}: loss {losses}")
+    check(steps == 1 or losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
+    # one more step, each collective between two synchronizations
+    pmesh.comm.reset()
+    pmesh.comm.timed = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, const, local, 3)
+    torch.cuda.synchronize()
+    timed_wall = time.perf_counter() - t0
+    pmesh.comm.timed = False
+    coll_ms = {k: v * 1e3 for k, v in pmesh.comm.seconds.items()}
+    layout = pmesh.train_layout(mesh)
+    same = _replicated_bit_equal(state.params, layout)
+    check(same, f"{what}: a replicated leaf differs between ranks")
+    moments = state.opt_state["mu"], state.opt_state["nu"]
+    r = dict(step_ms=statistics.median(times) * 1e3, step_ms_all=[t * 1e3 for t in times],
+             losses=losses, launches=launches, collectives_per_step=calls,
+             collective_mb_per_step=mbytes, timed_step_ms=timed_wall * 1e3,
+             collective_ms_timed_step=coll_ms,
+             collective_share=sum(coll_ms.values()) / (timed_wall * 1e3),
+             peak_memory_gib=peak, replicated_bit_equal=same,
+             moment_bytes=sum(t.numel() * t.element_size()
+                              for m in moments for t in tree_leaves(m)),
+             rows=next(iter(local.values())).shape[0])
+    del state, step
+    torch.cuda.empty_cache()
+    return r
+
+
+def _single_device_f32(mcfg, dcfg, params, const, batch):
+    """The single-device f32 reference on the card: loss, every gradient leaf,
+    and the parameters and moments after two steps."""
+    import torch
+
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.configs import TrainConfig
+    from mmtg_tpu_torch.params import tree_leaves
+
+    tcfg = TrainConfig(dtype="float32", remat=False, lr=1e-4, alpha=0.2)
+    state, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params, device=DEVICE)
+    total, _ = ttrain.loss_and_metrics(state.params, const, mcfg, dcfg, tcfg, batch, 3,
+                                       None, True)
+    grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
+    step = ttrain.make_train_step(mcfg, dcfg, tcfg, tx)
+    for _ in range(2):
+        state, _ = step(state, const, batch, 3)
+    return dict(total=float(total.detach()),
+                grads=[torch.zeros_like(p) if g is None else g
+                       for p, g in zip(tree_leaves(state.params), grads)],
+                params=[p.detach() for p in tree_leaves(state.params)],
+                mu=tree_leaves(state.opt_state["mu"]), nu=tree_leaves(state.opt_state["nu"]))
+
+
+def _mesh_f32_compare(name, mesh, pp, mcfg, dcfg, params, const, batch, ref):
+    """The f32 mesh step (dropout off) against the single-device one: loss and
+    every gradient leaf gathered to full, then the parameters and moments
+    after two steps (held on rank 0, where ``ref`` is)."""
+    import torch
+
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.configs import TrainConfig
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+    from mmtg_tpu_torch.params import tree_leaves
+
+    _, _, zero1, impl, _, _ = MESH_TRAIN_RUNS[name]
+    tcfg = TrainConfig(dtype="float32", remat=True, lr=1e-4, alpha=0.2, attn_impl=impl)
+    full, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params, device=DEVICE)
+    state = ttrain.shard_train_state(full, mcfg, mesh, zero1=zero1)
+    del full
+    layout = pmesh.train_layout(mesh)
+    local = {k: v[pmesh.local_rows(v.shape[0], mesh)] for k, v in batch.items()}
+    grads, num = ttrain._numerators(
+        state.params, const, mcfg, dcfg, tcfg, local, 3, None,
+        tp_group=layout.split_group if layout.tp > 1 else None, pp=pp)
+    grads, num, _ = ttrain._MeshSums(layout, state.params).reduce(grads, num)
+    total = float(ttrain._metrics(num)["total"])
+    grads = tree_leaves(ttrain._full_tree(ttrain._unflatten(state.params, grads), mcfg,
+                                          layout))
+    step = ttrain.make_train_step(mcfg, dcfg, tcfg, tx, pp=pp, zero1=zero1, mesh=mesh)
+    for _ in range(2):
+        state, _ = step(state, const, local, 3)
+    same = _replicated_bit_equal(state.params, layout)
+    gathered = ttrain.gather_train_state(state, mcfg, mesh, zero1=zero1)
+    r = dict(replicated_bit_equal=same)
+    what = f"phase 20 {name} f32"
+    check(same, f"{what}: a replicated leaf differs between ranks")
+    if ref is not None:
+        def err(a, b):
+            return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+        r.update(loss_abs_err=abs(total - ref["total"]), grad_max_abs_err=err(
+            grads, ref["grads"]), params_max_abs_err=err(
+            tree_leaves(gathered.params), ref["params"]), mu_max_abs_err=err(
+            tree_leaves(gathered.opt_state["mu"]), ref["mu"]), nu_max_abs_err=err(
+            tree_leaves(gathered.opt_state["nu"]), ref["nu"]))
+        for k in ("loss_abs_err", "grad_max_abs_err", "params_max_abs_err",
+                  "mu_max_abs_err", "nu_max_abs_err"):
+            check(r[k] <= MESH_LOGIT_TOL, f"{what}: {k} {r[k]:.3g} > {MESH_LOGIT_TOL} "
+                  "against the single-device step")
+    del state, step, gathered, grads
+    torch.cuda.empty_cache()
+    return r
+
+
+def _shard_kernels(name, results, gen, batch):
+    """The run's attention function at this rank's shapes against its plain
+    version, timed beside SDPA: #8 on a TP rank's 6 heads, #9 on a data
+    rank's packed rows (their real segment ids)."""
+    import torch
+
+    from mmtg_tpu_torch.ops import train_attention as ta
+    from mmtg_tpu_torch.parallel import mesh as pmesh  # noqa: F401
+
+    hd, lines = TRAIN_HD, []
+    packed = MESH_TRAIN_RUNS[name][4]
+    heads = H // MESH_TRAIN_RUNS[name][1][1] if not packed else H
+    if packed:
+        seg = batch["seg"]
+        B, T = seg.shape
+        tril = torch.ones(T, T, dtype=torch.bool, device=DEVICE).tril()
+        allowed = (seg[:, :, None] == seg[:, None, :]) & tril
+        mask, pairs = seg.contiguous(), float(heads * int(allowed.sum()))
+        sdpa_mask = allowed[:, None]
+        fn, plain, tols = (ta.mha_train_packed_seg, ta.mha_train_packed_seg_plain,
+                           SHARD_SEG_TOL)
+    else:
+        B, T = MESH_TRAIN_B // MESH_TRAIN_RUNS[name][1][0], TRAIN_T
+        mask = _key_bias(B, T)
+        pairs, sdpa_mask = B * heads * T * (T + 1) / 2, _sdpa_mask(mask, T)
+        fn, plain, tols = ta.mha_train_packed, ta.mha_train_packed_plain, TRAIN_TOL
+    S3 = 3 * heads * hd
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B, T, S3, generator=gen, device=DEVICE).to(dtype)
+        qb = (torch.randn(S3, generator=gen, device=DEVICE) * 0.1).to(dtype)
+        co = torch.randn(B, T, heads * hd, generator=gen, device=DEVICE).to(dtype)
+
+        def sdpa_inputs():
+            q, k, v = (qkv + qb).view(B, T, 3, heads, hd).permute(2, 0, 3, 1, 4)
+            return q, k, v, sdpa_mask
+
+        lines += _attention_vs_plain(
+            results, fn.__name__, fn, plain, dtype, B, qkv, qb, mask, co, hd ** -0.5,
+            sdpa_inputs, _io_bytes(B, T, S3, heads * hd, qkv.element_size()), pairs,
+            hd, tols=tols, heads=heads, key=f"{name}:H{heads}xB{B}xT{T}")
+        del qkv, qb, co
+        torch.cuda.empty_cache()
+    return lines
+
+
+def mesh_train_job(spec_path):
+    """One rank of phase 20, started by torchrun: each run of the spec on its
+    mesh — bf16 steps timed, the f32 step against the single-device step, the
+    attention function at this rank's shapes. Writes rank<r>.json."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from mmtg_tpu_torch.kernels import _build
+    from mmtg_tpu_torch.parallel import mesh as pmesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = pmesh.init_distributed(DEVICE)
+    t0 = time.perf_counter()
+    _build.load()  # the library phase 1 built; a rank waits if one is building
+    res = dict(rank=info.rank, world=info.world_size, backend=info.backend,
+               device=str(info.device), load_s=time.perf_counter() - t0, runs={})
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    g = mcfg.gpt2
+    mcfg32 = dataclasses.replace(mcfg, dropout=0.0, gpt2=dataclasses.replace(
+        g, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0))
+    to_dev = lambda b: {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}  # noqa: E731
+    batches = {False: (_train_batch(MESH_TRAIN_B, dcfg, 8),
+                       _train_batch(MESH_TRAIN_F32_B, dcfg, 9))}
+    if any(MESH_TRAIN_RUNS[n][4] for n in spec["runs"]):
+        _, pbs = packed_batches(dcfg, 5 * MESH_PACK_ROWS, MESH_PACK_ROWS, 5)
+        packed = to_dev(pbs[0])
+        batches[True] = (packed, {k: v[:MESH_PACK_F32_ROWS] for k, v in packed.items()})
+    refs = {}
+    if info.rank == 0:  # the single-device f32 references, once a batch kind
+        for kind, (_, b32) in batches.items():
+            refs[kind] = _single_device_f32(mcfg32, dcfg, params, const, b32)
+    gen = torch.Generator(device=DEVICE).manual_seed(20 + info.rank)
+    for name in spec["runs"]:
+        packed = MESH_TRAIN_RUNS[name][4]
+        mesh, pp = _mesh_for(name, info.device)
+        r = _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const,
+                             batches[packed][0])
+        if name != "tp_head_major":
+            r["f32"] = _mesh_f32_compare(name, mesh, pp, mcfg32, dcfg, params, const,
+                                         batches[packed][1], refs.get(packed))
+        if name in ("tp", "packed"):
+            results = {}
+            local = {k: v[pmesh.local_rows(v.shape[0], mesh)]
+                     for k, v in batches[packed][0].items()}
+            r["kernel_lines"] = _shard_kernels(name, results, gen, local)
+            r["kernels"] = {"|".join(str(x) for x in k): v for k, v in results.items()}
+        res["runs"][name] = r
+        dist.barrier()
+    with open(os.path.join(spec["out"], f"rank{info.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+MESH_CLI_CMD = ("-m", "mmtg_tpu_torch.train")
+
+
+def _mesh_train_cli(paths, tmp):
+    """The train CLI under torchrun at depth 2 (default device: the card):
+    an epoch on --mesh_data 2 --zero1, --resume of its save path on
+    --mesh_model 2, then the single-device generate CLI on that save path."""
+    import dataclasses
+
+    import torch
+
+    from mmtg_tpu_torch import generate as gen_cli
+
+    mcfg, dcfg = model_configs()
+    mcfg = dataclasses.replace(mcfg, gpt2=dataclasses.replace(mcfg.gpt2, n_layer=2))
+    cfg_json = os.path.join(tmp, "gpt2_depth2.json")
+    with open(cfg_json, "w") as f:
+        json.dump(dataclasses.asdict(mcfg.gpt2), f)
+    save = os.path.join(tmp, "mesh_ckpt")
+    args = ["--train_data_path", paths["train"], "--val_data_path", paths["val"],
+            "--vocab_path", paths["vocab"], "--token_emb_path", paths["emb"],
+            "--model_config_json", cfg_json, "--batch_size", "8", "--val_batch_size",
+            "8", "--curriculums", "0,0", "--alpha", "0.2", "--lr", "1e-4",
+            "--val_interval_ratio", "1.0", "--log_interval", "1", "--save_model",
+            "--save_path", save]
+    here = os.path.dirname(os.path.abspath(__file__))
+    state_dir = os.path.join(save, "train_state")
+    t0 = time.perf_counter()
+    _torchrun(2, [*MESH_CLI_CMD, *args, "--epochs", "1", "--mesh_data", "2", "--zero1"],
+              MESH_TRAIN_TIMEOUT_S, here)
+    zero1_s = time.perf_counter() - t0
+    first = sorted(os.listdir(state_dir))
+    check(first == ["step_00000002.pt"], f"phase 20 CLI --zero1 checkpoints: {first}")
+    t0 = time.perf_counter()
+    _torchrun(2, [*MESH_CLI_CMD, *args, "--epochs", "2", "--resume", "--mesh_model", "2"],
+              MESH_TRAIN_TIMEOUT_S, here)
+    resume_s = time.perf_counter() - t0
+    second = sorted(os.listdir(state_dir))
+    check(second == ["step_00000002.pt", "step_00000004.pt"],
+          f"phase 20 CLI checkpoints after --resume on --mesh_model 2: {second}")
+    samples = os.path.join(tmp, "samples_mesh.txt")
+    t0 = time.perf_counter()
+    gen_cli.main(["--data_path", paths["test"], "--model_path", save,
+                  "--tokenizer_path", paths["vocab"], "--token_emb_path", paths["emb"],
+                  "--batch_size", "4", "--n_samples", "2", "--save_samples",
+                  "--save_samples_path", samples], mcfg=mcfg, dcfg=dcfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    with open(samples, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(len(lines) == 4 and all(ln.strip() for ln in lines),
+          f"phase 20 generate CLI on the mesh save path wrote {lines}")
+    return dict(zero1_epoch_s=zero1_s, resume_tp_s=resume_s, generate_s=gen_s,
+                checkpoints=second)
+
+
+def phase_mesh_train(out, gpu, paths, tmp):
+    """Phase 20: training over the mesh (see the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    here = os.path.abspath(__file__)
+    runs, lines = {}, []
+    for nproc, names in MESH_TRAIN_JOBS:
+        job_dir = os.path.join(tmp, f"mesh_train_job{nproc}")
+        os.makedirs(job_dir, exist_ok=True)
+        spec_path = os.path.join(job_dir, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(dict(runs=list(names), out=job_dir), f)
+        t0 = time.perf_counter()
+        _torchrun(nproc, [*MESH_TRAIN_CMD, spec_path], MESH_TRAIN_TIMEOUT_S,
+                  os.path.dirname(here))
+        job_s = time.perf_counter() - t0
+        got = []
+        for r in range(nproc):
+            with open(os.path.join(job_dir, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        for name in names:
+            per_rank = [g["runs"][name] for g in got]
+            m = dict(per_rank[0], job_s=job_s, backend=got[0]["backend"],
+                     step_ms_ranks=[p["step_ms"] for p in per_rank],
+                     peak_memory_gib_ranks=[p["peak_memory_gib"] for p in per_rank],
+                     moment_bytes_ranks=[p["moment_bytes"] for p in per_rank])
+            for p in per_rank[1:]:
+                check(p["launches"] == m["launches"] and p["losses"] == m["losses"],
+                      f"phase 20 {name}: the ranks launched or reported differently")
+            if "kernel_lines" in m:
+                m["kernel_lines_ranks"] = [p["kernel_lines"] for p in per_rank]
+            runs[name] = m
+            f32 = m.get("f32", {})
+            lines.append(
+                f"{name} {MESH_TRAIN_RUNS[name][1]} ({m['backend']}, {m['rows']} rows a "
+                f"rank): step {m['step_ms']:.1f} ms, loss {m['losses'][0]:.4f} -> "
+                f"{m['losses'][-1]:.4f}, launches a rank "
+                f"{dict((k, v) for k, v in m['launches'].items() if v)}, collectives a "
+                f"step {m['collectives_per_step']} "
+                f"({sum(m['collective_mb_per_step'].values()):.0f} MB), "
+                f"{sum(m['collective_ms_timed_step'].values()):.1f} ms of a "
+                f"{m['timed_step_ms']:.1f} ms synchronized step, peak "
+                f"{max(m['peak_memory_gib_ranks']):.2f} GiB, moments "
+                f"{m['moment_bytes'] / 2 ** 20:.0f} MiB a rank"
+                + (f"; f32 vs one card: loss {f32['loss_abs_err']:.2g}, grads "
+                   f"{f32['grad_max_abs_err']:.2g}, params {f32['params_max_abs_err']:.2g}, "
+                   f"mu {f32['mu_max_abs_err']:.2g}, nu {f32['nu_max_abs_err']:.2g}"
+                   if "loss_abs_err" in f32 else "")
+                + ("; kernels at the shard shapes = plain: " + " | ".join(m["kernel_lines"])
+                   if "kernel_lines" in m else ""))
+    check(runs["zero1"]["moment_bytes"] <= 0.51 * runs["dp"]["moment_bytes"],
+          "phase 20: ZeRO-1's moments are not half of DP's")
+    cli = _mesh_train_cli(paths, tmp)
+    wall = time.perf_counter() - t_phase
+    out["mesh_train"] = dict(runs=runs, cli=cli, phase_s=wall)
+    torch.cuda.synchronize()
+    print(f"phase 20 training over the mesh ({torch.cuda.device_count()} card(s), on "
+          f"{gpu}, {wall:.1f} s; global batch {MESH_TRAIN_B} bf16, {MESH_TRAIN_F32_B} "
+          f"f32): ok; " + "; ".join(lines)
+          + f"; train CLI under torchrun (2 layers): --mesh_data 2 --zero1 epoch "
+          f"{cli['zero1_epoch_s']:.1f} s, --resume on --mesh_model 2 "
+          f"{cli['resume_tp_s']:.1f} s, single-device generate on its save path "
+          f"{cli['generate_s']:.1f} s")
+    return {name: m["launches"] for name, m in runs.items()}
+
+
 # (name, source, the TPU kernel it replaces, the phase whose run counts its
 # launches, the key of its phase-2 result at its main path's shape)
 _TA = "mmtg_tpu_torch/csrc/train_attention.cu"
@@ -2756,7 +3201,11 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (the kernels against their plain "
                          "versions): no main path, no kernels line")
+    ap.add_argument("--mesh-train-only", action="store_true",
+                    help="phase 1 (the build), then phase 20 (training over the "
+                         "mesh) alone: no kernels line")
     ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-train-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2770,6 +3219,8 @@ def main(argv=None) -> int:
 
     if args.mesh_job:  # one rank of phase 19, started by phase_mesh
         return mesh_job(args.mesh_job)
+    if args.mesh_train_job:  # one rank of phase 20, started by phase_mesh_train
+        return mesh_train_job(args.mesh_train_job)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2777,6 +3228,15 @@ def main(argv=None) -> int:
     phase_build(out, args.build_serial)
     gpu = gpu_line()
     out["gpu"] = gpu
+    if args.mesh_train_only:
+        tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
+        try:
+            phase_mesh_train(out, gpu, _cli_fixtures(tmp, model_configs()[1]), tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        _write_json(args.json, out)
+        print(f"gpu: {gpu}")
+        return 0
     results = phase_kernels(out)
     if args.kernels_only:
         _write_json(args.json, out)
@@ -2806,6 +3266,7 @@ def main(argv=None) -> int:
         phase_english(out, gpu, tmp)
         phase_predict(out, gpu, paths, tmp)
         launches["mesh"] = phase_mesh(out, gpu, paths, tmp)
+        launches["mesh_train"] = phase_mesh_train(out, gpu, paths, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2834,6 +3295,19 @@ def main(argv=None) -> int:
                                  f"B{b}": {k: results[(name, "bfloat16", f"B{b}")][k]
                                            for k in ("ms", "per_layer_step_ms", "bound_ms")}
                                  for b in OTHER_BATCHES})
+        if name in TRAIN_FNS:
+            # each mesh run's steps (phase 20), fwd + bwd launches of one rank
+            extra["mesh_train_launches_per_rank"] = {
+                run: counts_[f"{name}_fwd"] + counts_[f"{name}_bwd"]
+                for run, counts_ in launches["mesh_train"].items()
+                if counts_[f"{name}_fwd"]}
+            check(bool(extra["mesh_train_launches_per_rank"]),
+                  f"{name} was not launched on the mesh train path (phase 20)")
+            extra["mesh_shard_shapes"] = {
+                k: {x: v[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "max_abs_err")}
+                for run in out["mesh_train"]["runs"].values()
+                for k, v in run.get("kernels", {}).items() if k.startswith(name + "|")}
         if name in MESH_KERNELS:
             # each mesh's runs (phase 19), launches of one rank
             extra["mesh_launches_per_rank"] = {
@@ -2852,7 +3326,7 @@ def main(argv=None) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 19 phases in {out['total_s']:.1f} s")
+    print(f"chip_smoke: 20 phases in {out['total_s']:.1f} s")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

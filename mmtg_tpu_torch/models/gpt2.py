@@ -11,11 +11,15 @@ per-block remat, attention through the hand-written train-attention kernels,
 :mod:`mmtg_tpu_torch.ops.train_attention`, with a key-padding mask or, for
 packed rows, segment ids) and the prefill (:func:`prefill_cache`, plain
 PyTorch attention — the JAX package runs XLA attention there too). No
-pipeline parallelism, no selective remat policies; tensor parallelism in the
-prefill and the decode step only (``tp_group``: this rank holds its heads'
-QKV / MLP columns and the matching rows of the two output projections,
-:mod:`mmtg_tpu_torch.parallel.mesh`, and the row-parallel partial products
-are summed over the group before their replicated bias). The one-token decode
+selective remat policies yet. Tensor parallelism (``tp_group``: this rank
+holds its heads' QKV / MLP columns and the matching rows of the two output
+projections, :mod:`mmtg_tpu_torch.parallel.mesh`, and the row-parallel
+partial products are summed over the group before their replicated bias) in
+training, the prefill and the decode step; in training the sums are Megatron's
+two conjugate operators (:func:`copy_to_tp`, :func:`reduce_from_tp`), so the
+backward sums the input gradients of the column-parallel products. GPipe
+pipeline parallelism of the train path (``pp``,
+:mod:`mmtg_tpu_torch.parallel.pipeline`). The one-token decode
 step (:func:`gpt2_decode_step`) attends, for CUDA tensors, through the
 hand-written decode-attention kernel
 (:mod:`mmtg_tpu_torch.ops.decode_attention`: full-precision, int8, int4 and
@@ -50,6 +54,7 @@ from mmtg_tpu_torch.ops.decode_megakernel import (
     decode_block_fused,
     decode_block_fused_plain,
 )
+from mmtg_tpu_torch.parallel.mesh import all_reduce_
 from mmtg_tpu_torch.ops.train_attention import (
     mha_train,
     mha_train_packed,
@@ -177,6 +182,98 @@ def tp_sum(x: torch.Tensor, group) -> torch.Tensor:
 tp_sum.calls = 0
 
 
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward, sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f`` at the input of a column-parallel product: ``x`` as
+    it is, and in the backward its gradient summed over the ``model`` group
+    (each rank's product saw only its columns). ``group=None``: identity."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g`` at the output of a row-parallel product: the partial
+    products summed over the ``model`` group, the gradient passed through
+    as it is. ``group=None``: identity."""
+    return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+_M32 = 0xFFFFFFFF
+TP_SALT, MICRO_SALT, DATA_SALT = 0x6A09E667, 0xBB67AE85, 0x3C6EF372
+
+
+def _fmix32(x: int) -> int:
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def fold_seed(seed: int, k: int, salt: int) -> int:
+    """A 31-bit seed from ``seed`` and an index ``k`` (a TP rank, a
+    micro-batch, a data rank; ``salt`` tells which): murmur3's finaliser,
+    a bijection, over the seed mixed with the salt, then over that plus an
+    odd multiple of ``k + 1``, so every ``k`` gives another 32-bit value."""
+    x = _fmix32((int(seed) * 0x9E3779B1 + salt) & _M32)
+    return _fmix32((x + (int(k) + 1) * 0x27D4EB2F) & _M32) & 0x7FFFFFFF
+
+
+class DropoutSeeds(NamedTuple):
+    """The seeds of one forward's dropout masks, drawn before the layer
+    loop: the embedding's, each layer's two residual ones and its attention
+    one."""
+
+    embd: int
+    resid: list  # [(k_resid1, k_resid2)] a layer
+    attn: list  # [int] a layer
+
+    def fold(self, k: int, salt: int, attn_only: bool = False) -> "DropoutSeeds":
+        f = lambda x: fold_seed(x, k, salt)  # noqa: E731
+        resid = self.resid if attn_only else [(f(a), f(b)) for a, b in self.resid]
+        return DropoutSeeds(self.embd, resid, [f(a) for a in self.attn])
+
+
+def dropout_seeds(gen: torch.Generator, n_layer: int,
+                  tp_index: Optional[int] = None) -> DropoutSeeds:
+    """``1 + 3L`` draws from ``gen``. Under tensor parallelism the attention
+    seeds are folded with the rank's ``model`` index (the kernels' hash
+    numbers heads locally, so each rank's heads get masks of their own),
+    while the embedding and residual seeds stay the same on every rank of
+    the group: those masks drop elements of the replicated residual stream,
+    which must stay identical across the group (Megatron's rule)."""
+    draws = torch.randint(0, 2 ** 31 - 1, (1 + 3 * n_layer,), generator=gen,
+                          device=gen.device).cpu().tolist()
+    seeds = DropoutSeeds(draws[0], [(draws[2 + 3 * l], draws[3 + 3 * l])
+                                    for l in range(n_layer)],
+                         draws[1::3][:n_layer])
+    return seeds if tp_index is None else seeds.fold(tp_index, TP_SALT,
+                                                     attn_only=True)
+
+
 _ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel",
                "kernel_padded": "kernel_padded", "plain": "plain"}
 # the segment id of the slots that pad a packed row to a multiple of 128: they
@@ -199,6 +296,7 @@ def gpt2_forward(
     lm_head: bool = True,
     segment_ids: Optional[torch.Tensor] = None,
     tp_group=None,
+    pp: Optional[Tuple] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward (train / prefill / teacher forcing).
 
@@ -233,10 +331,20 @@ def gpt2_forward(
         :func:`~mmtg_tpu_torch.ops.train_attention.mha_train_packed_seg`
         (only the standard slab takes segment ids, as in the JAX package),
         ``"plain"`` its plain version.
-      tp_group: the ``model`` process group of a tensor-parallel prefill
-        (``return_kv`` only): ``params`` are this rank's shard, the head
-        count and width come from its QKV columns, and the returned k/v hold
-        its heads only.
+      tp_group: the ``model`` process group of a tensor-parallel forward:
+        ``params`` are this rank's shard (:func:`mmtg_tpu_torch.parallel.
+        mesh.shard_params`), the head count and width come from its QKV
+        columns, attention runs on its heads, and with ``return_kv`` the
+        returned k/v hold its heads only. The train path sums through
+        :func:`copy_to_tp` / :func:`reduce_from_tp` (differentiable; also
+        under remat), the prefill through :func:`tp_sum`. Dropout follows
+        :func:`dropout_seeds`.
+      pp: ``(mesh, n_micro)``: the layer stack GPipe-pipelined over the
+        ``pipe`` axis of a ``("data", "pipe")`` mesh
+        (:func:`mmtg_tpu_torch.parallel.pipeline.pipeline_stack`);
+        ``params["h"]`` holds this stage's layers. Each micro-batch's
+        dropout seeds are folded with its index. Train path only (raises
+        with ``return_kv`` or ``segment_ids``).
     Returns:
       (logits ``[B, T, V]`` or hidden, per-layer (k, v) each ``[L, B, T,
       D]`` when ``return_kv``).
@@ -256,19 +364,16 @@ def gpt2_forward(
     if return_kv and segment_ids is not None:
         raise ValueError("gpt2_forward: segment_ids is train-path only (no "
                          "return_kv)")
-    if tp_group is not None and not return_kv:
-        raise NotImplementedError("gpt2_forward: tensor parallelism is ported "
-                                  "for the prefill (return_kv) only; the train "
-                                  "path's is the next parallelism slice")
-    embd_seed, layer_seeds, attn_seeds = None, [(None, None)] * L, None
+    if pp is not None and (return_kv or segment_ids is not None):
+        raise ValueError("pipeline parallelism is train-path only (return_kv "
+                         "and segment_ids unsupported)")
+    if pp is not None and tp_group is not None:
+        raise ValueError("gpt2_forward: pp and tp_group are exclusive")
+    seeds = None
     if dropout:
-        draws = torch.randint(0, 2 ** 31 - 1, (1 + 3 * L,), generator=dropout_gen,
-                              device=dropout_gen.device).cpu()
-        embd_seed = int(draws[0])
-        layer_seeds = [(int(draws[2 + 3 * l]), int(draws[3 + 3 * l]))
-                       for l in range(L)]
-        attn_seeds = draws[1::3].to(device=h.device, dtype=torch.int32)
-        h = _dropout(h, cfg.embd_pdrop, embd_seed)
+        tp_index = dist.get_rank(tp_group) if tp_group is not None else None
+        seeds = dropout_seeds(dropout_gen, L, tp_index)
+        h = _dropout(h, cfg.embd_pdrop, seeds.embd)
     attn_rate = cfg.attn_pdrop if dropout else 0.0
 
     hd = cfg.head_dim
@@ -308,54 +413,92 @@ def gpt2_forward(
                     else torch.ones(B, T, dtype=torch.float32, device=h.device))
             mask = torch.nn.functional.pad(mask, (0, Tp - T))
             bias = ((1.0 - mask) * NEG_INF).contiguous()  # [B, Tp] key bias
-        if attn_seeds is None:
-            attn_seeds = torch.zeros(L, dtype=torch.int32, device=h.device)
         T = Tp
 
     p = params["h"]
     eps = cfg.layer_norm_epsilon
 
-    def block(h, l):
-        k_resid1, k_resid2 = layer_seeds[l]
-        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], eps)
+    def attn_seed_tensor(attn):
+        """The attention seeds ``[n]`` on the device (zeros: no dropout)."""
+        if attn is None:
+            return torch.zeros(L, dtype=torch.int32, device=h.device)
+        return torch.tensor(attn, dtype=torch.int32, device=h.device)
+
+    def layer(h, lp, resid, attn_seed, bias):
+        """One block on ``h`` ``[b, T, D]``: ``lp`` the layer's parameters,
+        ``resid`` its two residual seeds, ``attn_seed`` ``[1]`` int32."""
+        k_resid1, k_resid2 = resid
+        a = layer_norm(h, lp["ln1_g"], lp["ln1_b"], eps)
         k = v = None
-        w_proj = p["attn_proj_w"][l]
+        w_proj = lp["attn_proj_w"]
+        b = h.shape[0]
         if return_kv:
-            q, k, v = (a @ p["attn_w"][l] + p["attn_b"][l]).split(D_kv, dim=-1)
-            qh, kh, vh = (t.view(B, T, n_head, hd).transpose(1, 2)
+            q, k, v = (a @ lp["attn_w"] + lp["attn_b"]).split(D_kv, dim=-1)
+            qh, kh, vh = (t.view(b, T, n_head, hd).transpose(1, 2)
                           for t in (q, k, v))
             # f32-accumulated score dot, then the model dtype (as the JAX
             # einsum with preferred_element_type=f32)
             scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
             probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
-            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(B, T, D_kv)
+            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(b, T, D_kv)
+            attn_out = tp_sum(ctx @ w_proj, tp_group)
         else:
             # the projection bias is added inside the attention function
-            w_qkv, b_qkv = p["attn_w"][l], p["attn_b"][l]
+            w_qkv, b_qkv = lp["attn_w"], lp["attn_b"]
             if attn_impl == "kernel_padded":
                 w_qkv, b_qkv = pad_qkv_weights(w_qkv, b_qkv, n_head, hd)
                 w_proj = pad_proj_weights(w_proj, n_head, hd)
-            ctx = attend(a @ w_qkv, b_qkv, bias, attn_seeds[l:l + 1], n_head,
-                         attn_rate, 1.0 / math.sqrt(hd))
-        attn_out = tp_sum(ctx @ w_proj, tp_group) + p["attn_proj_b"][l]
-        h = h + _dropout(attn_out, cfg.resid_pdrop, k_resid1)
-        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], eps)
-        m = gelu_new(m @ p["mlp_fc_w"][l] + p["mlp_fc_b"][l])
-        m = tp_sum(m @ p["mlp_proj_w"][l], tp_group) + p["mlp_proj_b"][l]
-        return h + _dropout(m, cfg.resid_pdrop, k_resid2), k, v
+            ctx = attend(copy_to_tp(a, tp_group) @ w_qkv, b_qkv, bias, attn_seed,
+                         n_head, attn_rate, 1.0 / math.sqrt(hd))
+            attn_out = reduce_from_tp(ctx @ w_proj, tp_group)
+        h = h + _dropout(attn_out + lp["attn_proj_b"], cfg.resid_pdrop, k_resid1)
+        m = layer_norm(h, lp["ln2_g"], lp["ln2_b"], eps)
+        if not return_kv:
+            m = copy_to_tp(m, tp_group)
+        m = gelu_new(m @ lp["mlp_fc_w"] + lp["mlp_fc_b"])
+        m = m @ lp["mlp_proj_w"]
+        m = tp_sum(m, tp_group) if return_kv else reduce_from_tp(m, tp_group)
+        return h + _dropout(m + lp["mlp_proj_b"], cfg.resid_pdrop, k_resid2), k, v
 
+    no_resid = (None, None)
     ks, vs = [], []
-    for l in range(L):
-        if remat and torch.is_grad_enabled():
-            # masks are functions of their seeds, so the generators' global
-            # state need not be saved and restored
-            h, k, v = torch.utils.checkpoint.checkpoint(
-                block, h, l, use_reentrant=False, preserve_rng_state=False)
-        else:
-            h, k, v = block(h, l)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
+    if pp is not None:
+        from mmtg_tpu_torch.parallel.pipeline import pipeline_stack
+
+        pp_mesh, n_micro = pp
+        Lp = next(iter(p.values())).shape[0]
+        first = pp_mesh.get_local_rank(1) * Lp
+
+        def run_stage(x, sp, aux, m):
+            """This stage's layers on micro-batch ``m`` (its seeds folded
+            with ``m``)."""
+            s = seeds.fold(m, MICRO_SALT) if seeds is not None else None
+            attn = attn_seed_tensor(s.attn if s is not None else None)
+            for j in range(Lp):
+                l = first + j
+                x, _, _ = layer(x, {k: v[j] for k, v in sp.items()},
+                                s.resid[l] if s is not None else no_resid,
+                                attn[l:l + 1], aux[0])
+            return x
+
+        h = pipeline_stack(run_stage, p, h, [bias], pp_mesh, n_micro)
+    else:
+        attn = (attn_seed_tensor(seeds.attn if seeds is not None else None)
+                if not return_kv else None)
+        for l in range(L):
+            lp = {k: v[l] for k, v in p.items()}
+            args = (h, lp, seeds.resid[l] if seeds is not None else no_resid,
+                    attn[l:l + 1] if attn is not None else None, bias)
+            if remat and torch.is_grad_enabled():
+                # masks are functions of their seeds, so the generators'
+                # global state need not be saved and restored
+                h, k, v = torch.utils.checkpoint.checkpoint(
+                    layer, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, k, v = layer(*args)
+            if return_kv:
+                ks.append(k)
+                vs.append(v)
     if T != T_real:
         h = h[:, :T_real]
     h = layer_norm(h, params["lnf_g"], params["lnf_b"], eps)

@@ -134,6 +134,8 @@ def mmtg_forward_train(
     remat: bool = False,
     attn_impl: str = "auto",
     lm_head: bool = True,
+    tp_group=None,
+    pp=None,
 ) -> MMTGOutput:
     """Teacher-forced forward (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train`).
 
@@ -142,7 +144,12 @@ def mmtg_forward_train(
     chunked loss) plus the per-sample alpha-attention KL. The encoder runs
     the GRU scan under autograd, never the inference-only fused GRU kernel.
     ``dropout_gen`` with ``deterministic=False`` turns dropout on: the
-    encoder draws from it first, then the decoder."""
+    encoder draws from it first, then the decoder.
+
+    ``tp_group`` / ``pp``: the GPT-2 stack tensor-parallel or pipelined
+    (:func:`~mmtg_tpu_torch.models.gpt2.gpt2_forward`); the encoder, the
+    alpha / beta attention and the projector run whole on every rank of a
+    data shard, as in the JAX package."""
     gen = dropout_gen if not deterministic else None
     fused, kl = encode_experiences(
         params, mcfg, batch["topic_emb"], batch["img_embs"], batch["r_embs"],
@@ -157,7 +164,7 @@ def mmtg_forward_train(
     out, _ = gpt2_forward(
         params["gpt2"], mcfg.gpt2, embeds, positions, type_ids, attn_mask,
         dropout_gen=gen, deterministic=deterministic, remat=remat,
-        attn_impl=attn_impl, lm_head=lm_head)
+        attn_impl=attn_impl, lm_head=lm_head, tp_group=tp_group, pp=pp)
     if not lm_head:
         return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)
     lm_loss = None
@@ -180,6 +187,8 @@ def mmtg_forward_train_packed(
     remat: bool = False,
     attn_impl: str = "auto",
     lm_head: bool = True,
+    tp_group=None,
+    pp=None,
 ) -> MMTGOutput:
     """Teacher-forced forward over PACKED rows
     (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train_packed`; the rows come
@@ -192,7 +201,8 @@ def mmtg_forward_train_packed(
     type ids, per-token fused-window gathers and segment-masked attention.
     Explicitly NON-parity (see pack.py's token-accounting contract); the
     parity path is :func:`mmtg_forward_train`. ``kl_per_sample`` is ``[R,
-    S]``."""
+    S]``. ``tp_group`` / ``pp`` as in :func:`mmtg_forward_train` (the
+    trainer packs rows under data parallelism only, as the JAX trainer)."""
     gen = dropout_gen if not deterministic else None
     R, S, E = pbatch["topic_emb"].shape
     flat = lambda x: x.reshape((R * S,) + x.shape[2:])  # noqa: E731
@@ -216,7 +226,7 @@ def mmtg_forward_train_packed(
         params["gpt2"], mcfg.gpt2, embeds, pbatch["positions"],
         pbatch["type_ids"], attention_mask=None, dropout_gen=gen,
         deterministic=deterministic, remat=remat, attn_impl=attn_impl,
-        lm_head=lm_head, segment_ids=seg)
+        lm_head=lm_head, segment_ids=seg, tp_group=tp_group, pp=pp)
     kl = kl.reshape(R, S)
     if not lm_head:
         return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)

@@ -25,14 +25,30 @@ through a differentiable cast. The train state is UPDATED IN PLACE by a step
 ``--gpt2_ckpt`` reads ``pytorch_model.bin`` and ``model.safetensors``
 snapshots and reference ``.pth`` files.
 
-Not ported yet (the flags exist and raise): meshes (``--mesh_*``),
-``--zero1``, ``--multihost``; selective remat policies; Orbax checkpoints.
+Meshes, one process a rank under ``torchrun``
+(:mod:`mmtg_tpu_torch.parallel.mesh`, :mod:`mmtg_tpu_torch.parallel.pipeline`):
+``--mesh_data`` (0 = every rank of the job) x ``--mesh_model`` (Megatron
+tensor parallelism) or x ``--mesh_pipe`` (GPipe, ``--pp_microbatches``),
+``--zero1`` (the AdamW moments split over ``data``) and ``--multihost`` (a
+job whose ranks span nodes). The objective, the clip norm and the no-op of a
+batch that keeps no sample are the global batch's, so a mesh step equals the
+single-device step on the same global batch (dropout aside: its masks depend
+on the ranks' shapes). Every rank reads the same shuffled order and takes its
+rows; rank 0 logs and writes the FULL train state (parameters and moments
+gathered), which single-device ``generate`` / ``serve`` / ``--resume`` load
+and ``--resume`` on a mesh re-shards::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m mmtg_tpu_torch.train --mesh_data 2 --zero1 ...
+
+Not ported yet: selective remat policies; Orbax checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import math
 import os
 import time
@@ -55,6 +71,9 @@ from mmtg_tpu_torch.models.mmtg import (
     mmtg_forward_train,
     mmtg_forward_train_packed,
 )
+from mmtg_tpu_torch.models.gpt2 import DATA_SALT, fold_seed
+from mmtg_tpu_torch.parallel import mesh as pmesh
+from mmtg_tpu_torch.parallel.pipeline import gather_params_pp, shard_params_pp
 from mmtg_tpu_torch.params import init_params, tree_leaves, tree_map
 from mmtg_tpu_torch.utils.logging import (
     StepTimer,
@@ -108,13 +127,17 @@ class AdamW:
                 "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update_(self, params, grads, opt_state, keep: torch.Tensor) -> None:
+    def update_(self, params, grads, opt_state, keep: torch.Tensor,
+                norm: Optional[torch.Tensor] = None) -> None:
         """One update IN PLACE of ``params`` and ``opt_state``. Where the
         0-dim bool ``keep`` is False nothing changes: neither parameters nor
-        moments nor the count (and so the schedule)."""
+        moments nor the count (and so the schedule). ``norm``: the global
+        gradient norm to clip by, when ``grads`` are a part of the whole
+        (a mesh rank's shards), else computed from ``grads``."""
         leaves, gs = tree_leaves(params), tree_leaves(grads)
         mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
-        norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        if norm is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
         clip = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                            self.clip_norm / norm)
         count = opt_state["count"]
@@ -186,9 +209,14 @@ def loss_and_metrics(
     stage: int,
     dropout_gen: Optional[torch.Generator],
     deterministic: bool,
+    tp_group=None,
+    pp=None,
 ):
     """total = unlikelihood(curriculum-masked) + alpha·KL
-    (reference ``train.py:191-192``). Returns (total, metrics)."""
+    (reference ``train.py:191-192``) over this rank's rows. Returns (total,
+    metrics). ``tp_group`` / ``pp``: the GPT-2 stack tensor-parallel or
+    pipelined (:func:`~mmtg_tpu_torch.models.gpt2.gpt2_forward`); the
+    pipeline path always recomputes a stage in the backward (full remat)."""
     if tcfg.remat_policy not in ("auto", "full"):
         raise NotImplementedError(
             f"remat_policy {tcfg.remat_policy!r}: selective remat policies "
@@ -212,7 +240,7 @@ def loss_and_metrics(
             fwd_params, fwd_const, mcfg, dcfg, batch,
             dropout_gen=dropout_gen, deterministic=deterministic,
             remat=tcfg.remat and not deterministic, attn_impl=tcfg.attn_impl,
-            lm_head=not chunked)
+            lm_head=not chunked, tp_group=tp_group, pp=pp)
         if chunked:
             loss, weights, _ = packed_sequence_unlikelihood_loss_from_hidden(
                 out.hidden, fwd_params["gpt2"]["wte"], batch, stage)
@@ -227,7 +255,7 @@ def loss_and_metrics(
         fwd_params, fwd_const, mcfg, dcfg, batch,
         dropout_gen=dropout_gen, deterministic=deterministic,
         remat=tcfg.remat and not deterministic, attn_impl=tcfg.attn_impl,
-        lm_head=not chunked)
+        lm_head=not chunked, tp_group=tp_group, pp=pp)
     ratings = batch["rating"]
     weights = curriculum_sample_weights(ratings, stage)
     if "sample_mask" in batch:
@@ -245,7 +273,92 @@ def loss_and_metrics(
                    "total": total.detach(), "kept": weights.sum()}
 
 
-def make_train_step(mcfg, dcfg, tcfg, tx: AdamW):
+def _numerators(params, const, mcfg, dcfg, tcfg, batch, stage, rng, **mesh_kw):
+    """The batch's gradient and metric NUMERATORS: each of ``tcfg.grad_accum``
+    sequential chunks adds ``grad(total_c)·max(kept_c, 1)`` and ``m_c·max(
+    kept_c, 1)`` (a chunk's total is a kept-weighted mean, so these sum to
+    the whole batch's numerator). Returns (gradient leaves, ``[loss, kl,
+    total, kept]`` numerators)."""
+    leaves = tree_leaves(params)
+    N = tcfg.grad_accum
+    # every batch leaf is batch-leading (parity rows or packed rows)
+    B = next(iter(batch.values())).shape[0]
+    if B % N:
+        raise ValueError(f"batch {B} not divisible by grad_accum {N}")
+    g_acc, num = None, None
+    for i in range(N):
+        chunk = batch if N == 1 else {k: v[i * (B // N):(i + 1) * (B // N)]
+                                      for k, v in batch.items()}
+        total, m = loss_and_metrics(params, const, mcfg, dcfg, tcfg, chunk,
+                                    stage, rng, False, **mesh_kw)
+        k = m["kept"].clamp_min(1.0)
+        gs = torch.autograd.grad(total * k, leaves, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+        m_num = torch.stack([m["loss"] * k, m["kl"] * k, m["total"] * k,
+                             m["kept"]]).float()
+        if g_acc is None:
+            g_acc, num = gs, m_num
+        else:
+            for acc, g in zip(g_acc, gs):
+                acc.add_(g)
+            num = num + m_num
+    return g_acc, num
+
+
+def _metrics(num: torch.Tensor) -> Dict[str, torch.Tensor]:
+    denom = num[3].clamp_min(1.0)
+    return {"loss": num[0] / denom, "kl": num[1] / denom,
+            "total": num[2] / denom, "kept": num[3]}
+
+
+class _MeshSums:
+    """The reductions of a mesh step (:class:`mmtg_tpu_torch.parallel.mesh.
+    TrainLayout`): the replicated leaves' gradients and the metric
+    numerators in one vector summed over the whole job (ranks off part 0
+    contribute zeros), the sharded leaves' in one vector summed over
+    ``data``; then the global clip norm, whose sharded part is summed over
+    the ``model`` / ``pipe`` group."""
+
+    def __init__(self, layout, params):
+        self.layout = layout
+        self.sharded = layout.sharded_mask(params)
+
+    def _cat(self, tensors):
+        return torch.cat([t.reshape(-1) for t in tensors])
+
+    def _split(self, flat, like):
+        out, at = [], 0
+        for t in like:
+            out.append(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+        return out
+
+    def reduce(self, grads, num):
+        """(gradients of the global batch, metric numerators of the global
+        batch, the global gradient norm)."""
+        lay = self.layout
+        rep = [g for g, s in zip(grads, self.sharded) if not s]
+        shd = [g for g, s in zip(grads, self.sharded) if s]
+        flat = self._cat(rep + [num])
+        if lay.part > 0:
+            flat.zero_()
+        pmesh.all_reduce_(flat, None)
+        num = flat[-4:]
+        denom = num[3].clamp_min(1.0)
+        rep = [g / denom for g in self._split(flat[:-4], rep)]
+        norm2 = sum(g.square().sum() for g in rep)
+        if shd:
+            flat = pmesh.all_reduce_(self._cat(shd), lay.data_group)
+            shd = [g / denom for g in self._split(flat, shd)]
+            part = torch.stack([g.square().sum() for g in shd]).sum()
+            norm2 = norm2 + pmesh.all_reduce_(part, lay.split_group)
+        rep_it, shd_it = iter(rep), iter(shd)
+        grads = [next(shd_it) if s else next(rep_it) for s in self.sharded]
+        return grads, num, torch.sqrt(norm2)
+
+
+def make_train_step(mcfg, dcfg, tcfg, tx: AdamW, pp=None, zero1: bool = False,
+                    mesh=None):
     """One train step (grad → clip → AdamW → apply), in place on the state.
 
     ``tcfg.grad_accum`` = N splits the batch into N sequential micro-chunks
@@ -258,62 +371,167 @@ def make_train_step(mcfg, dcfg, tcfg, tx: AdamW):
     ``continue``s before the optimizer and the scheduler): parameters,
     moments and the schedule count stay, only ``step`` advances. The test is
     made on the device (``torch.where`` in :meth:`AdamW.update_`), so a step
-    reads nothing back to the host."""
+    reads nothing back to the host.
 
-    def grads_and_metrics(params, const, batch, stage, rng):
-        leaves = tree_leaves(params)
-        N = tcfg.grad_accum
-
-        def grad_of(total):
-            gs = torch.autograd.grad(total, leaves, allow_unused=True)
-            return [torch.zeros_like(p) if g is None else g
-                    for p, g in zip(leaves, gs)]
-
-        if N <= 1:
-            total, metrics = loss_and_metrics(params, const, mcfg, dcfg, tcfg,
-                                              batch, stage, rng, False)
-            return grad_of(total), metrics
-        # every batch leaf is batch-leading (parity rows or packed rows)
-        B = next(iter(batch.values())).shape[0]
-        if B % N:
-            raise ValueError(f"batch {B} not divisible by grad_accum {N}")
-        g_acc = [torch.zeros_like(p) for p in leaves]
-        num = {k: torch.zeros((), device=leaves[0].device)
-               for k in ("loss", "kl", "total", "kept")}
-        for i in range(N):
-            chunk = {k: v[i * (B // N):(i + 1) * (B // N)] for k, v in batch.items()}
-            total, m = loss_and_metrics(params, const, mcfg, dcfg, tcfg, chunk,
-                                        stage, rng, False)
-            k = m["kept"].clamp_min(1.0)
-            for acc, g in zip(g_acc, grad_of(total * k)):
-                acc.add_(g)
-            for name in ("loss", "kl", "total"):
-                num[name] = num[name] + m[name] * k
-            num["kept"] = num["kept"] + m["kept"]
-        denom = num["kept"].clamp_min(1.0)
-        return ([g / denom for g in g_acc],
-                {"loss": num["loss"] / denom, "kl": num["kl"] / denom,
-                 "total": num["total"] / denom, "kept": num["kept"]})
+    On a mesh (``mesh`` a ``("data", "model")`` ``DeviceMesh``, or ``pp =
+    (mesh, n_micro)`` with a ``("data", "pipe")`` one) the state holds this
+    rank's shard (:func:`shard_train_state`) and the batch its rows. The
+    same recombination runs over ``data``: each rank's numerators are summed
+    over the job and divided once by ``max(Σkept, 1)`` of the GLOBAL batch
+    (a mean of the ranks' means would be another objective when the ranks
+    keep different counts), and the no-op is decided from the global
+    ``Σkept``, so every rank steps or none does. The clip norm is the whole
+    model's. ``zero1``: each data rank updates its ``1/dp`` of the moments
+    (:class:`~mmtg_tpu_torch.parallel.mesh.Zero1Partition`) and one
+    ``all_gather`` over ``data`` rebuilds the parameters. Dropout: the
+    step's seed is folded with the data index (every data shard its own
+    masks; the same masks on the TP ranks and stages of a shard)."""
+    if pp is not None:
+        mesh = pp[0]
+    if mesh is None:
+        if zero1:
+            raise ValueError("zero1 needs a mesh")
+        return _single_device_step(mcfg, dcfg, tcfg, tx)
+    layout = pmesh.train_layout(mesh)
+    if zero1 and layout.pp > 1:
+        raise ValueError(ZERO1_PIPE_ERROR)
+    mesh_kw = dict(tp_group=layout.split_group if layout.tp > 1 else None, pp=pp)
 
     def train_step(state: TrainState, const: Dict, batch: Dict, stage: int):
-        grads, metrics = grads_and_metrics(state.params, const, batch,
-                                           int(stage), state.rng)
-        # tree_leaves order on both sides
-        tx.update_(tree_leaves(state.params), grads, state.opt_state,
-                   metrics["kept"] > 0)
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=state.rng))
+        gen = torch.Generator().manual_seed(
+            fold_seed(base, layout.data_index, DATA_SALT))
+        grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg, batch,
+                                 int(stage), gen, **mesh_kw)
+        grads, num, norm = _MeshSums(layout, state.params).reduce(grads, num)
+        metrics = _metrics(num)
+        keep = metrics["kept"] > 0
+        leaves = tree_leaves(state.params)
+        if not zero1:
+            tx.update_(leaves, grads, state.opt_state, keep, norm=norm)
+        else:
+            part = pmesh.Zero1Partition(leaves, layout.dp, layout.data_index)
+            mine = part.local(part.flat(leaves)).clone()
+            tx.update_([mine], [part.local(part.flat(grads))], state.opt_state,
+                       keep, norm=norm)
+            with torch.no_grad():
+                for p, new in zip(leaves, part.unflat(part.gather(mine,
+                                                                  layout.data_group))):
+                    p.copy_(new)
         return state._replace(step=state.step + 1), metrics
 
     return train_step
 
 
-def make_eval_step(mcfg, dcfg, tcfg):
+def _single_device_step(mcfg, dcfg, tcfg, tx):
+    def train_step(state: TrainState, const: Dict, batch: Dict, stage: int):
+        grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg, batch,
+                                 int(stage), state.rng)
+        metrics = _metrics(num)
+        denom = metrics["kept"].clamp_min(1.0)
+        # tree_leaves order on both sides
+        tx.update_(tree_leaves(state.params), [g / denom for g in grads],
+                   state.opt_state, metrics["kept"] > 0)
+        return state._replace(step=state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(mcfg, dcfg, tcfg, pp=None, mesh=None):
+    """The metrics of a batch, no dropout. On a mesh (as
+    :func:`make_train_step`) the batch is this rank's rows and the metrics
+    are the global batch's: kept-weighted numerators summed over ``data``."""
+    if pp is not None:
+        mesh = pp[0]
+    layout = pmesh.train_layout(mesh) if mesh is not None else None
+    tp_group = layout.split_group if layout is not None and layout.tp > 1 else None
+
     @torch.no_grad()
     def eval_step(params: Dict, const: Dict, batch: Dict, stage: int):
-        _, metrics = loss_and_metrics(params, const, mcfg, dcfg, tcfg, batch,
-                                      int(stage), None, True)
-        return metrics
+        _, m = loss_and_metrics(params, const, mcfg, dcfg, tcfg, batch,
+                                int(stage), None, True, tp_group=tp_group, pp=pp)
+        if layout is None:
+            return m
+        k = m["kept"].clamp_min(1.0)
+        num = torch.stack([m["loss"] * k, m["kl"] * k, m["total"] * k,
+                           m["kept"]]).float()
+        if layout.part > 0:
+            num.zero_()
+        return _metrics(pmesh.all_reduce_(num, None))
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# The train state on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _unflatten(tree, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) in ``tree``'s structure."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(tree)
+
+
+def _local_tree(tree, mcfg, layout):
+    if layout.pp > 1:
+        return shard_params_pp(tree, layout.pp, layout.part)
+    g = mcfg.gpt2
+    return pmesh.decode_shard(tree, g.n_head, g.head_dim, layout.tp, layout.part)
+
+
+def _full_tree(tree, mcfg, layout):
+    if layout.pp > 1:
+        return gather_params_pp(tree, layout.split_group)
+    g = mcfg.gpt2
+    return pmesh.gather_params(tree, g.n_head, g.head_dim, layout.split_group)
+
+
+def shard_train_state(state: TrainState, mcfg: ModelConfig, mesh,
+                      zero1: bool = False) -> TrainState:
+    """A full train state (every rank holds the same one) → this rank's
+    shard on ``mesh``: its TP shard or stage of the parameters and moments
+    (``zero1``: its flat ``1/dp`` chunk of the moments,
+    :class:`~mmtg_tpu_torch.parallel.mesh.Zero1Partition`). Copies: the
+    full state may be dropped."""
+    layout = pmesh.train_layout(mesh)
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                      _local_tree(state.params, mcfg, layout))
+    mu, nu = (tree_map(lambda x: x.detach().clone(),
+                       _local_tree(state.opt_state[k], mcfg, layout))
+              for k in ("mu", "nu"))
+    if zero1:
+        part = pmesh.Zero1Partition(tree_leaves(params), layout.dp,
+                                    layout.data_index)
+        mu, nu = (part.local(part.flat(tree_leaves(t))).clone() for t in (mu, nu))
+    opt = {"count": state.opt_state["count"].clone(), "mu": mu, "nu": nu}
+    return TrainState(params, opt, state.step, state.rng)
+
+
+def gather_train_state(state: TrainState, mcfg: ModelConfig, mesh,
+                       zero1: bool = False) -> TrainState:
+    """Inverse of :func:`shard_train_state`: the FULL single-device state,
+    assembled on every rank (every rank must call it: it gathers)."""
+    layout = pmesh.train_layout(mesh)
+    mu, nu = state.opt_state["mu"], state.opt_state["nu"]
+    if zero1:
+        leaves = tree_leaves(state.params)
+        part = pmesh.Zero1Partition(leaves, layout.dp, layout.data_index)
+        mu, nu = (_unflatten(state.params, [x.clone() for x in part.unflat(
+            part.gather(t, layout.data_group))]) for t in (mu, nu))
+    params = tree_map(lambda p: p.detach(), state.params)
+    full = [_full_tree(t, mcfg, layout) for t in (params, mu, nu)]
+    opt = {"count": state.opt_state["count"], "mu": full[1], "nu": full[2]}
+    return TrainState(full[0], opt, state.step, state.rng)
 
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -321,14 +539,25 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def local_batch(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global batch (every leaf batch-leading); the
+    batch must divide over the mesh's ``data`` axis."""
+    if mesh is None:
+        return batch
+    rows = pmesh.local_rows(next(iter(batch.values())).shape[0], mesh)
+    return {k: v[rows] for k, v in batch.items()}
+
+
 def evaluate(eval_step, params, const, dataset, batch_size, stage,
-             device) -> Tuple[float, float]:
+             device, mesh=None) -> Tuple[float, float]:
     """Mean val loss over the set (reference ``train.py:241-268``): batches
     with zero kept samples contribute 0, faithful to the reference's
-    ``continue``-then-divide-by-len behavior."""
+    ``continue``-then-divide-by-len behavior. On a mesh each rank evaluates
+    its rows of every batch."""
     losses, kls, n = 0.0, 0.0, 0
     for batch in dataset.batches(batch_size):
-        m = eval_step(params, const, _to_device(batch, device), stage)
+        m = eval_step(params, const, _to_device(local_batch(batch, mesh), device),
+                      stage)
         if float(m["kept"]) > 0:
             losses += float(m["total"])
             kls += float(m["kl"])
@@ -508,17 +737,64 @@ def load_gpt2_ckpt_into(params: Dict, path: str, mcfg: ModelConfig) -> None:
                 "b": torch.as_tensor(raw[f"{theirs}.bias"]).detach().clone()}
 
 
-def _reject_unported(args) -> None:
-    unported = [
-        ("--mesh_data", args.mesh_data not in (0, 1)),
-        ("--mesh_model", args.mesh_model != 1),
-        ("--mesh_pipe", args.mesh_pipe != 1),
-        ("--zero1", args.zero1),
-        ("--multihost", args.multihost),
-    ]
-    for flag, used in unported:
-        if used:
-            raise NotImplementedError(f"{flag} is not ported yet")
+ZERO1_PIPE_ERROR = ("--zero1 derives moment shardings from the TP param layout; "
+                    "combine it with --mesh_data/--mesh_model, not --mesh_pipe")
+PIPE_MODEL_ERROR = ("--mesh_pipe and --mesh_model are mutually exclusive (TP "
+                    "decode and PP train shard the same stacked layer axis "
+                    "differently)")
+PACK_PIPE_ERROR = "--pack_sequences does not support pipeline parallelism"
+PACK_MODEL_ERROR = ("--pack_sequences supports data parallelism only "
+                    "(--mesh_model must be 1)")
+
+
+def _check_mesh_flags(args) -> None:
+    """The JAX trainer's rules for combining the mesh flags, with its
+    messages."""
+    if args.zero1 and args.mesh_pipe > 1:
+        raise ValueError(ZERO1_PIPE_ERROR)
+    if args.mesh_pipe > 1 and args.mesh_model > 1:
+        raise ValueError(PIPE_MODEL_ERROR)
+    if args.pack_sequences and args.mesh_pipe > 1:
+        raise ValueError(PACK_PIPE_ERROR)
+    if args.pack_sequences and args.mesh_model > 1:
+        raise ValueError(PACK_MODEL_ERROR)
+
+
+def _join_mesh(args, device):
+    """The job's mesh, or ``(None, None, device)`` for a job of one rank
+    with no mesh flag. Returns ``(mesh, pp, device)``: ``pp = (mesh,
+    n_micro)`` under ``--mesh_pipe``, ``device`` this rank's (its card under
+    CUDA). A mesh larger than the job raises (run it under torchrun)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    flags = (args.mesh_data > 1 or args.mesh_model > 1 or args.mesh_pipe > 1
+             or args.zero1 or args.multihost)
+    if world == 1 and not flags:
+        return None, None, device
+    pmesh.require_multihost_flag(args.multihost)
+    split = args.mesh_model * args.mesh_pipe
+    if world == 1 and max(args.mesh_data, 1) * split > 1:
+        # no process group is joined for a mesh that cannot be laid out
+        pmesh.make_mesh((args.mesh_data * args.mesh_pipe, args.mesh_model), device)
+    info = pmesh.init_distributed(device)
+    if world % split:
+        raise ValueError(f"{world} ranks do not divide into meshes of "
+                         f"{split} ranks on --mesh_model x --mesh_pipe")
+    dp = args.mesh_data or world // split
+    for flag, n in (("--batch_size", args.batch_size),
+                    ("--val_batch_size", args.val_batch_size)):
+        if n % dp:
+            raise ValueError(f"{flag} {n} does not divide over --mesh_data {dp}")
+    if args.mesh_pipe > 1:
+        from mmtg_tpu_torch.parallel.pipeline import make_dp_pp_mesh
+
+        mesh = make_dp_pp_mesh(dp, args.mesh_pipe, info.device)
+        # the largest M <= 2 stages dividing every per-rank batch of the run
+        # (train and val; stage-1 epochs double both, which keeps it)
+        n_micro = args.pp_microbatches or math.gcd(
+            math.gcd(args.batch_size // dp, args.val_batch_size // dp),
+            2 * args.mesh_pipe) or 1
+        return mesh, (mesh, n_micro), info.device
+    return pmesh.make_mesh((dp, args.mesh_model), info.device), None, info.device
 
 
 def main(argv=None, mcfg: Optional[ModelConfig] = None,
@@ -526,13 +802,20 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
     """CLI entry; ``mcfg`` / ``dcfg`` are injectable so tests can drive the
     full training loop with a tiny model on the CPU."""
     args = build_arg_parser().parse_args(argv)
-    _reject_unported(args)
+    _check_mesh_flags(args)
     from mmtg_tpu_torch.bpe import load_tokenizer
     from mmtg_tpu_torch.data import MMTGDataset, load_token_embedding_table
     from mmtg_tpu_torch.generate import resolve_device
 
     device = resolve_device(args.device)
-    logger = setup_logger(args.log_path or None)
+    joined_here = not torch.distributed.is_initialized()
+    mesh, pp, device = _join_mesh(args, device)
+    rank = torch.distributed.get_rank() if mesh is not None else 0
+    if rank == 0:
+        logger = setup_logger(args.log_path or None)
+    else:  # only rank 0 logs
+        logger = setup_logger(None, name=f"mmtg_tpu_torch.rank{rank}")
+        logger.setLevel(logging.WARNING)
     logger.info(str(args))
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -597,6 +880,11 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
                                    params, device=device)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     logger.info("* number of parameters: %d (on %s)", n_params, device)
+    if mesh is not None:
+        logger.info("Mesh %s %s of %d ranks (%s)%s", tuple(mesh.mesh_dim_names),
+                    tuple(mesh.mesh.shape), mesh.mesh.numel(),
+                    torch.distributed.get_backend(),
+                    f", {pp[1]} micro-batches" if pp is not None else "")
 
     start_epoch = 0
     if args.resume and args.save_path:
@@ -615,15 +903,29 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
                 logger.warning(
                     "Checkpoint at step %d already covers all %d epochs; "
                     "nothing to train.", last_step, tcfg.epochs)
-    return _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data,
-                       valid_data, curriculums, args, logger, device,
-                       start_epoch=start_epoch)
+    if mesh is None:
+        return _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data,
+                           valid_data, curriculums, args, logger, device,
+                           start_epoch=start_epoch)
+    state = shard_train_state(state, mcfg, mesh, zero1=args.zero1)
+    val = _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
+                      curriculums, args, logger, device, start_epoch=start_epoch,
+                      mesh=mesh, pp=pp)
+    if joined_here:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    return val
 
 
 def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
-                curriculums, args, logger, device, start_epoch: int = 0) -> float:
-    train_step = make_train_step(mcfg, dcfg, tcfg, tx)
-    eval_step = make_eval_step(mcfg, dcfg, tcfg)
+                curriculums, args, logger, device, start_epoch: int = 0,
+                mesh=None, pp=None) -> float:
+    train_step = make_train_step(mcfg, dcfg, tcfg, tx, pp=pp, zero1=args.zero1,
+                                 mesh=mesh)
+    eval_step = make_eval_step(mcfg, dcfg, tcfg, pp=pp, mesh=mesh)
+    full_state = ((lambda st: gather_train_state(st, mcfg, mesh, zero1=args.zero1))
+                  if mesh is not None else (lambda st: st))
+    writer = mesh is None or torch.distributed.get_rank() == 0
     timer = StepTimer(device=device)
     best_val = float("inf")
     val_loss = float("inf")
@@ -666,7 +968,7 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
         avg_loss, seen_steps, kept_total = 0.0, 0, 0.0
         trace = contextlib.ExitStack()  # steps 10-30 of the first epoch
         for step, batch in enumerate(batch_iter):
-            tb = _to_device(batch, device)
+            tb = _to_device(local_batch(batch, mesh), device)
             if args.profile_dir and epoch == 0 and step == 10:
                 trace.enter_context(maybe_profile(args.profile_dir))
                 logger.info("Tracing steps 10-30 into %s", args.profile_dir)
@@ -689,33 +991,39 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
                                      if packer is not None else bs))
             if step > 0 and (step + 1) % val_every == 0:
                 val_loss, _ = evaluate(eval_step, state.params, const,
-                                       valid_data, vbs, stage, device)
+                                       valid_data, vbs, stage, device, mesh)
                 logger.info("Epoch: %d, Step: %d/%d, Val. Loss: %.4f",
                             epoch + 1, step + 1, steps_per_epoch, val_loss)
                 if val_loss < best_val:
                     best_val = val_loss
                     if args.save_model and args.save_path:
-                        _save(args.save_path, state, "best_val", logger)
+                        _save(args.save_path, full_state(state), "best_val",
+                              logger, writer)
 
         trace.close()  # an epoch of fewer than 31 steps: trace what ran
         val_loss, _ = evaluate(eval_step, state.params, const, valid_data, vbs,
-                               stage, device)
+                               stage, device, mesh)
         logger.info("End eval of epoch %d. Val. Loss: %.4f", epoch + 1, val_loss)
         logger.info("Average loss: %.4f  Elapsed time: %s",
                     avg_loss / max(seen_steps, 1), format_time(time.time() - t1))
         if args.save_model and args.save_path:
-            _save(args.save_path, state, f"epoch_{epoch + 1}", logger)
+            _save(args.save_path, full_state(state), f"epoch_{epoch + 1}",
+                  logger, writer)
 
     logger.info("Training finished.")
     return val_loss
 
 
-def _save(save_path: str, state: TrainState, tag: str, logger) -> None:
+def _save(save_path: str, state: TrainState, tag: str, logger,
+          writer: bool = True) -> None:
     """Two artifact streams like the reference's best_val_model.pth /
     epoch_{N}.pth: best-val checkpoints under train_state_best/, epoch
-    checkpoints under train_state/ (which --resume reads)."""
+    checkpoints under train_state/ (which --resume reads). ``state`` is the
+    full one; on a mesh only rank 0 (``writer``) writes it."""
     from mmtg_tpu_torch.checkpoint import save_train_state
 
+    if not writer:
+        return
     sub = "train_state_best" if tag == "best_val" else "train_state"
     save_train_state(os.path.join(save_path, sub), state.step, state)
     logger.info("Saved %s checkpoint at step %d to %s/%s", tag, state.step,

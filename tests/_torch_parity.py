@@ -195,3 +195,117 @@ def make_packed_setup(content_lens, row_len=256, max_slots=4, rows=4, seed=21,
         tconst={"wenlan_table": torch.from_numpy(table)},
         tpacked=tpacked, tcols={k: torch.from_numpy(v) for k, v in cols.items()},
     )
+
+
+# ---------------------------------------------------------------------------
+# The meshed train path: one tiny model whose 12 heads split 2, 3 and 4 ways
+# ---------------------------------------------------------------------------
+# the global batch's ratings: at stage 2 (rating 3 dropped) the rank rows keep
+# 2, 1, 0, 2 at dp = 4 and 3, 2 at dp = 2
+MESH_RATINGS = [5.0, 1.0, 3.0, 4.0, 3.0, 3.0, 2.0, 5.0]
+MESH_STAGE, MESH_ZERO_STAGE = 2, 1
+MESH_WARMUP, MESH_TOTAL = 2, 10
+
+
+def mesh_model_cfg():
+    """The train slice's tiny model with 2 layers, 12 heads of 8 and vocab 50
+    (the JAX package's config)."""
+    import dataclasses
+
+    from mmtg_tpu.configs import GPT2Config
+
+    mcfg, _ = train_configs()
+    return dataclasses.replace(mcfg, gpt2=GPT2Config(
+        vocab_size=50, n_positions=256, n_ctx=250, n_embd=96, n_layer=2, n_head=12))
+
+
+def no_dropout(mcfg):
+    import dataclasses
+
+    return dataclasses.replace(
+        mcfg, dropout=0.0,
+        gpt2=dataclasses.replace(mcfg.gpt2, resid_pdrop=0.0, embd_pdrop=0.0,
+                                 attn_pdrop=0.0))
+
+
+def mesh_tcfgs():
+    """(JAX TrainConfig, the port's): f32, lr 1e-4, alpha 0.2; the port
+    recomputes blocks (the TP sums run under remat), JAX does not."""
+    import dataclasses
+
+    from mmtg_tpu.configs import TrainConfig
+
+    jt = TrainConfig(alpha=0.2, dtype="float32", lr=1e-4, remat=False,
+                     attn_impl="xla")
+    return jt, dataclasses.replace(to_port_config(jt), attn_impl="kernel", remat=True)
+
+
+def mesh_train_setup(tokenizer):
+    """:func:`make_train_setup` of 8 rows on the mesh model (dropout off),
+    plus ``zero_batch``, a batch that stage 1 keeps none of, and the model
+    with its dropout (``mcfg_dropout``)."""
+    mcfg = mesh_model_cfg()
+    s = make_train_setup(tokenizer, n=8, ratings=MESH_RATINGS, mcfg=no_dropout(mcfg))
+    s["mcfg_dropout"] = mcfg
+    zero = {k: v.copy() for k, v in s["np_batch"].items()}
+    zero["rating"][:] = 3.0
+    s["zero_batch"] = zero
+    return s
+
+
+def mesh_job_inputs(s, path):
+    """The job's inputs file: configs, parameters, batches (numpy)."""
+    _, tt = mesh_tcfgs()
+    torch.save(dict(
+        mcfg=s["tmcfg"], dcfg=s["tdcfg"], tcfg=tt,
+        mcfg_dropout=to_port_config(s["mcfg_dropout"]), tcfg_dropout=tt,
+        params=s["tparams"], const=s["tconst"], batch=s["np_batch"],
+        zero_batch=s["zero_batch"], warmup=MESH_WARMUP, total=MESH_TOTAL), path)
+
+
+def jax_mesh_reference(s):
+    """JAX's single-device metrics and gradients at the mesh stage, its eval
+    metrics, and its state after two train steps (numpy leaves)."""
+    from mmtg_tpu import train as jtrain
+
+    jt, _ = mesh_tcfgs()
+
+    def jf(p):
+        return jtrain.loss_and_metrics(p, s["jconst"], s["mcfg"], s["dcfg"], jt,
+                                       s["jbatch"], jnp.asarray(MESH_STAGE), None, True)
+
+    (_, metrics), grads = jax.jit(jax.value_and_grad(jf, has_aux=True))(s["jparams"])
+    eval_m = jtrain.make_eval_step(s["mcfg"], s["dcfg"], jt)(
+        s["jparams"], s["jconst"], s["jbatch"], jnp.asarray(MESH_STAGE))
+    state, tx = jtrain.create_train_state(jax.random.PRNGKey(0), s["mcfg"], jt,
+                                          MESH_WARMUP, MESH_TOTAL, params=s["jparams"])
+    step = jtrain.make_train_step(s["mcfg"], s["dcfg"], jt, tx)
+    for _ in range(2):
+        # the step donates its input: hand it a copy
+        state, _ = step(jax.tree.map(jnp.array, state), s["jconst"], s["jbatch"],
+                        jnp.asarray(MESH_STAGE))
+    adam = state.opt_state[1][0]
+    leaves = lambda t: [np.asarray(x) for x in jax.tree.leaves(t)]  # noqa: E731
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                eval={k: float(v) for k, v in eval_m.items()},
+                grads=leaves(grads), params=leaves(state.params), mu=leaves(adam.mu),
+                nu=leaves(adam.nu), count=int(adam.count))
+
+
+def npz_leaves(job, prefix):
+    """The leaves a job wrote as ``<prefix>/<i>``, in order."""
+    n = len([k for k in job if k.startswith(prefix + "/")])
+    return [job[f"{prefix}/{i}"] for i in range(n)]
+
+
+def run_mesh_job(script, inputs, out, timeout, nproc=4):
+    """A gloo job of ``nproc`` ranks on the CPU; its ``.npz`` as a dict."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo)
+    proc = run_torchrun(nproc, [os.path.join(repo, "tests", script), inputs, out],
+                        timeout, cwd=repo, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}

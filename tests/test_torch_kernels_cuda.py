@@ -812,3 +812,77 @@ def test_fused_gru_at_the_shard_rows(cuda, dtype, tol, B):
     assert fg.fused_gru.launches == before + 1
     assert out.dtype == dtype and out.shape == (T, B, H)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# the train kernels at the shapes the meshed train path gives them: a TP
+# rank's heads (12 / tp at tp = 2, 4), a pipeline micro-batch's rows and a
+# data rank's packed rows (chip_smoke.py phase 20's meshes)
+TRAIN_SHARD_HEADS = [6, 3]
+MICRO_ROWS = [8, 16]
+
+
+@pytest.mark.parametrize("dtype,tols", [
+    (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 3e-2, 0.5))])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("H", TRAIN_SHARD_HEADS)
+@pytest.mark.parametrize("T", [256, 512])
+def test_train_kernels_at_the_tp_shard_heads(cuda, dtype, tols, rate, H, T):
+    """mha_train_packed and mha_train (head-major, 64 -> 128 lanes) on a TP
+    rank's heads, forward and backward, against their plain versions."""
+    B, hd = 2, 64
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    _compare(ta.mha_train_packed, ta.mha_train_packed_plain,
+             (qkv, qb, bias, seed, H, rate, hd ** -0.5), co, tols)
+    slab, slab_b = _pad_heads(qkv, H, hd), _pad_heads(qb, H, hd)
+    co = torch.nn.functional.pad(co.float().reshape(B, T, H, hd), (0, 128 - hd))
+    _compare(ta.mha_train, ta.mha_train_plain,
+             (slab, slab_b, bias, seed, H, rate, hd ** -0.5),
+             co.reshape(B, T, H * 128).to(dtype), tols)
+
+
+def _compare_relative_dqb(fn, plain, args, co, tols):
+    """:func:`_compare` with dqb held relative to its largest entry (a sum
+    over every row of the batch)."""
+    qkv, qb = args[:2]
+    results = []
+    for f in (fn, plain):
+        a = qkv.clone().requires_grad_(True)
+        b = qb.clone().requires_grad_(True)
+        fwd0, bwd0 = fn.fwd_launches, fn.bwd_launches
+        ctx = f(a, b, *args[2:])
+        da_, db_ = torch.autograd.grad((ctx.float() * co.float()).sum(), (a, b))
+        torch.cuda.synchronize()
+        assert (fn.fwd_launches - fwd0, fn.bwd_launches - bwd0) == (
+            (1, 1) if f is fn else (0, 0))
+        results.append((ctx.float(), da_.float(), db_.float()))
+    for i, (got, ref, tol) in enumerate(zip(results[0], results[1], tols)):
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item()
+        if i == 2:
+            err /= max(ref.abs().max().item(), 1e-6)
+        assert err <= tol
+
+
+@pytest.mark.parametrize("dtype,tols", [
+    (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 4e-2, 2e-2))])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B", MICRO_ROWS)
+def test_mha_train_packed_at_the_micro_batch_rows(cuda, dtype, tols, rate, B):
+    """All 12 heads at T = 256 on a pipeline micro-batch's (and a data
+    rank's) rows."""
+    H, hd, T = 12, 64, 256
+    qkv, qb, bias, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    _compare_relative_dqb(ta.mha_train_packed, ta.mha_train_packed_plain,
+                          (qkv, qb, bias, seed, H, rate, hd ** -0.5), co, tols)
+
+
+@pytest.mark.parametrize("dtype,tols", [
+    (torch.float32, (1e-5, 1e-5, 1e-4)), (torch.bfloat16, (2e-2, 8e-2, 2e-2))])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mha_train_packed_seg_at_a_data_ranks_rows(cuda, dtype, tols, rate):
+    """A data rank's 8 packed rows of 512, 12 heads, packer-style ids."""
+    B, H, hd, T = 8, 12, 64, 512
+    qkv, qb, _, co, seed = _train_attention_case(cuda, B, T, H, hd, dtype)
+    seg = _segment_ids(cuda, B, T, "packer")
+    _compare_relative_dqb(ta.mha_train_packed_seg, ta.mha_train_packed_seg_plain,
+                          (qkv, qb, seg, seed, H, rate, hd ** -0.5), co, tols)

@@ -39,7 +39,8 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.ops.prng", "mmtg_tpu_torch.ops.sampling",
                  "mmtg_tpu_torch.ops.decode_megakernel",
                  "mmtg_tpu_torch.predict", "mmtg_tpu_torch.native",
-                 "mmtg_tpu_torch.parallel", "mmtg_tpu_torch.parallel.mesh"):
+                 "mmtg_tpu_torch.parallel", "mmtg_tpu_torch.parallel.mesh",
+                 "mmtg_tpu_torch.parallel.pipeline"):
         assert name in mods
 
 
@@ -79,7 +80,9 @@ def test_no_source_imports_jax_or_the_jax_package():
             "mmtg_tpu_torch/kernels/_build.py", "chip_smoke.py",
             "mmtg_tpu_torch/serve.py", "mmtg_tpu_torch/ops/prng.py",
             "mmtg_tpu_torch/ops/decode_megakernel.py",
-            "mmtg_tpu_torch/predict.py", "mmtg_tpu_torch/native.py"} <= names
+            "mmtg_tpu_torch/predict.py", "mmtg_tpu_torch/native.py",
+            "mmtg_tpu_torch/parallel/mesh.py",
+            "mmtg_tpu_torch/parallel/pipeline.py"} <= names
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _IMPORT.findall(f.read())

@@ -1,7 +1,8 @@
 """The port's train CLI end to end on the CPU with a tiny model: one epoch
 writes a train-state checkpoint, --resume continues from it (on parity rows
-and with --pack_sequences), the unported flags raise, and without --device a
-machine with no GPU gets an error."""
+and with --pack_sequences), the mesh flags follow the JAX trainer's rules
+(meshes themselves: tests/test_torch_train_mesh_cli.py), and without
+--device a machine with no GPU gets an error."""
 
 import os
 import pickle
@@ -149,17 +150,26 @@ def test_train_packed_rows_default_follows_the_token_budget(files, reference_voc
                        "--pack_row_len", "32"), mcfg=cfgs[0], dcfg=cfgs[1])
 
 
-@pytest.mark.parametrize("extra", [
-    ("--mesh_data", "2"), ("--mesh_model", "2"), ("--mesh_pipe", "2"),
-    ("--zero1",), ("--multihost",), ("--pack_sequences", "--mesh_model", "2"),
-    ("--profile_dir", "trace"),
-])
+@pytest.mark.parametrize("extra,error,match", [
+    (("--zero1", "--mesh_pipe", "2"), ValueError, "not --mesh_pipe"),
+    (("--mesh_pipe", "2", "--mesh_model", "2"), ValueError, "mutually exclusive"),
+    (("--pack_sequences", "--mesh_pipe", "2"), ValueError,
+     "does not support pipeline parallelism"),
+    (("--pack_sequences", "--mesh_model", "2"), ValueError,
+     "data parallelism only"),
+    (("--mesh_data", "2"), RuntimeError, "needs 2 ranks and no process group"),
+    (("--multihost",), RuntimeError, "--multihost joins a job a launcher started"),
+    (("--profile_dir", "trace"), None, None),
+], ids=[f"extra{i}" for i in range(7)])
 def test_train_cli_unported_flags_raise(files, reference_vocab_path, cfgs, extra,
-                                        monkeypatch):
-    """Meshes, ZeRO-1 and multihost raise. ``--profile_dir`` is ported: it
-    traces steps 10-30 of the first epoch, so this epoch of fewer steps
-    trains and writes no trace (tests/test_torch_english_e2e.py writes one)."""
-    if extra[0] == "--profile_dir":
+                                        error, match, monkeypatch):
+    """The JAX trainer's rules for the mesh flags, with its messages; a mesh
+    larger than a job started without torchrun and ``--multihost`` without a
+    launcher's environment raise before any process group is joined.
+    ``--profile_dir`` traces steps 10-30 of the first epoch, so this epoch
+    of fewer steps trains and writes no trace
+    (tests/test_torch_english_e2e.py writes one)."""
+    if error is None:
         _SmallVocab(monkeypatch, cfgs)
         trace = files[0] / "trace"
         val = cli.main(_args(files, reference_vocab_path, str(files[0] / "x"),
@@ -167,9 +177,13 @@ def test_train_cli_unported_flags_raise(files, reference_vocab_path, cfgs, extra
                              str(trace)), mcfg=cfgs[0], dcfg=cfgs[1])
         assert np.isfinite(val) and not trace.exists()
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+              "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(error, match=match):
         cli.main(_args(files, reference_vocab_path, str(files[0] / "x"), *extra),
                  mcfg=cfgs[0], dcfg=cfgs[1])
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_cli_rejects_indivisible_grad_accum(files, reference_vocab_path, cfgs):
