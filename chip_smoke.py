@@ -36,7 +36,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      whole-step kernel;
   5. the generate CLI on a synthetic .pth checkpoint;
   6. the train path, train.make_train_step, at full width: bf16 compute /
-     f32 masters, B=64, dropout on, remat on, 1 warm-up + 5 timed steps on
+     f32 masters, B=64, dropout on, remat ("auto"), 1 warm-up + 5 timed steps on
      one repeated batch (loss finite and falling, launch counts asserted),
      then B=8 in f32 without dropout: loss and every gradient leaf through
      the kernels vs through the plain attention;
@@ -102,7 +102,26 @@ Phases, each printing one line (any failure raises and exits non-zero):
      buckets 4,8): a window of three one-shot and one streamed request over
      HTTP, /reload, one more request, each held against generate_sharded on
      the mesh, SIGTERM to rank 0 and every rank exiting 0.
-(Phases 11-14 run after phase 4, phases 15-18 after phase 10, phase 19 last.)
+ 20. training over the mesh under torchrun: data, tensor and pipeline
+     parallel and ZeRO-1 train steps against the single-card step, then the
+     train CLI on a mesh (see phase_mesh_train); on a TP mesh the
+     collectives a step under the policy "auto" resolves to beside "full"'s.
+ 21. the remat policies of the train step at full width, bf16 compute / f32
+     masters, dropout on: full, save_qkv_ctx, save_ctx_fc1, save_all and no
+     remat, 1 warm-up + 3 timed steps each on the unpacked step at B=64 and
+     B=256, the head-major step at B=64 and the packed step on 32 rows of
+     512 (step time, samples/s, peak memory beside the bytes each policy was
+     predicted to keep; the attention launches asserted: the forward twice a
+     layer under full, once otherwise; peak memory at B=256 ordered full <
+     save_qkv_ctx < save_ctx_fc1 < save_all <= no remat); then f32 with
+     dropout at B=8 and on 4 packed rows: each policy's loss and every
+     gradient leaf within 1e-6 (of the largest leaf) of no remat's.
+(Phases 11-14 run after phase 4, phase 21 after phase 9, phases 15-18 after
+phase 10, then phases 19 and 20.)
+Where a train step runs with remat and the policy "auto" (phases 6-10, 15,
+17, 20), its attention launches are asserted for the policy "auto" resolves
+to (train._resolve_remat_policy): the kept qkv and context at these batches,
+a forward and a backward a layer.
 It then prints its total time, the card's name and power limit, the
 kernels' JSON line (with each mesh kernel's launches a rank on phase 19's
 meshes) and, last, the device JSON line.
@@ -935,6 +954,20 @@ def _only(launches, expected, what):
     check(launches == want, f"{what}: launch counts {launches} != {want}")
 
 
+def _train_launches(fn, L, steps, batch, dcfg, policy="auto", remat=True,
+                    data_size=1):
+    """``fn``'s launches in ``steps`` train steps of ``L`` layers: a forward and
+    a backward a layer, and the forward once more in the backward when remat
+    keeps no attention context (under "full", which "auto" resolves to as the
+    trainer does: train._resolve_remat_policy)."""
+    from mmtg_tpu_torch import train as ttrain
+
+    policy = ttrain._resolve_remat_policy(policy, batch, None,
+                                          dcfg.topic_prompt_length, data_size)
+    again = remat and policy == "full"
+    return {f"{fn}_fwd": (2 if again else 1) * L * steps, f"{fn}_bwd": L * steps}
+
+
 def _check_tokens(toks, mcfg, dcfg, what, length=LENGTH):
     import torch
 
@@ -1505,9 +1538,10 @@ def phase_train(out, gpu, profile):
     state, r = _timed_steps(step, state, const, [batch], WARM, STEPS)
     launches = r["launches"]
     _check_trained("train", r, state)
-    # forward + remat forward, one backward, per layer and step; nothing else
-    _only(launches, {"mha_train_packed_fwd": 2 * L * STEPS,
-                     "mha_train_packed_bwd": L * STEPS}, "train")
+    # a forward and a backward per layer and step ("auto" keeps the context
+    # at B=64); nothing else
+    _only(launches, _train_launches("mha_train_packed", L, STEPS, batch, dcfg),
+          "train")
     out["train_b64"] = r
     print(f"phase 6 train (full width, bf16 compute / f32 masters, B={B}, "
           f"dropout on, remat, {STEPS} steps, on {gpu}): ok; median step "
@@ -1542,8 +1576,8 @@ def phase_train_packed(out, gpu, profile):
     state, r = _timed_steps(step, state, const, batches, WARM, STEPS)
     launches = r["launches"]
     _check_trained("packed train", r, state)
-    _only(launches, {"mha_train_packed_seg_fwd": 2 * L * STEPS,
-                     "mha_train_packed_seg_bwd": L * STEPS}, "packed train")
+    _only(launches, _train_launches("mha_train_packed_seg", L, STEPS, batches[0],
+                                    dcfg), "packed train")
     check(r["kept"] == [float(b["slot_valid"].sum()) for b in batches[WARM:]],
           f"packed train: kept {r['kept']} is not the batches' real sample count")
     r.update(density=pb.density, row_fill=statistics.mean(live), rows=PACK_ROWS,
@@ -1586,7 +1620,7 @@ def phase_train_packed(out, gpu, profile):
         got = _counts()
         loss = float(m["loss"])
         check(loss == loss and abs(loss) < 1e6, f"packed {dname} step at {LONG_T}: loss {loss}")
-        _only(got, {"mha_train_packed_seg_fwd": 2 * L, "mha_train_packed_seg_bwd": L},
+        _only(got, _train_launches("mha_train_packed_seg", L, 1, long_batches[1], dcfg),
               f"packed {dname} step at {LONG_T}")
         long[dname] = dict(step_ms=wall_ms, loss=loss, kept=float(m["kept"]),
                            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -1608,10 +1642,11 @@ def phase_train_head_major(out, gpu):
     L = mcfg.gpt2.n_layer
     B, WARM, STEPS = TRAIN_BATCHES[-1], 1, 3
     state, step = _train_state(params, mcfg, dcfg, attn_impl="kernel_padded")
-    state, r = _timed_steps(step, state, const, [_train_batch(B, dcfg, 8)], WARM, STEPS)
+    batch = _train_batch(B, dcfg, 8)
+    state, r = _timed_steps(step, state, const, [batch], WARM, STEPS)
     launches = r["launches"]
     _check_trained("head-major train", r, state)
-    _only(launches, {"mha_train_fwd": 2 * L * STEPS, "mha_train_bwd": L * STEPS},
+    _only(launches, _train_launches("mha_train", L, STEPS, batch, dcfg),
           "head-major train")
     out["train_head_major_b64"] = r
     print(f"phase 9 head-major train (attn_impl=kernel_padded, full width, bf16, "
@@ -1625,6 +1660,151 @@ def phase_train_head_major(out, gpu):
     _compare_paths(out, "train_head_major_vs_packed", "phase 9 head-major train B=8",
                    params, const, mcfg, dcfg, _train_batch(8, dcfg, 9),
                    ("kernel_padded", "kernel"))
+    return launches
+
+
+# Phase 21: the remat policies of the train step
+REMAT_POLICIES = ("full", "save_qkv_ctx", "save_ctx_fc1", "save_all")
+REMAT_RUNS = REMAT_POLICIES + ("no_remat",)  # the last: --no_remat
+REMAT_STEPS = 3
+# (cell, the attention function its layers call, rows): the unpacked step at
+# B=64 and B=256 (the first B=256 train step), the head-major slab at B=64 and
+# the packed step on 32 rows of 512
+REMAT_CELLS = (("B64", "mha_train_packed", 64), ("B256", "mha_train_packed", 256),
+               ("B64_head_major", "mha_train", 64),
+               ("packed", "mha_train_packed_seg", PACK_ROWS))
+REMAT_F32_TOL = 1e-6  # each leaf's max-abs difference / the largest leaf's max-abs
+
+
+def remat_kept_bytes(policy, B, Tp, D, heads, n_layer, head_major=False, elt=2):
+    """The bytes a policy keeps beyond "full" in a step (its prediction): a
+    layer's qkv (``[B, Tp, 3D]``, or ``H·384`` lanes on the head-major slab),
+    context (``D``, or ``H·128``) with the kernels' f32 row log-sum-exp
+    ``[B, H, Tp]``, and fc1 (``[B, Tp, 4D]``), in the compute dtype."""
+    from mmtg_tpu_torch.models.gpt2 import REMAT_POLICIES as KEPT
+
+    q_w, c_w = (heads * 384, heads * 128) if head_major else (3 * D, D)
+    per = {"qkv": B * Tp * q_w * elt,
+           "attn_ctx": B * Tp * c_w * elt + B * heads * Tp * 4,
+           "mlp_fc1": B * Tp * 4 * D * elt}
+    return n_layer * sum(per[n] for n in KEPT[policy])
+
+
+def _remat_tcfg(run, impl="auto", dtype="bfloat16"):
+    from mmtg_tpu_torch.configs import TrainConfig
+
+    return TrainConfig(dtype=dtype, remat=run != "no_remat", lr=1e-4, alpha=0.2,
+                       remat_policy="full" if run == "no_remat" else run,
+                       attn_impl=impl)
+
+
+def _remat_f32_compare(params, const, mcfg, dcfg, batch, what):
+    """f32, dropout on: each policy's loss and every gradient leaf against the
+    step without remat (the same dropout seeds)."""
+    import torch
+
+    from mmtg_tpu_torch import train as ttrain
+    from mmtg_tpu_torch.params import tree_leaves, tree_map
+
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+
+    def run(name):
+        total, _ = ttrain.loss_and_metrics(
+            params, const, mcfg, dcfg, _remat_tcfg(name, dtype="float32"), batch, 3,
+            torch.Generator().manual_seed(17), False)
+        grads = torch.autograd.grad(total, tree_leaves(params))
+        torch.cuda.synchronize()
+        return float(total.detach()), grads
+
+    ref_loss, ref = run("no_remat")
+    largest = max(g.abs().max().item() for g in ref)
+    errs = {}
+    for policy in REMAT_POLICIES:
+        loss, grads = run(policy)
+        err = max((a - b).abs().max().item() for a, b in zip(grads, ref))
+        check(abs(loss - ref_loss) <= REMAT_F32_TOL * abs(ref_loss),
+              f"{what} {policy}: loss {loss} vs no remat {ref_loss}")
+        check(err <= REMAT_F32_TOL * largest, f"{what} {policy}: a gradient leaf "
+              f"differs from no remat's by {err:.3g} > {REMAT_F32_TOL} x {largest:.3g}")
+        errs[policy] = dict(loss_abs_err=abs(loss - ref_loss), grad_max_abs_err=err,
+                            grad_rel_err=err / largest)
+    return dict(largest_grad=largest, leaves=len(ref), policies=errs)
+
+
+def phase_remat(out, gpu):
+    """Phase 21: the train step under each remat policy and without remat, at
+    full width (bf16 compute / f32 masters, dropout on): 1 warm-up + 3 timed
+    steps a run on one repeated batch; launches, loss, peak memory; then the
+    f32 gradients of each policy against no remat's."""
+    import gc
+
+    import torch
+
+    from mmtg_tpu_torch import train as ttrain
+
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    g = mcfg.gpt2
+    L = g.n_layer
+    _, np_packed = packed_batches(dcfg, 24 * PACK_ROWS, PACK_ROWS, 11)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}  # noqa: E731
+    cells, launches, lines = {}, {}, []
+    for cell, fn, B in REMAT_CELLS:
+        if fn == "mha_train_packed_seg":
+            batch, Tp = to_dev(np_packed[0]), PACK_T
+        else:
+            batch = _train_batch(B, dcfg, 8)
+            Tp = -(-(dcfg.topic_prompt_length + batch["targets"].shape[1]) // 128) * 128
+        impl = "kernel_padded" if fn == "mha_train" else "auto"
+        runs = {}
+        for run in REMAT_RUNS:
+            what = f"phase 21 {cell} {run}"
+            tcfg = _remat_tcfg(run, impl)
+            state, tx = ttrain.create_train_state(7, mcfg, tcfg, 1, 200, params,
+                                                  device=DEVICE)
+            step = ttrain.make_train_step(mcfg, dcfg, tcfg, tx)
+            state, r = _timed_steps(step, state, const, [batch], 1, REMAT_STEPS)
+            _check_trained(what, r, state)
+            _only(r["launches"], _train_launches(fn, L, REMAT_STEPS, batch, dcfg,
+                                                 policy=tcfg.remat_policy,
+                                                 remat=tcfg.remat), what)
+            runs[run] = {k: r[k] for k in ("step_ms", "step_ms_all", "samples_per_s",
+                                           "peak_memory_gib", "losses", "launches")}
+            del state, step, tx, r
+            gc.collect()
+            torch.cuda.empty_cache()
+        full_peak = runs["full"]["peak_memory_gib"] * 2 ** 30
+        for run in REMAT_POLICIES:
+            runs[run]["predicted_extra_gb"] = remat_kept_bytes(
+                run, B, Tp, g.n_embd, g.n_head, L, head_major=fn == "mha_train") / 1e9
+            runs[run]["measured_extra_gb"] = (runs[run]["peak_memory_gib"] * 2 ** 30
+                                              - full_peak) / 1e9
+        cells[cell] = dict(fn=fn, rows=B, Tp=Tp, runs=runs)
+        launches[cell] = {run: v["launches"] for run, v in runs.items()}
+        lines.append(f"{cell} ({fn}, {B} rows of {Tp}): " + ", ".join(
+            f"{run} {v['step_ms']:.1f} ms {v['samples_per_s']:.0f}/s "
+            f"{v['peak_memory_gib']:.2f} GiB"
+            + (f" (+{v['measured_extra_gb']:.2f} GB, predicted "
+               f"+{v['predicted_extra_gb']:.2f})" if run in REMAT_POLICIES[1:] else "")
+            + f" fwd/bwd {v['launches'][fn + '_fwd']}/{v['launches'][fn + '_bwd']}"
+            for run, v in runs.items()))
+    peaks = [cells["B256"]["runs"][run]["peak_memory_gib"] for run in REMAT_RUNS]
+    check(peaks[0] < peaks[1] < peaks[2] < peaks[3] <= peaks[4],
+          f"phase 21 B256: peak memory not ordered full < save_qkv_ctx < "
+          f"save_ctx_fc1 < save_all <= no_remat: {peaks}")
+    _, small = packed_batches(dcfg, 24, 4, 12)
+    f32 = {"B8": _remat_f32_compare(params, const, mcfg, dcfg, _train_batch(8, dcfg, 9),
+                                    "phase 21 f32 B=8"),
+           "packed_4_rows": _remat_f32_compare(params, const, mcfg, dcfg,
+                                               to_dev(small[0]),
+                                               "phase 21 f32 packed 4 rows")}
+    out["remat"] = dict(cells=cells, f32=f32, steps=REMAT_STEPS)
+    print(f"phase 21 remat policies (full width, bf16 compute / f32 masters, dropout "
+          f"on, 1 + {REMAT_STEPS} steps a run, on {gpu}): ok; " + "; ".join(lines)
+          + "; f32 with dropout, each policy vs no remat: " + ", ".join(
+              f"{k} max {max(p['grad_rel_err'] for p in v['policies'].values()):.2g} "
+              f"of the largest leaf" for k, v in f32.items()))
+    del params, const
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1721,9 +1901,10 @@ def phase_train_cli(out, paths, tmp):
     check(val1 == val1 and val2 == val2 and abs(val1) < 1e6 and abs(val2) < 1e6,
           f"train CLI: val loss not finite ({val1}, {val2})")
     counts = _counts()
-    # 4 train steps x 2 layers x (fwd + remat fwd), plus the eval forwards
+    # 4 train steps x 2 layers x a forward ("auto" keeps the context of 8
+    # rows) and a backward, plus the eval forwards
     check(counts["mha_train_packed_bwd"] == 4 * 2
-          and counts["mha_train_packed_fwd"] > 2 * 4 * 2,
+          and counts["mha_train_packed_fwd"] > 4 * 2,
           f"train CLI: launch counts {counts}")
     # the generate CLI (no --device: the card) on the save path just written
     from mmtg_tpu_torch import generate as gen_cli
@@ -1813,10 +1994,11 @@ def phase_packed_cli(out, paths, tmp):
     check(val1 == val1 and val2 == val2 and abs(val1) < 1e6 and abs(val2) < 1e6,
           f"packed train CLI: val loss not finite ({val1}, {val2})")
     counts = _counts()
-    # train steps go through the segment kernel (2 layers, forward + remat
-    # forward + backward); eval stays unpacked: forwards of mha_train_packed
+    # train steps go through the segment kernel (2 layers, a forward and a
+    # backward: "auto" keeps the context of 8 rows of 512); eval stays
+    # unpacked: forwards of mha_train_packed
     n = counts["mha_train_packed_seg_bwd"] // 2
-    _only(counts, {"mha_train_packed_seg_fwd": 4 * n, "mha_train_packed_seg_bwd": 2 * n,
+    _only(counts, {"mha_train_packed_seg_fwd": 2 * n, "mha_train_packed_seg_bwd": 2 * n,
                    "mha_train_packed_fwd": counts["mha_train_packed_fwd"]},
           "packed train CLI")
     check(n >= 2 and counts["mha_train_packed_fwd"] > 0,
@@ -1925,8 +2107,8 @@ def phase_channels(out, gpu):
         check(all(v == v and abs(v) < 1e6 for v in r["losses"]),
               f"{kind} train: loss not finite {r['losses']}")
         # the warm-up step, then the timed ones (their counts restart at 0)
-        _only(r["launches"], {"mha_train_packed_fwd": 2 * L * CHANNEL_TRAIN_STEPS,
-                              "mha_train_packed_bwd": L * CHANNEL_TRAIN_STEPS},
+        _only(r["launches"], _train_launches("mha_train_packed", L,
+                                             CHANNEL_TRAIN_STEPS, train_batch, dcfg),
               f"{kind} train")
         before = _counts()
         res[kind] = dict(generate_wall_s=gen_s, generate_tok_per_s=64 * LENGTH / gen_s,
@@ -2064,9 +2246,8 @@ def phase_english(out, gpu, tmp):
     state, step = _train_state(params, mcfg, dcfg)
     state, r = _timed_steps(step, state, const, [batch], 1, ENGLISH_TRAIN_STEPS)
     _check_trained("english train", r, state)
-    _only(r["launches"], {"mha_train_packed_fwd": 2 * L * ENGLISH_TRAIN_STEPS,
-                          "mha_train_packed_bwd": L * ENGLISH_TRAIN_STEPS},
-          "english train")
+    _only(r["launches"], _train_launches("mha_train_packed", L, ENGLISH_TRAIN_STEPS,
+                                         batch, dcfg), "english train")
     del state, step, batch
     torch.cuda.empty_cache()
 
@@ -2124,8 +2305,10 @@ def phase_english(out, gpu, tmp):
     train_s = time.perf_counter() - t0
     counts = _counts()
     check(val == val and abs(val) < 1e6, f"english train CLI: val loss {val}")
+    # 32 steps x 2 layers, a forward ("auto" keeps the context of 2 rows) and
+    # a backward each, plus the eval forwards
     check(counts["mha_train_packed_bwd"] == 2 * 32
-          and counts["mha_train_packed_fwd"] > 2 * 2 * 32,
+          and counts["mha_train_packed_fwd"] > 2 * 32,
           f"english train CLI: launch counts {counts}")
     traces = [os.path.join(trace, f) for f in os.listdir(trace)]
     check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
@@ -2743,14 +2926,16 @@ def _mesh_train_fn(name):
             "mha_train" if impl == "kernel_padded" else "mha_train_packed")
 
 
-def _mesh_train_launches(name, steps, n_layer=L):
-    """Launches a rank in ``steps`` steps: a forward, the remat forward and a
-    backward a layer; a stage runs its layers on each micro-batch (the
-    backward recomputes the stage's forward)."""
+def _mesh_train_launches(name, steps, policy, n_layer=L):
+    """Launches a rank in ``steps`` steps under the resolved remat ``policy``:
+    a forward and a backward a layer, and the remat forward again under
+    "full"; a stage runs its layers on each micro-batch, and the backward
+    recomputes the stage's forward under any policy."""
     axis, shape, *_ = MESH_TRAIN_RUNS[name]
     fn = _mesh_train_fn(name)
     per = n_layer // shape[1] * MESH_PIPE_MICRO if axis == "pipe" else n_layer
-    return {f"{fn}_fwd": 2 * per * steps, f"{fn}_bwd": per * steps}
+    again = axis == "pipe" or policy == "full"
+    return {f"{fn}_fwd": (2 if again else 1) * per * steps, f"{fn}_bwd": per * steps}
 
 
 def _mesh_for(name, device):
@@ -2782,7 +2967,10 @@ def _replicated_bit_equal(params, layout):
 
 def _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const, batch):
     """1 warm-up + the run's timed bf16 steps (dropout, remat) on this rank's
-    rows, then one step with every collective timed."""
+    rows, then one step with every collective timed (and, on a TP mesh, one
+    step under "full" whose collectives are counted beside these)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -2817,7 +3005,10 @@ def _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const, batch):
     mbytes = {k: v / steps / 1e6 for k, v in pmesh.comm.bytes.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     what = f"phase 20 {name}"
-    _only(launches, _mesh_train_launches(name, steps), what)
+    layout = pmesh.train_layout(mesh)
+    policy = ttrain._resolve_remat_policy(tcfg.remat_policy, local, pp,
+                                          dcfg.topic_prompt_length, layout.dp)
+    _only(launches, _mesh_train_launches(name, steps, policy), what)
     check(all(x == x and abs(x) < 1e6 for x in losses), f"{what}: loss {losses}")
     check(steps == 1 or losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
     # one more step, each collective between two synchronizations
@@ -2830,13 +3021,24 @@ def _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const, batch):
     timed_wall = time.perf_counter() - t0
     pmesh.comm.timed = False
     coll_ms = {k: v * 1e3 for k, v in pmesh.comm.seconds.items()}
-    layout = pmesh.train_layout(mesh)
+    calls_full = None
+    if layout.tp > 1 and policy != "full":
+        # the same step recomputing whole blocks: its collectives beside these
+        step_full = ttrain.make_train_step(
+            mcfg, dcfg, dataclasses.replace(tcfg, remat_policy="full"), tx, pp=pp,
+            zero1=zero1, mesh=mesh)
+        pmesh.comm.reset()
+        state, _ = step_full(state, const, local, 3)
+        torch.cuda.synchronize()
+        calls_full = dict(pmesh.comm.calls)
+        del step_full
     same = _replicated_bit_equal(state.params, layout)
     check(same, f"{what}: a replicated leaf differs between ranks")
     moments = state.opt_state["mu"], state.opt_state["nu"]
     r = dict(step_ms=statistics.median(times) * 1e3, step_ms_all=[t * 1e3 for t in times],
              losses=losses, launches=launches, collectives_per_step=calls,
              collective_mb_per_step=mbytes, timed_step_ms=timed_wall * 1e3,
+             remat_policy=policy, collectives_per_step_full=calls_full,
              collective_ms_timed_step=coll_ms,
              collective_share=sum(coll_ms.values()) / (timed_wall * 1e3),
              peak_memory_gib=peak, replicated_bit_equal=same,
@@ -3124,7 +3326,10 @@ def phase_mesh_train(out, gpu, paths, tmp):
                 f"{m['losses'][-1]:.4f}, launches a rank "
                 f"{dict((k, v) for k, v in m['launches'].items() if v)}, collectives a "
                 f"step {m['collectives_per_step']} "
-                f"({sum(m['collective_mb_per_step'].values()):.0f} MB), "
+                f"({sum(m['collective_mb_per_step'].values()):.0f} MB) under "
+                f"{m['remat_policy']}"
+                + (f" ({m['collectives_per_step_full']} under full)"
+                   if m["collectives_per_step_full"] else "") + ", "
                 f"{sum(m['collective_ms_timed_step'].values()):.1f} ms of a "
                 f"{m['timed_step_ms']:.1f} ms synchronized step, peak "
                 f"{max(m['peak_memory_gib_ranks']):.2f} GiB, moments "
@@ -3260,6 +3465,7 @@ def main(argv=None) -> int:
         phase_train_cli(out, paths, tmp)
         launches["train_packed"] = phase_train_packed(out, gpu, args.profile)
         launches["train_head_major"] = phase_train_head_major(out, gpu)
+        launches["remat"] = phase_remat(out, gpu)
         phase_packed_cli(out, paths, tmp)
         phase_channels(out, gpu)
         phase_forward_infer(out, gpu)
@@ -3296,6 +3502,13 @@ def main(argv=None) -> int:
                                            for k in ("ms", "per_layer_step_ms", "bound_ms")}
                                  for b in OTHER_BATCHES})
         if name in TRAIN_FNS:
+            # each remat policy's run on its cells (phase 21), fwd + bwd
+            extra["remat_launches"] = {
+                f"{cell} {run}": c[f"{name}_fwd"] + c[f"{name}_bwd"]
+                for cell, runs in launches["remat"].items()
+                for run, c in runs.items() if c[f"{name}_fwd"]}
+            check(bool(extra["remat_launches"]),
+                  f"{name} was not launched on the remat policies' path (phase 21)")
             # each mesh run's steps (phase 20), fwd + bwd launches of one rank
             extra["mesh_train_launches_per_rank"] = {
                 run: counts_[f"{name}_fwd"] + counts_[f"{name}_bwd"]
@@ -3326,7 +3539,7 @@ def main(argv=None) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 20 phases in {out['total_s']:.1f} s")
+    print(f"chip_smoke: 21 phases in {out['total_s']:.1f} s")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ states.
 Train states (:func:`save_train_state` / :func:`restore_train_state`) are
 written in the port's own format, one ``torch.save`` file per step;
 :func:`load_model_params` reads the parameters of either kind of file.
-Reading the JAX package's Orbax directories is not ported yet.
+A JAX run's Orbax train state becomes such a file with
+``scripts/orbax_to_torch.py`` (outside the package: it needs JAX and Orbax).
 
 :func:`read_safetensors` / :func:`write_safetensors` read and write the
 ``safetensors`` format (a Hugging Face snapshot's ``model.safetensors``) by

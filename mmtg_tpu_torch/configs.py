@@ -165,7 +165,7 @@ class TrainConfig:
     # Extras absent in the reference:
     dtype: str = "float32"  # compute dtype; 'bfloat16' keeps f32 masters
     remat: bool = True  # recompute each GPT-2 block in the backward
-    mesh_shape: Tuple[int, int] = (1, 1)  # (data, model); training meshes not ported
+    mesh_shape: Tuple[int, int] = (1, 1)  # (data, model); the CLI reads --mesh_*
     # Train attention: "auto" / "kernel" = the hand-written kernels on the
     # standard slab (ops/train_attention.py: mha_train_packed, or
     # mha_train_packed_seg on packed rows; CPU tensors take the plain
@@ -173,8 +173,10 @@ class TrainConfig:
     # heads padded to 128 lanes (the JAX package's "pallas"), "plain" = the
     # plain version on any device.
     attn_impl: str = "auto"
-    # Selective remat policies are not ported: the port re-runs the whole
-    # block ("full"); "auto" resolves to it.
+    # What a block keeps for its backward under remat (models/gpt2.py:
+    # REMAT_POLICIES): "full" (its input only), "save_qkv_ctx",
+    # "save_ctx_fc1", "save_all"; "auto" = "save_qkv_ctx" when qkv + ctx fit
+    # the 5e9-byte gate, else "full" (train._resolve_remat_policy).
     remat_policy: str = "auto"
     # Gradient accumulation: split each batch into N sequential
     # micro-chunks, one fwd+bwd per chunk, exact recombination under the

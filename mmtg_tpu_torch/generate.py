@@ -5,7 +5,8 @@ Same flags and file-to-file behavior: every test row is replicated
 ``n_samples`` times and whole batches decode through
 :func:`mmtg_tpu_torch.decoding.generate`. The model is what the port's train
 CLI wrote (its ``--save_path``, best-val stream first, or one ``step_*.pt``)
-or a reference ``.pth`` (Orbax directories are not ported yet).
+or a reference ``.pth`` (a JAX run's Orbax directory is converted first by
+``scripts/orbax_to_torch.py``).
 
     python -m mmtg_tpu_torch.generate --data_path test.pkl \\
         --model_path model.pth --tokenizer_path vocab/vocab.txt \\
@@ -146,7 +147,8 @@ def load_params(model_path: str, mcfg: ModelConfig, device="cpu") -> Dict:
     ``train_state_best/``, else of ``train_state/``; ``FileNotFoundError``
     when neither has one), one ``step_*.pt``, or a reference ``.pth`` /
     ``.ckpt`` / ``.pt``. A file's kind is told by its keys, not its suffix.
-    Orbax directories are not ported."""
+    A JAX run's Orbax directory is converted first by
+    ``scripts/orbax_to_torch.py``."""
     from mmtg_tpu_torch.checkpoint import load_model_params, newest_step_file
 
     return tree_to(load_model_params(newest_step_file(model_path), mcfg), device)

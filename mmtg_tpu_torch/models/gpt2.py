@@ -10,10 +10,12 @@ The full-sequence forward (:func:`gpt2_forward`) serves training (dropout,
 per-block remat, attention through the hand-written train-attention kernels,
 :mod:`mmtg_tpu_torch.ops.train_attention`, with a key-padding mask or, for
 packed rows, segment ids) and the prefill (:func:`prefill_cache`, plain
-PyTorch attention — the JAX package runs XLA attention there too). No
-selective remat policies yet. Tensor parallelism (``tp_group``: this rank
-holds its heads' QKV / MLP columns and the matching rows of the two output
-projections, :mod:`mmtg_tpu_torch.parallel.mesh`, and the row-parallel
+PyTorch attention — the JAX package runs XLA attention there too). The
+train path's remat keeps what the JAX package's selective policies keep
+(:data:`REMAT_POLICIES`, :class:`_RematBlock`). Tensor parallelism
+(``tp_group``: this rank holds its heads' QKV / MLP columns and the
+matching rows of the two output projections,
+:mod:`mmtg_tpu_torch.parallel.mesh`, and the row-parallel
 partial products are summed over the group before their replicated bias) in
 training, the prefill and the decode step; in training the sums are Megatron's
 two conjugate operators (:func:`copy_to_tp`, :func:`reduce_from_tp`), so the
@@ -35,7 +37,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-import torch.utils.checkpoint
 
 from mmtg_tpu_torch.configs import GPT2Config
 from mmtg_tpu_torch.ops.decode_attention import (
@@ -56,6 +57,8 @@ from mmtg_tpu_torch.ops.decode_megakernel import (
 )
 from mmtg_tpu_torch.parallel.mesh import all_reduce_
 from mmtg_tpu_torch.ops.train_attention import (
+    attention_keep,
+    attention_replay,
     mha_train,
     mha_train_packed,
     mha_train_packed_plain,
@@ -67,8 +70,8 @@ from mmtg_tpu_torch.ops.train_attention import (
 
 __all__ = [
     "KVCache", "quantize_rows", "quantize_rows_int4", "unpack_int4",
-    "layer_norm", "gelu_new", "gpt2_forward", "init_cache", "merge_kv",
-    "prefill_cache", "gpt2_decode_step", "import_hf_gpt2",
+    "layer_norm", "gelu_new", "REMAT_POLICIES", "gpt2_forward", "init_cache",
+    "merge_kv", "prefill_cache", "gpt2_decode_step", "import_hf_gpt2",
     "quantize_decode_weights",
 ]
 
@@ -274,6 +277,101 @@ def dropout_seeds(gen: torch.Generator, n_layer: int,
                                                      attn_only=True)
 
 
+# The selective remat menu of the train forward (:mod:`mmtg_tpu.models.gpt2`'s
+# ``_REMAT_POLICIES``): the named tensors a block keeps for its backward
+# beside its input. "qkv" is the c_attn product, "attn_ctx" the attention's
+# context, "mlp_fc1" the c_fc product plus its bias, before gelu_new. The
+# rest of the block (LayerNorms, dropout, residuals, the other products,
+# gelu_new) is recomputed in the backward; so is a named tensor not kept.
+REMAT_POLICIES = {
+    "full": (),  # the block input only (lowest memory)
+    "save_qkv_ctx": ("qkv", "attn_ctx"),
+    "save_ctx_fc1": ("attn_ctx", "mlp_fc1"),  # the attention runs once
+    "save_all": ("qkv", "attn_ctx", "mlp_fc1"),
+}
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``x @ w (+ b)`` whose value ``y`` the forward kept: ``y`` without the
+    product, differentiated as the product is."""
+
+    @staticmethod
+    def forward(ctx, y, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.bias = b is not None
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = g @ w.T if need[1] else None
+        dw = x.reshape(-1, x.shape[-1]).T @ g2 if need[2] else None
+        db = g2.sum(0) if ctx.bias and need[3] else None
+        return None, dx, dw, db
+
+
+class _Tape:
+    """The named tensors of one block (the JAX package's ``checkpoint_name``
+    sites), those in ``names`` kept: a forward (``kept=None``) computes every
+    site and stores the kept ones in ``self.kept``; a replay takes them from
+    ``kept`` and computes the rest. ``names=()``: every site as it is."""
+
+    def __init__(self, names=(), kept=None):
+        self.names, self.replay = names, kept is not None
+        self.kept = kept if kept is not None else {}
+
+    def product(self, name, x, w, b=None):
+        if self.replay and name in self.names:
+            return _KeptProduct.apply(self.kept[name], x, w, b)
+        y = x @ w if b is None else x @ w + b
+        if name in self.names:
+            self.kept[name] = y
+        return y
+
+    def attention(self, attend, qkv, *args):
+        if "attn_ctx" not in self.names:
+            return attend(qkv, *args)
+        if self.replay:
+            return attention_replay(attend, self.kept["attn_ctx"], qkv, *args)
+        ctx, self.kept["attn_ctx"] = attention_keep(attend, qkv, *args)
+        return ctx
+
+
+_NO_TAPE = _Tape()
+
+
+class _RematBlock(torch.autograd.Function):
+    """One block that keeps its input and its ``names`` tensors and, in the
+    backward, runs again with the kept tensors in place
+    (:class:`_KeptProduct`, :func:`~mmtg_tpu_torch.ops.train_attention.
+    attention_replay`): what is kept is neither recomputed nor launched
+    again. ``run(h, tensors, tape)`` is the block, a pure function of its
+    arguments (dropout masks from seeds), so the replay recomputes the same
+    values, the tensor-parallel sums in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, run, names, h, *tensors):
+        tape = _Tape(names)
+        out = run(h, tensors, tape)
+        ctx.run, ctx.names, ctx.kept = run, names, tape.kept
+        ctx.save_for_backward(h, *tensors)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, want)]
+            out = ctx.run(inputs[0], inputs[1:], _Tape(ctx.names, ctx.kept))
+            ctx.kept = None
+            grads = iter(torch.autograd.grad(
+                out, [t for t, w in zip(inputs, want) if w], g))
+        return (None, None) + tuple(next(grads) if w else None for w in want)
+
+
 _ATTN_IMPLS = {"auto": "kernel", "kernel": "kernel",
                "kernel_padded": "kernel_padded", "plain": "plain"}
 # the segment id of the slots that pad a packed row to a multiple of 128: they
@@ -297,6 +395,7 @@ def gpt2_forward(
     segment_ids: Optional[torch.Tensor] = None,
     tp_group=None,
     pp: Optional[Tuple] = None,
+    remat_policy: str = "full",
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward (train / prefill / teacher forcing).
 
@@ -308,8 +407,15 @@ def gpt2_forward(
         False`` the embedding, attention and residual dropouts are on, at
         the config's rates. Every mask's seed is drawn from the generator
         BEFORE the layer loop, so ``remat`` recomputes identical masks.
-      remat: recompute each block in the backward
-        (``torch.utils.checkpoint``) instead of keeping its activations.
+      remat: recompute each block in the backward instead of keeping its
+        activations, all but what ``remat_policy`` keeps.
+      remat_policy: one of :data:`REMAT_POLICIES` (``"full"``: the block
+        input only; ``"save_qkv_ctx"``, ``"save_ctx_fc1"``, ``"save_all"``:
+        also the named tensors, which the backward neither recomputes nor,
+        for the attention context, launches again; with the context a
+        kernel also keeps its ``[B, H, T]`` f32 row log-sum-exp). Read only
+        with ``remat`` and gradients on; the pipeline (``pp``) recomputes
+        each stage from its input under any policy.
       attn_impl: ``"kernel"`` (also ``"auto"``, the default) runs
         :func:`mmtg_tpu_torch.ops.train_attention.mha_train_packed` — the
         hand-written kernel pair for CUDA tensors, which raises on what it
@@ -351,6 +457,9 @@ def gpt2_forward(
     """
     if attn_impl not in _ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: one of {sorted(_ATTN_IMPLS)}")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                         f"{sorted(REMAT_POLICIES)}")
     attn_impl = _ATTN_IMPLS[attn_impl]
     B, T, D = inputs_embeds.shape
     L = cfg.n_layer
@@ -424,9 +533,10 @@ def gpt2_forward(
             return torch.zeros(L, dtype=torch.int32, device=h.device)
         return torch.tensor(attn, dtype=torch.int32, device=h.device)
 
-    def layer(h, lp, resid, attn_seed, bias):
+    def layer(h, lp, resid, attn_seed, bias, tape=_NO_TAPE):
         """One block on ``h`` ``[b, T, D]``: ``lp`` the layer's parameters,
-        ``resid`` its two residual seeds, ``attn_seed`` ``[1]`` int32."""
+        ``resid`` its two residual seeds, ``attn_seed`` ``[1]`` int32,
+        ``tape`` its named tensors (:class:`_Tape`; train path)."""
         k_resid1, k_resid2 = resid
         a = layer_norm(h, lp["ln1_g"], lp["ln1_b"], eps)
         k = v = None
@@ -448,14 +558,15 @@ def gpt2_forward(
             if attn_impl == "kernel_padded":
                 w_qkv, b_qkv = pad_qkv_weights(w_qkv, b_qkv, n_head, hd)
                 w_proj = pad_proj_weights(w_proj, n_head, hd)
-            ctx = attend(copy_to_tp(a, tp_group) @ w_qkv, b_qkv, bias, attn_seed,
-                         n_head, attn_rate, 1.0 / math.sqrt(hd))
+            qkv = tape.product("qkv", copy_to_tp(a, tp_group), w_qkv)
+            ctx = tape.attention(attend, qkv, b_qkv, bias, attn_seed, n_head,
+                                 attn_rate, 1.0 / math.sqrt(hd))
             attn_out = reduce_from_tp(ctx @ w_proj, tp_group)
         h = h + _dropout(attn_out + lp["attn_proj_b"], cfg.resid_pdrop, k_resid1)
         m = layer_norm(h, lp["ln2_g"], lp["ln2_b"], eps)
         if not return_kv:
             m = copy_to_tp(m, tp_group)
-        m = gelu_new(m @ lp["mlp_fc_w"] + lp["mlp_fc_b"])
+        m = gelu_new(tape.product("mlp_fc1", m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
         m = m @ lp["mlp_proj_w"]
         m = tp_sum(m, tp_group) if return_kv else reduce_from_tp(m, tp_group)
         return h + _dropout(m + lp["mlp_proj_b"], cfg.resid_pdrop, k_resid2), k, v
@@ -490,10 +601,10 @@ def gpt2_forward(
             args = (h, lp, seeds.resid[l] if seeds is not None else no_resid,
                     attn[l:l + 1] if attn is not None else None, bias)
             if remat and torch.is_grad_enabled():
-                # masks are functions of their seeds, so the generators'
-                # global state need not be saved and restored
-                h, k, v = torch.utils.checkpoint.checkpoint(
-                    layer, *args, use_reentrant=False, preserve_rng_state=False)
+                # masks are functions of their seeds, so the replay draws
+                # them again without any generator state
+                h = _remat_block(layer, REMAT_POLICIES[remat_policy], *args)
+                k = v = None
             else:
                 h, k, v = layer(*args)
             if return_kv:
@@ -506,6 +617,18 @@ def gpt2_forward(
     if not lm_head:
         return h, kv
     return h @ params["wte"].T, kv
+
+
+def _remat_block(layer, names, h, lp, resid, attn_seed, bias):
+    """``layer(h, lp, resid, attn_seed, bias, tape)`` under
+    :class:`_RematBlock`, keeping the tensors ``names``."""
+    keys = list(lp)
+
+    def run(h, tensors, tape):
+        *w, attn_seed, bias = tensors
+        return layer(h, dict(zip(keys, w)), resid, attn_seed, bias, tape)[0]
+
+    return _RematBlock.apply(run, names, h, *lp.values(), attn_seed, bias)
 
 
 def prefill_cache(

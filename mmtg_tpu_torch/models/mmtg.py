@@ -136,6 +136,7 @@ def mmtg_forward_train(
     lm_head: bool = True,
     tp_group=None,
     pp=None,
+    remat_policy: str = "full",
 ) -> MMTGOutput:
     """Teacher-forced forward (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train`).
 
@@ -146,7 +147,8 @@ def mmtg_forward_train(
     ``dropout_gen`` with ``deterministic=False`` turns dropout on: the
     encoder draws from it first, then the decoder.
 
-    ``tp_group`` / ``pp``: the GPT-2 stack tensor-parallel or pipelined
+    ``tp_group`` / ``pp`` / ``remat_policy``: the GPT-2 stack
+    tensor-parallel or pipelined, and what its remat keeps
     (:func:`~mmtg_tpu_torch.models.gpt2.gpt2_forward`); the encoder, the
     alpha / beta attention and the projector run whole on every rank of a
     data shard, as in the JAX package."""
@@ -164,7 +166,8 @@ def mmtg_forward_train(
     out, _ = gpt2_forward(
         params["gpt2"], mcfg.gpt2, embeds, positions, type_ids, attn_mask,
         dropout_gen=gen, deterministic=deterministic, remat=remat,
-        attn_impl=attn_impl, lm_head=lm_head, tp_group=tp_group, pp=pp)
+        attn_impl=attn_impl, lm_head=lm_head, tp_group=tp_group, pp=pp,
+        remat_policy=remat_policy)
     if not lm_head:
         return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)
     lm_loss = None
@@ -189,6 +192,7 @@ def mmtg_forward_train_packed(
     lm_head: bool = True,
     tp_group=None,
     pp=None,
+    remat_policy: str = "full",
 ) -> MMTGOutput:
     """Teacher-forced forward over PACKED rows
     (:func:`mmtg_tpu.models.mmtg.mmtg_forward_train_packed`; the rows come
@@ -201,8 +205,9 @@ def mmtg_forward_train_packed(
     type ids, per-token fused-window gathers and segment-masked attention.
     Explicitly NON-parity (see pack.py's token-accounting contract); the
     parity path is :func:`mmtg_forward_train`. ``kl_per_sample`` is ``[R,
-    S]``. ``tp_group`` / ``pp`` as in :func:`mmtg_forward_train` (the
-    trainer packs rows under data parallelism only, as the JAX trainer)."""
+    S]``. ``tp_group`` / ``pp`` / ``remat_policy`` as in
+    :func:`mmtg_forward_train` (the trainer packs rows under data
+    parallelism only, as the JAX trainer)."""
     gen = dropout_gen if not deterministic else None
     R, S, E = pbatch["topic_emb"].shape
     flat = lambda x: x.reshape((R * S,) + x.shape[2:])  # noqa: E731
@@ -226,7 +231,8 @@ def mmtg_forward_train_packed(
         params["gpt2"], mcfg.gpt2, embeds, pbatch["positions"],
         pbatch["type_ids"], attention_mask=None, dropout_gen=gen,
         deterministic=deterministic, remat=remat, attn_impl=attn_impl,
-        lm_head=lm_head, segment_ids=seg, tp_group=tp_group, pp=pp)
+        lm_head=lm_head, segment_ids=seg, tp_group=tp_group, pp=pp,
+        remat_policy=remat_policy)
     kl = kl.reshape(R, S)
     if not lm_head:
         return MMTGOutput(logits=None, kl_per_sample=kl, lm_loss=None, hidden=out)

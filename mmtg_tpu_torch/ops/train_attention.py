@@ -24,7 +24,11 @@ Each is a ``torch.autograd.Function``: for CUDA tensors its forward and its
 backward launch the hand-written kernels of ``csrc/train_attention.cu`` (and
 raise if they cannot); for CPU tensors it runs its ``*_plain`` version, the
 same math in plain differentiable PyTorch. ``<function>.fwd_launches`` /
-``.bwd_launches`` count the kernel launches.
+``.bwd_launches`` count the kernel launches. For selective remat
+(:mod:`mmtg_tpu_torch.models.gpt2`'s ``REMAT_POLICIES``),
+:func:`attention_keep` runs a forward outside autograd and keeps the context
+(and a kernel's row log-sum-exp), and :func:`attention_replay` later
+differentiates that call from what was kept, with no second forward launch.
 
 The source holds two designs, chosen by the slab's dtype and by nothing else:
 
@@ -65,6 +69,8 @@ recomputed forward and the plain version see identical masks.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -268,32 +274,46 @@ def _dropout_args(rate: float):
     return 1.0, 0, 0
 
 
+def _launch_forward(fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale):
+    """One launch of ``fn``'s forward kernel: (ctx, lse ``[B, H, T]`` f32, the
+    rows' log-sum-exp that the backward kernel reads)."""
+    B, T, hd = _check(fn, qkv, qkv_bias, mask, seed, n_head)
+    out = torch.empty((B, T, n_head * hd), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, n_head, T), dtype=torch.float32, device=qkv.device)
+    inv_keep, thr, drop = _dropout_args(dropout_rate)
+    lib = _build.load()
+    with torch.cuda.device(qkv.device):
+        err = lib.mmtg_mha_train_fwd(
+            qkv.data_ptr(), qkv_bias.data_ptr(), mask.data_ptr(),
+            seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, T, n_head, hd, int(fn.head_major), int(fn.seg), scale,
+            inv_keep, thr, drop, _DTYPE_CODE[qkv.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"{fn.__name__} forward")
+    fn.fwd_launches += 1
+    return out, lse
+
+
 class _MhaTrain(torch.autograd.Function):
     """The kernels under autograd (CUDA tensors only). ``fn`` is the public
     function that was called: it names the slab layout (``fn.head_major``)
-    and the mask (``fn.seg``), and its launch counters are the ones bumped."""
+    and the mask (``fn.seg``), and its launch counters are the ones bumped.
+    ``kept``: the ``(ctx, lse)`` of an earlier forward launch on the same
+    inputs (:func:`attention_replay`), returned without launching again."""
 
     @staticmethod
-    def forward(ctx, fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale):
-        B, T, hd = _check(fn, qkv, qkv_bias, mask, seed, n_head)
-        out = torch.empty((B, T, n_head * hd), dtype=qkv.dtype,
-                          device=qkv.device)
-        lse = torch.empty((B, n_head, T), dtype=torch.float32,
-                          device=qkv.device)
-        inv_keep, thr, drop = _dropout_args(dropout_rate)
-        lib = _build.load()
-        with torch.cuda.device(qkv.device):
-            err = lib.mmtg_mha_train_fwd(
-                qkv.data_ptr(), qkv_bias.data_ptr(), mask.data_ptr(),
-                seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                B, T, n_head, hd, int(fn.head_major), int(fn.seg), scale,
-                inv_keep, thr, drop, _DTYPE_CODE[qkv.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        _build.check(err, f"{fn.__name__} forward")
-        fn.fwd_launches += 1
+    def forward(ctx, fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale,
+                kept=None):
+        if kept is None:
+            out, lse = _launch_forward(fn, qkv, qkv_bias, mask, seed, n_head,
+                                       dropout_rate, scale)
+            res = out
+        else:
+            out, lse = kept
+            res = out.view_as(out)
         ctx.save_for_backward(qkv, qkv_bias, mask, seed, out, lse)
-        ctx.cfg = (fn, n_head, hd, dropout_rate, scale)
-        return out
+        ctx.cfg = (fn, n_head, out.shape[-1] // n_head, dropout_rate, scale)
+        return res
 
     @staticmethod
     def backward(ctx, dout):
@@ -326,7 +346,67 @@ class _MhaTrain(torch.autograd.Function):
         # the JAX VJPs)
         dmask = (torch.zeros_like(mask)
                  if not fn.seg and ctx.needs_input_grad[3] else None)
-        return None, dqkv, dqb.to(qkv_bias.dtype), dmask, None, None, None, None
+        return (None, dqkv, dqb.to(qkv_bias.dtype), dmask, None, None, None,
+                None, None)
+
+
+class KeptAttention(NamedTuple):
+    """What :func:`attention_keep` keeps of one attention forward for its
+    backward: the context, and the kernels' ``lse`` (``[B, H, T]`` f32,
+    1/32 of a bf16 context's bytes at 64 lanes a head; the JAX VJP derives it
+    again from qkv, here the backward kernel reads it), or, for a plain
+    version, its autograd ``graph`` ``(ctx, qkv leaf, qkv_bias leaf)``."""
+
+    out: torch.Tensor
+    lse: Optional[torch.Tensor] = None
+    graph: Optional[tuple] = None
+
+
+class _KeptGraph(torch.autograd.Function):
+    """A plain version's kept context, differentiated through its kept graph."""
+
+    @staticmethod
+    def forward(ctx, graph, qkv, qkv_bias):
+        ctx.graph = graph
+        return graph[0].detach()
+
+    @staticmethod
+    def backward(ctx, dout):
+        out, q, b = ctx.graph
+        ctx.graph = None
+        dq, db = torch.autograd.grad(out, (q, b), dout)
+        return None, dq, db
+
+
+def attention_keep(attend, qkv, qkv_bias, mask, seed, n_head: int,
+                   dropout_rate: float = 0.0, scale: float = 1.0):
+    """``attend(qkv, qkv_bias, mask, seed, ...)`` — one of the three functions
+    or a plain version — run outside autograd. Returns (ctx, :class:`
+    KeptAttention`): with it :func:`attention_replay` differentiates this
+    call later without running its forward again. A kernel (CUDA tensors)
+    keeps its ``ctx`` and ``lse``; a plain version keeps its graph (every
+    intermediate it saves, the ``[B, H, T, T]`` probabilities too)."""
+    if getattr(attend, "plain", None) is not None and qkv.device.type == "cuda":
+        out, lse = _launch_forward(attend, qkv, qkv_bias, mask, seed, n_head,
+                                   float(dropout_rate), float(scale))
+        return out, KeptAttention(out, lse)
+    with torch.enable_grad():
+        q = qkv.detach().requires_grad_()
+        b = qkv_bias.detach().requires_grad_()
+        out = attend(q, b, mask, seed, n_head, dropout_rate, scale)
+    return out.detach(), KeptAttention(out.detach(), graph=(out, q, b))
+
+
+def attention_replay(attend, kept: KeptAttention, qkv, qkv_bias, mask, seed,
+                     n_head: int, dropout_rate: float = 0.0, scale: float = 1.0):
+    """The context of the :func:`attention_keep` call that made ``kept``, as
+    a function of ``qkv`` and ``qkv_bias`` (the same values, kept or
+    recomputed), with no forward launch: the backward kernel reads ``kept``'s
+    context and ``lse``, or a plain version's kept graph runs backward."""
+    if kept.graph is not None:
+        return _KeptGraph.apply(kept.graph, qkv, qkv_bias)
+    return _MhaTrain.apply(attend, qkv, qkv_bias, mask, seed, n_head,
+                           float(dropout_rate), float(scale), (kept.out, kept.lse))
 
 
 def _dispatch(fn, qkv, qkv_bias, mask, seed, n_head, dropout_rate, scale):

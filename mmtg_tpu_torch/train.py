@@ -25,6 +25,11 @@ through a differentiable cast. The train state is UPDATED IN PLACE by a step
 ``--gpt2_ckpt`` reads ``pytorch_model.bin`` and ``model.safetensors``
 snapshots and reference ``.pth`` files.
 
+Remat (``TrainConfig.remat``, off with ``--no_remat``) keeps what
+``TrainConfig.remat_policy`` names for the backward
+(:data:`mmtg_tpu_torch.models.gpt2.REMAT_POLICIES`); ``"auto"`` resolves as
+the JAX trainer does (:func:`_resolve_remat_policy`).
+
 Meshes, one process a rank under ``torchrun``
 (:mod:`mmtg_tpu_torch.parallel.mesh`, :mod:`mmtg_tpu_torch.parallel.pipeline`):
 ``--mesh_data`` (0 = every rank of the job) x ``--mesh_model`` (Megatron
@@ -41,7 +46,9 @@ and ``--resume`` on a mesh re-shards::
     python -m torch.distributed.run --standalone --nproc_per_node 2 \\
         -m mmtg_tpu_torch.train --mesh_data 2 --zero1 ...
 
-Not ported yet: selective remat policies; Orbax checkpoints.
+A JAX run's Orbax train state (``<save_path>/orbax``) or a JAX pretrain
+directory becomes the port's with ``scripts/orbax_to_torch.py``, outside the
+package (it needs JAX and Orbax).
 """
 
 from __future__ import annotations
@@ -199,6 +206,29 @@ def _resolve_loss_impl(impl: str, batch: Dict[str, torch.Tensor], vocab: int) ->
     return "full" if 6 * B * T * vocab < 5e9 else "chunked"
 
 
+def _resolve_remat_policy(policy: str, batch=None, pp=None,
+                          prompt_len: int = 15, data_size: int = 1) -> str:
+    """``"auto"`` → ``"save_qkv_ctx"`` when the kept pair fits, else
+    ``"full"`` (the JAX trainer's rule): qkv + ctx are about ``73728·B·Tp``
+    bytes over 12 layers (``Tp`` the sequence padded to 128: the packed
+    rows, or the targets behind the ``prompt_len`` topic prompt), and the
+    gate is 5e9 bytes, set by the JAX package for a 16 GB TPU chip and kept
+    for parity. The pipeline and a call without a batch keep ``"full"``.
+    ``batch`` is this rank's rows: ``B`` counts them ``data_size`` times (the
+    JAX step is one program over the global batch). Other names pass."""
+    if policy != "auto":
+        return policy
+    if pp is not None or batch is None:
+        return "full"
+    if "tokens" in batch:  # packed rows
+        B, T = batch["tokens"].shape
+    else:
+        B, T = batch["targets"].shape
+        T += prompt_len
+    Tp = ((T + 127) // 128) * 128  # the attention kernels' sequence pad
+    return "save_qkv_ctx" if 73728 * B * data_size * Tp <= 5e9 else "full"
+
+
 def loss_and_metrics(
     params: Dict,
     const: Dict,
@@ -211,16 +241,17 @@ def loss_and_metrics(
     deterministic: bool,
     tp_group=None,
     pp=None,
+    data_size: int = 1,
 ):
     """total = unlikelihood(curriculum-masked) + alpha·KL
     (reference ``train.py:191-192``) over this rank's rows. Returns (total,
     metrics). ``tp_group`` / ``pp``: the GPT-2 stack tensor-parallel or
     pipelined (:func:`~mmtg_tpu_torch.models.gpt2.gpt2_forward`); the
-    pipeline path always recomputes a stage in the backward (full remat)."""
-    if tcfg.remat_policy not in ("auto", "full"):
-        raise NotImplementedError(
-            f"remat_policy {tcfg.remat_policy!r}: selective remat policies "
-            "are not ported yet (use 'full')")
+    pipeline path always recomputes a stage in the backward (full remat).
+    ``data_size``: the ranks of the ``data`` axis, whose rows together are
+    the batch that ``"auto"`` resolves on (:func:`_resolve_remat_policy`)."""
+    remat_policy = _resolve_remat_policy(
+        tcfg.remat_policy, batch, pp, dcfg.topic_prompt_length, data_size)
     if tcfg.dtype == "bfloat16":
         # mixed precision: f32 master params/optimizer, bf16 compute (the
         # cast is differentiable, so gradients land back in f32); the loss
@@ -240,7 +271,8 @@ def loss_and_metrics(
             fwd_params, fwd_const, mcfg, dcfg, batch,
             dropout_gen=dropout_gen, deterministic=deterministic,
             remat=tcfg.remat and not deterministic, attn_impl=tcfg.attn_impl,
-            lm_head=not chunked, tp_group=tp_group, pp=pp)
+            lm_head=not chunked, tp_group=tp_group, pp=pp,
+            remat_policy=remat_policy)
         if chunked:
             loss, weights, _ = packed_sequence_unlikelihood_loss_from_hidden(
                 out.hidden, fwd_params["gpt2"]["wte"], batch, stage)
@@ -255,7 +287,8 @@ def loss_and_metrics(
         fwd_params, fwd_const, mcfg, dcfg, batch,
         dropout_gen=dropout_gen, deterministic=deterministic,
         remat=tcfg.remat and not deterministic, attn_impl=tcfg.attn_impl,
-        lm_head=not chunked, tp_group=tp_group, pp=pp)
+        lm_head=not chunked, tp_group=tp_group, pp=pp,
+        remat_policy=remat_policy)
     ratings = batch["rating"]
     weights = curriculum_sample_weights(ratings, stage)
     if "sample_mask" in batch:
@@ -395,7 +428,8 @@ def make_train_step(mcfg, dcfg, tcfg, tx: AdamW, pp=None, zero1: bool = False,
     layout = pmesh.train_layout(mesh)
     if zero1 and layout.pp > 1:
         raise ValueError(ZERO1_PIPE_ERROR)
-    mesh_kw = dict(tp_group=layout.split_group if layout.tp > 1 else None, pp=pp)
+    mesh_kw = dict(tp_group=layout.split_group if layout.tp > 1 else None, pp=pp,
+                   data_size=layout.dp)
 
     def train_step(state: TrainState, const: Dict, batch: Dict, stage: int):
         base = int(torch.randint(0, 2 ** 62, (1,), generator=state.rng))
@@ -594,20 +628,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--token_emb_path", default="./vocab/token_id2emb_dict.pkl", type=str)
     p.add_argument("--gpt2_ckpt", default="", type=str,
                    help="phase-1 GPT-2 .pth/.ckpt (or an HF directory with "
-                        "pytorch_model.bin) to initialize the decoder")
+                        "pytorch_model.bin or model.safetensors) to initialize "
+                        "the decoder; scripts/orbax_to_torch.py converts a JAX "
+                        "pretrain directory")
     p.add_argument("--resume", action="store_true", help="resume from save_path")
     p.add_argument("--mesh_data", default=0, type=int,
-                   help="parity flag: meshes are not ported (must be 0 or 1)")
+                   help="data-parallel mesh size (0 = every rank of the "
+                        "torchrun job over --mesh_model x --mesh_pipe)")
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="parity flag: meshes are not ported (must be 1)")
+                   help="tensor-parallel ranks a data shard (Megatron: heads "
+                        "and MLP columns split; run under torchrun)")
     p.add_argument("--mesh_pipe", default=1, type=int,
-                   help="parity flag: pipeline stages are not ported (must be 1)")
+                   help="pipeline-parallel stages (GPipe over the GPT-2 "
+                        "layer stack; mutually exclusive with --mesh_model)")
     p.add_argument("--pp_microbatches", default=0, type=int,
-                   help="parity flag of --mesh_pipe")
+                   help="microbatches per pipelined step (0 = the largest "
+                        "M <= 2x stages dividing every per-rank batch)")
     p.add_argument("--grad_accum", default=1, type=int,
                    help="split each batch into N sequential micro-chunks "
                         "(exact recombination under curriculum weights)")
-    p.add_argument("--zero1", action="store_true", help="not ported yet")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the AdamW moments over the data axis "
+                        "(1/dp optimizer bytes a rank; one all_gather over "
+                        "data rebuilds the parameters)")
     p.add_argument("--pack_sequences", action="store_true",
                    help="EXPLICITLY NON-PARITY throughput mode: drop PAD "
                         "tokens, pack samples into segment-masked rows "
@@ -643,7 +686,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "directory")
     p.add_argument("--clip_dim", default=512, type=int,
                    help="CLIP embedding width for --variant english")
-    p.add_argument("--multihost", action="store_true", help="not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="a job whose ranks span nodes (torchrun --nnodes N); "
+                        "required for a job of more than one node")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: cuda; pass 'cpu' to run "
                         "without a GPU)")
@@ -686,8 +731,9 @@ def load_gpt2_ckpt_into(params: Dict, path: str, mcfg: ModelConfig) -> None:
     package) or ``model.safetensors``, or a torch ``.pth`` / ``.ckpt`` file
     — the reference's phase-1 ``GPT2_Decoder`` state dict (``gpt2.``-prefixed
     + projectors, optionally ``state_dict``-wrapped) or a raw HF
-    ``GPT2LMHeadModel`` state dict (``transformer.``-prefixed). Orbax
-    directories are not ported yet."""
+    ``GPT2LMHeadModel`` state dict (``transformer.``-prefixed). A JAX
+    pretrain Orbax directory is converted first by
+    ``scripts/orbax_to_torch.py``."""
     from mmtg_tpu_torch.checkpoint import read_safetensors, strip_prefix
     from mmtg_tpu_torch.models.gpt2 import import_hf_gpt2
 
@@ -710,7 +756,8 @@ def load_gpt2_ckpt_into(params: Dict, path: str, mcfg: ModelConfig) -> None:
         else:
             raise NotImplementedError(
                 f"--gpt2_ckpt {path}: a directory must hold pytorch_model.bin "
-                "or model.safetensors (Orbax directories are not ported yet)")
+                "or model.safetensors (convert a JAX Orbax directory with "
+                "scripts/orbax_to_torch.py)")
         raw = strip_prefix(raw)
         if not any(k.startswith("transformer.") for k in raw):
             raw = {f"transformer.{k}": v for k, v in raw.items()}  # GPT2Model save

@@ -7,7 +7,8 @@
 Every rank loads the same inputs, lays the four ranks out as data 2 x pipe 2
 (``parallel.pipeline.make_dp_pp_mesh``), shards the train state by stage and
 takes its data shard's rows, then: the eval metrics, the step's gradients
-(gathered to the full tree), two train steps (the state gathered to full),
+(gathered to the full tree; the same under each explicit remat policy),
+two train steps (the state gathered to full),
 the replicated leaves compared across ranks, a step on a batch that keeps no
 sample; and the stack with dropout on, twice with one seed and once with
 another, on rows that repeat from one micro-batch to the next. Rank 0 writes
@@ -35,6 +36,7 @@ from mmtg_tpu_torch.params import tree_leaves  # noqa: E402
 from _torch_train_mesh_job import _all_ranks_true, _np_tree, _replicated_equal, _rows  # noqa: E402
 
 DP, PP, N_MICRO = 2, 2, 2
+POLICIES = ("full", "save_qkv_ctx", "save_ctx_fc1", "save_all")
 STAGE, ZERO_STAGE = 2, 1
 
 
@@ -55,6 +57,14 @@ def run(inputs, out):
         out[f"eval/{k}"] = np.array([float(m[k])])
     grads, num = ttrain._numerators(state.params, const, mcfg, dcfg, tcfg, batch,
                                     STAGE, None, pp=pp)
+    # the pipeline recomputes each stage from its input under any policy: an
+    # explicit one gives this rank the same numbers bit for bit
+    for policy in POLICIES:
+        g, n = ttrain._numerators(state.params, const, mcfg, dcfg,
+                                  dataclasses.replace(tcfg, remat_policy=policy),
+                                  batch, STAGE, None, pp=pp)
+        same = torch.equal(n, num) and all(torch.equal(x, y) for x, y in zip(g, grads))
+        out[f"policy/{policy}"] = np.array([_all_ranks_true(same)])
     grads, num, norm = ttrain._MeshSums(layout, state.params).reduce(grads, num)
     out["norm"] = np.array([float(norm)])
     _np_tree(ttrain._full_tree(ttrain._unflatten(state.params, grads), mcfg, layout),

@@ -6,7 +6,8 @@
 
 Every rank loads the same inputs (configs, full parameters, the global batch,
 a batch that keeps no sample), then for each case — meshes (4, 1), (2, 2),
-(1, 4), and ZeRO-1 on (4, 1) and (2, 2) — shards the train state, takes this
+(1, 4), ZeRO-1 on (4, 1) and (2, 2), all with remat under the policy "auto"
+resolves to, and (2, 2) under "full" — shards the train state, takes this
 rank's rows, computes the step's gradients (gathered to the full tree), runs
 two train steps (the state gathered to full after them), a step on the
 zero-kept batch, and checks the replicated leaves bit-equal on every rank.
@@ -14,6 +15,7 @@ Then, on (2, 2) with dropout on, the dropout seeds every rank drew and the
 replicated residual stream of every rank. Rank 0 writes all results to one
 ``.npz`` (keys ``"<case>/<what>"``). Only the port is imported here."""
 
+import dataclasses
 import os
 import sys
 
@@ -29,8 +31,11 @@ from mmtg_tpu_torch.models.mmtg import mmtg_forward_train  # noqa: E402
 from mmtg_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from mmtg_tpu_torch.params import tree_leaves  # noqa: E402
 
-CASES = (("4x1", (4, 1), False), ("2x2", (2, 2), False), ("1x4", (1, 4), False),
-         ("4x1_zero1", (4, 1), True), ("2x2_zero1", (2, 2), True))
+# (name, mesh, zero1, remat policy): "auto" resolves to "save_qkv_ctx" at
+# these shapes; "2x2_full" keeps the whole-block recompute under TP covered
+CASES = (("4x1", (4, 1), False, "auto"), ("2x2", (2, 2), False, "auto"),
+         ("1x4", (1, 4), False, "auto"), ("4x1_zero1", (4, 1), True, "auto"),
+         ("2x2_zero1", (2, 2), True, "auto"), ("2x2_full", (2, 2), False, "full"))
 STAGE, ZERO_STAGE = 2, 1
 
 
@@ -63,8 +68,9 @@ def _rows(batch, mesh):
     return ttrain._to_device(ttrain.local_batch(batch, mesh), "cpu")
 
 
-def run_case(inputs, name, shape, zero1, out):
-    mcfg, dcfg, tcfg = inputs["mcfg"], inputs["dcfg"], inputs["tcfg"]
+def run_case(inputs, name, shape, zero1, policy, out):
+    mcfg, dcfg = inputs["mcfg"], inputs["dcfg"]
+    tcfg = dataclasses.replace(inputs["tcfg"], remat_policy=policy)
     mesh = pmesh.make_mesh(shape)
     layout = pmesh.train_layout(mesh)
     full, tx = ttrain.create_train_state(0, mcfg, tcfg, inputs["warmup"],
@@ -73,6 +79,8 @@ def run_case(inputs, name, shape, zero1, out):
     state = ttrain.shard_train_state(full, mcfg, mesh, zero1=zero1)
     batch = _rows(inputs["batch"], mesh)
     const = inputs["const"]
+    out[f"{name}/policy"] = np.array([ttrain._resolve_remat_policy(
+        policy, batch, None, dcfg.topic_prompt_length, layout.dp)])
     # the step's gradients, as the step computes them, gathered to full
     grads, num = ttrain._numerators(
         state.params, const, mcfg, dcfg, tcfg, batch, STAGE, None,
@@ -158,8 +166,8 @@ def main(argv) -> int:
     pmesh.init_distributed("cpu")
     inputs = torch.load(argv[0], weights_only=False)  # written by the test
     out = {}
-    for name, shape, zero1 in CASES:
-        run_case(inputs, name, shape, zero1, out)
+    for name, shape, zero1, policy in CASES:
+        run_case(inputs, name, shape, zero1, policy, out)
     run_dropout(inputs, out)
     if dist.get_rank() == 0:
         np.savez(argv[1], **out)

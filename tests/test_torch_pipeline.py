@@ -71,6 +71,14 @@ def test_every_gradient_leaf_equals_jax(job, jax_ref):
     assert float(job["norm"][0]) == pytest.approx(want, rel=1e-4)
 
 
+@pytest.mark.parametrize("policy", ["full", "save_qkv_ctx", "save_ctx_fc1", "save_all"])
+def test_every_remat_policy_gives_the_pipeline_the_same_numbers(job, policy):
+    """The stages recompute from their inputs whatever the policy (as the JAX
+    trainer resolves "auto" to "full" there): an explicit policy changes no
+    gradient and no metric on any rank."""
+    assert bool(job[f"policy/{policy}"][0])
+
+
 @pytest.mark.parametrize("what,tol", [("params", 1e-6), ("mu", 1e-5), ("nu", 1e-5)])
 def test_two_steps_move_the_params_as_jax(job, jax_ref, what, tol):
     assert float(job["moved"][0]) > 1e-6

@@ -210,6 +210,24 @@ def test_flag_names_and_defaults_match_the_jax_trainer():
     assert set(ours) - set(theirs) == {"device"}
 
 
+MESH_FLAGS = ("--mesh_data", "--mesh_model", "--mesh_pipe", "--pp_microbatches",
+              "--zero1", "--multihost")
+
+
+@pytest.mark.parametrize("flag", MESH_FLAGS)
+def test_help_says_what_each_mesh_flag_does(flag):
+    """``--help`` describes every mesh flag; none is called unported or a
+    parity flag."""
+    lines = cli.build_arg_parser().format_help().splitlines()
+    start = next(i for i, line in enumerate(lines) if line.split()[:1] == [flag]
+                 or line.strip().startswith(flag + " "))
+    end = next((i for i in range(start + 1, len(lines))
+                if lines[i].lstrip().startswith("-")), len(lines))
+    text = " ".join(line.strip() for line in lines[start:end])
+    assert len(text) > len(flag) + 20, text
+    assert "not ported" not in text and "parity flag" not in text, text
+
+
 def test_train_state_checkpoint_roundtrip_and_keep(tmp_path, cfgs):
     tcfg = TrainConfig()
     state, tx = cli.create_train_state(0, cfgs[0], tcfg, 1, 4, device="cpu")

@@ -6,9 +6,11 @@ global batch of 8, whose ratings make the data ranks keep different counts
 
 One ``torchrun`` job of four ranks (``tests/_torch_train_mesh_job.py``)
 computes every case on the meshes (4, 1), (2, 2), (1, 4) and ZeRO-1 on
-(4, 1) and (2, 2) into one ``.npz``; it is launched once for the module with a
-time limit of its own, and the tests read it. The model: 2 layers, 12 heads
-of 8 (6 heads a rank at tp = 2, 3 at tp = 4), vocab 50."""
+(4, 1) and (2, 2), under the remat policy "auto" resolves to (the kept qkv
+and attention context), and (2, 2) under "full", into one ``.npz``; it is
+launched once for the module with a time limit of its own, and the tests
+read it. The model: 2 layers, 12 heads of 8 (6 heads a rank at tp = 2, 3 at
+tp = 4), vocab 50."""
 
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from _torch_parity import (
 )
 
 CASES = {"4x1": (4, 1), "2x2": (2, 2), "1x4": (1, 4), "4x1_zero1": (4, 1),
-         "2x2_zero1": (2, 2)}
+         "2x2_zero1": (2, 2), "2x2_full": (2, 2)}
 JOB_TIMEOUT_S = 240
 GRAD_ATOL, GRAD_RTOL = 5e-5, 5e-4  # tests/test_sharding.py's DP-vs-single tolerance
 
@@ -59,6 +61,15 @@ def test_ratings_keep_different_counts_on_the_data_ranks():
     per_rank = {dp: [sum(keep[i * (8 // dp):(i + 1) * (8 // dp)]) for i in range(dp)]
                 for dp in (2, 4)}
     assert per_rank == {2: [3, 2], 4: [2, 1, 0, 2]}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_remat_policy_each_case_ran(job, case):
+    """The policy "auto" resolves on the global batch (every data rank's
+    rows) to the kept qkv + context at these shapes, under DP, TP and ZeRO-1
+    alike."""
+    want = "full" if case.endswith("_full") else "save_qkv_ctx"
+    assert str(job[f"{case}/policy"][0]) == want
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -217,10 +217,3 @@ def test_bf16_compute_keeps_f32_masters(setup):
         setup["tparams"], setup["tconst"], setup["tmcfg"], setup["tdcfg"], tt,
         setup["tbatch"], 3, None, True)
     assert float(bf_total) == pytest.approx(float(f32_total), rel=3e-2)
-
-
-def test_unported_remat_policy_raises(setup):
-    _, tt = _tcfgs(remat_policy="save_qkv_ctx")
-    with pytest.raises(NotImplementedError):
-        ttrain.loss_and_metrics(setup["tparams"], setup["tconst"], setup["tmcfg"],
-                                setup["tdcfg"], tt, setup["tbatch"], 3, None, True)
