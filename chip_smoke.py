@@ -116,8 +116,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
      save_qkv_ctx < save_ctx_fc1 < save_all <= no remat); then f32 with
      dropout at B=8 and on 4 packed rows: each policy's loss and every
      gradient leaf within 1e-6 (of the largest leaf) of no remat's.
+ 22. the quality loop (mmtg_tpu_torch.quality_loop) at full width, bf16
+     compute / f32 masters, dropout on: the curriculum [1,3] over 5 epochs
+     through the train CLI (512 samples, batch 32, stage 1 at 64), then the
+     generate CLI on its save path for each mode (fp, int8, int4 caches,
+     int8 cache + int8 weights, approx top-k) and seed (7, 8, 9), 8 lines a
+     call, the fp mode once more with seed 7 (the same lines), BLEU-2 /
+     distinct-2 per mode, each mode against the fp decode and fp against fp
+     across seeds; then the packing A/B (parity against --pack_sequences
+     --pack_row_len 256, 3 epochs). The val loss must fall across the stage
+     changes; every train run's and generate call's launch counts are
+     asserted.
 (Phases 11-14 run after phase 4, phase 21 after phase 9, phases 15-18 after
-phase 10, then phases 19 and 20.)
+phase 10, then phases 22, 19 and 20.)
 Where a train step runs with remat and the policy "auto" (phases 6-10, 15,
 17, 20), its attention launches are asserted for the policy "auto" resolves
 to (train._resolve_remat_policy): the kept qkv and context at these batches,
@@ -130,8 +141,8 @@ and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
 parallel build; --kernels-only stops after phase 2 (to time another
 checkout's kernels with this script's measurements); --mesh-train-only runs
-phase 1 and phase 20 alone. Without a CUDA device it exits non-zero and
-prints no result.
+phase 1 and phase 20 alone, --quality-only phase 1 and phase 22. Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -2435,6 +2446,183 @@ def phase_predict(out, gpu, paths, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 22: the quality loop (mmtg_tpu_torch.quality_loop) at full width
+
+# the reference's 5-epoch curriculum [1,3] (stage 1 at 2 x 32 rows), then
+# each mode's generate CLI over 4 test records x 2 samples (a decode batch
+# of 8) with each seed; the packing A/B over 3 epochs on the same widths
+QUALITY = dict(n_train=512, n_val=64, epochs=5, batch_size=32, gen_seeds=(7, 8, 9))
+PACK_AB = dict(n_train=512, n_val=64, epochs=3, batch_size=32)
+# each mode's decode-attention kernel: a launch a layer and step
+QUALITY_KERNEL = {"model": "decode_attention_fp_append",
+                  "topk_approx": "decode_attention_fp_append",
+                  "int8": "decode_attention_int8_append",
+                  "int8_w8": "decode_attention_int8_append",
+                  "int4": "decode_attention_int4_append"}
+
+
+def _curriculum_launches(L, n_train, n_val, epochs, batch_size, dcfg,
+                         val_batch_size=16, val_interval_ratio=0.5,
+                         curriculums=(1, 3)):
+    """mha_train_packed's launches in a train CLI run: each step's forward
+    and backward (train._resolve_remat_policy at the epoch's batch), and a
+    forward a layer for every val batch of every evaluation (each
+    ``val_every`` steps and at each epoch's end; stage 1 doubles both
+    batches)."""
+    import math
+
+    import torch
+
+    from mmtg_tpu_torch.loss import stage_for_epoch
+
+    fwd = bwd = 0
+    for e in range(epochs):
+        double = stage_for_epoch(e, curriculums) == 1
+        bs = 2 * batch_size if double else batch_size
+        vbs = 2 * val_batch_size if double else val_batch_size
+        steps = math.ceil(n_train / bs)
+        c = _train_launches("mha_train_packed", L, steps,
+                            {"targets": torch.empty(bs, dcfg.target_length)}, dcfg)
+        val_every = max(int(steps * val_interval_ratio), 1)
+        evals = 1 + sum(1 for s in range(1, steps) if (s + 1) % val_every == 0)
+        fwd += c["mha_train_packed_fwd"] + L * evals * math.ceil(n_val / vbs)
+        bwd += c["mha_train_packed_bwd"]
+    return {"mha_train_packed_fwd": fwd, "mha_train_packed_bwd": bwd}
+
+
+def _mean_std(d):
+    return f"{d['mean']:.4f} ± {d['std']:.4f}"
+
+
+def phase_quality(out, gpu, tmp):
+    """Phase 22: ``quality_loop.run`` and ``run_pack_ab`` at full width,
+    bf16 compute / f32 masters, dropout on, through the train and generate
+    CLIs on the card; the launch counts of every train run and every
+    generate call, each set to 0 just before and read just after it."""
+    import contextlib
+
+    import torch
+
+    from mmtg_tpu_torch import generate as gen_cli
+    from mmtg_tpu_torch import quality_loop as ql
+    from mmtg_tpu_torch.data import load_token_embedding_table
+
+    mcfg, dcfg = model_configs()
+    L = mcfg.gpt2.n_layer
+    seen = {}
+
+    @contextlib.contextmanager
+    def observe(label):
+        torch.cuda.synchronize()
+        _reset_counts()  # ---- each run of this path starts here ------------------
+        yield
+        torch.cuda.synchronize()
+        seen[label] = _counts()  # ---- read just after it ---------------------------
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "quality")
+    rep = ql.run(**QUALITY, work_dir=work, device=DEVICE, dtype="bfloat16",
+                 mcfg=mcfg, dcfg=dcfg, observe=observe)
+    loop_s = time.perf_counter() - t_phase
+    curve = rep["val_loss_curve"]
+    check(len(curve) == QUALITY["epochs"] and all(abs(v) < 1e6 for v in curve),
+          f"phase 22: val curve {curve}")
+    check(rep["learned"] and curve[-1] < curve[0],
+          f"phase 22: the val loss did not fall across the stages: {curve}")
+    _only(seen["train"], _curriculum_launches(L, QUALITY["n_train"], QUALITY["n_val"],
+                                              QUALITY["epochs"],
+                                              QUALITY["batch_size"], dcfg),
+          "phase 22 curriculum train CLI")
+    for mode, kernel in QUALITY_KERNEL.items():
+        m = rep["config"]["modes"][mode]
+        for s in QUALITY["gen_seeds"]:
+            lines = rep["samples"][mode][s]
+            check(len(lines) == 8 and all(ln.strip() for ln in lines),
+                  f"phase 22 {mode} seed {s}: {len(lines)} lines")
+            _only(seen[f"generate {mode} s{s}"],
+                  {kernel: L * LENGTH, "fused_gru": 2},
+                  f"phase 22 generate {mode} ({m['cache_dtype']} cache, "
+                  f"{m['weight_dtype']} weights) seed {s}")
+    check(rep["config"]["modes"]["model"]["cache_dtype"] == "model"
+          and rep["config"]["modes"]["model"]["weight_dtype"] == "model",
+          f"phase 22: the fp baseline resolves to {rep['config']['modes']['model']}")
+    check(rep["fp_repeat_identical"],
+          "phase 22: the model mode wrote other lines with the same seed")
+    # what each of the generate CLI's calls loads before it decodes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_token_embedding_table(os.path.join(work, "emb.pkl"), 13317,
+                               dcfg.wenlan_emb_size)
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen_cli.load_params(os.path.join(work, "ckpt"), mcfg, DEVICE)
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pack = ql.run_pack_ab(**PACK_AB, work_dir=os.path.join(tmp, "quality_pack"),
+                          device=DEVICE, dtype="bfloat16", mcfg=mcfg, dcfg=dcfg,
+                          observe=observe)
+    pack_s = time.perf_counter() - t0
+    for tag in ("parity", "packed"):
+        c = pack[tag]["val_curve"]
+        check(len(c) == PACK_AB["epochs"] and all(abs(v) < 1e6 for v in c),
+              f"phase 22 pack A/B {tag}: val curve {c}")
+    parity_steps = sum(pack["parity"]["steps_per_epoch"])
+    check(len(pack["parity"]["steps_per_epoch"]) == PACK_AB["epochs"],
+          f"phase 22 pack A/B: steps {pack['parity']['steps_per_epoch']}")
+    p, q = seen["train parity"], seen["train packed"]
+    check(p["mha_train_packed_bwd"] == L * parity_steps
+          and p["mha_train_packed_seg_bwd"] == 0,
+          f"phase 22 pack A/B parity: launch counts {p}")
+    check(q["mha_train_packed_seg_bwd"] > 0 and q["mha_train_packed_seg_bwd"] % L == 0
+          and q["mha_train_packed_seg_fwd"] >= q["mha_train_packed_seg_bwd"]
+          and q["mha_train_packed_bwd"] == 0,
+          f"phase 22 pack A/B packed: launch counts {q}")
+    wall = time.perf_counter() - t_phase
+    totals = {}
+    for counts in seen.values():
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    gen_s = [t for ts in rep["seconds"]["generate"].values() for t in ts]
+    s0 = QUALITY["gen_seeds"][0]
+    out["quality"] = dict(report={k: v for k, v in rep.items() if k != "samples"},
+                          samples={m: rep["samples"][m][s0] for m in rep["samples"]},
+                          pack_ab=pack, launches=seen, loop_s=loop_s,
+                          pack_ab_s=pack_s, phase_s=wall, table_load_s=table_s,
+                          params_load_s=params_s, gpu=gpu)
+    vs_fp = rep["cache_mode_vs_fp"]
+    print(f"phase 22 quality loop (full width, bf16 compute, dropout on, on {gpu}): "
+          f"ok; {wall:.1f} s (loop {loop_s:.1f} s: train {rep['seconds']['train']:.1f} "
+          f"s, {len(gen_s)} generate CLI calls {sum(gen_s):.1f} s, median "
+          f"{statistics.median(gen_s):.2f} s, of which the table load {table_s:.2f} s "
+          f"and the params load {params_s:.2f} s; pack A/B {pack_s:.1f} s)")
+    print(f"phase 22 curriculum [1,3], {QUALITY['n_train']} samples, batch "
+          f"{QUALITY['batch_size']} (stage 1 {2 * QUALITY['batch_size']}): val loss "
+          + " -> ".join(f"{v:.4f}" for v in curve)
+          + f", final {rep['final_val_loss']:.6f}; launches "
+          f"{dict((k, v) for k, v in seen['train'].items() if v)}")
+    print("phase 22 per mode (seeds " + ", ".join(map(str, QUALITY["gen_seeds"]))
+          + "), bleu2 / distinct2 mean ± std vs the corpus: "
+          + "; ".join(f"{m} {_mean_std(g['bleu2'])} / {_mean_std(g['distinct2'])}"
+                      for m, g in rep["gen_vs_corpus"].items()))
+    print(f"phase 22 vs the fp decode, seed {s0}"
+          + ", bleu2: " + "; ".join(f"{m} {v['bleu']['bleu2']:.4f}"
+                                    for m, v in vs_fp.items())
+          + "; fp vs fp across seeds (the control): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in rep["fp_seed_divergence_control"].items())
+          + f"; fp repeated with one seed: identical lines; first fp line: "
+          f"{rep['samples']['model'][s0][0][:60]!r}")
+    print(f"phase 22 pack A/B ({PACK_AB['epochs']} epochs, --pack_row_len 256): parity "
+          + " -> ".join(f"{v:.4f}" for v in pack["parity"]["val_curve"])
+          + " (" + f"{pack['parity']['seconds']:.1f} s), packed "
+          + " -> ".join(f"{v:.4f}" for v in pack["packed"]["val_curve"])
+          + f" ({pack['packed']['seconds']:.1f} s), both learned: {pack['both_learned']}; "
+          f"packed launches {dict((k, v) for k, v in q.items() if v)}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phase 19: the sharded serving path over a (data, model) process mesh
 
 MESH_B = 64
@@ -3409,6 +3597,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-train-only", action="store_true",
                     help="phase 1 (the build), then phase 20 (training over the "
                          "mesh) alone: no kernels line")
+    ap.add_argument("--quality-only", action="store_true",
+                    help="phase 1 (the build), then phase 22 (the quality loop) "
+                         "alone: no kernels line")
     ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-train-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3433,10 +3624,13 @@ def main(argv=None) -> int:
     phase_build(out, args.build_serial)
     gpu = gpu_line()
     out["gpu"] = gpu
-    if args.mesh_train_only:
+    if args.mesh_train_only or args.quality_only:
         tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
         try:
-            phase_mesh_train(out, gpu, _cli_fixtures(tmp, model_configs()[1]), tmp)
+            if args.mesh_train_only:
+                phase_mesh_train(out, gpu, _cli_fixtures(tmp, model_configs()[1]), tmp)
+            else:
+                phase_quality(out, gpu, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         _write_json(args.json, out)
@@ -3471,6 +3665,7 @@ def main(argv=None) -> int:
         phase_forward_infer(out, gpu)
         phase_english(out, gpu, tmp)
         phase_predict(out, gpu, paths, tmp)
+        launches["quality"] = phase_quality(out, gpu, tmp)
         launches["mesh"] = phase_mesh(out, gpu, paths, tmp)
         launches["mesh_train"] = phase_mesh_train(out, gpu, paths, tmp)
     finally:
@@ -3529,6 +3724,11 @@ def main(argv=None) -> int:
                 for mesh, runs in launches["mesh"].items()}
             check(any(extra["mesh_launches_per_rank"].values()),
                   f"{name} was not launched on the mesh path (phase 19)")
+        # every train run and generate call of the quality loop (phase 22)
+        q = (launches["quality"][f"{name}_fwd"] + launches["quality"][f"{name}_bwd"]
+             if name in TRAIN_FNS else launches["quality"][name])
+        if q:
+            extra["quality_loop_launches"] = q
         check(n > 0, f"{name} was not launched on its path ({path})")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -3539,7 +3739,7 @@ def main(argv=None) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 21 phases in {out['total_s']:.1f} s")
+    print(f"chip_smoke: 22 phases in {out['total_s']:.1f} s")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -230,8 +230,8 @@ class GenerateConfig:
     # the split layout. Int8 per-layer path only (ignored elsewhere, as in
     # the JAX package).
     merged_kv: bool = False
-    # top-k implementation: 'exact' (reference semantics); 'approx' is not
-    # ported.
+    # top-k implementation: 'exact' (reference semantics); 'approx' takes
+    # the exact top-k too (lax.approx_max_k off the TPU).
     topk_impl: str = "exact"
     # Decode-matmul weight precision: 'auto' | 'model' | 'int8'
     # (weight-only per-output-channel quantization,

@@ -22,7 +22,8 @@ tokens then depend on nothing batch-shaped, which is what lets the serving
 layer (:mod:`mmtg_tpu_torch.serve`) re-batch requests freely.
 
 Same frame / PAD / penalty / mask / type-id semantics as the JAX engine.
-Without a counterpart here: approximate top-k (raises); the TPU layout work
+``topk_impl="approx"`` takes the exact top-k (what ``lax.approx_max_k``
+computes off the TPU). Without a counterpart here: the TPU layout work
 (sublane padding of the batch, ``layer_unroll``, ``score_dtype``, the Mosaic
 ``% 128`` lane gate of ``resolve_attn_impl``) and the B = 1 switch to XLA
 attention.

@@ -28,7 +28,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +79,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="decode-matmul weight precision; 'auto' resolves "
                         "once per run (int8 when batch_size <= 32)")
     p.add_argument("--topk_impl", default="exact", choices=["exact", "approx"],
-                   help="top-k sampling; 'approx' is not ported")
+                   help="top-k sampling; 'approx' takes the exact top-k, as "
+                        "lax.approx_max_k does off the TPU")
     p.add_argument("--attn_impl", default="auto",
                    choices=["auto", "pallas", "fused", "xla"],
                    help="decode step: 'fused' runs all layers in the "
@@ -140,6 +141,23 @@ def mesh_from_args(args, device: torch.device):
     return mesh, info.device
 
 
+def resolve_run_dtypes(args, meshed: bool = False) -> Tuple[str, str, int]:
+    """``(cache dtype, weight dtype, decode batch)`` of a run's parsed flags.
+    'auto' resolves ONCE per run from the nominal batch, so every batch of
+    the run samples with the same numerics: int8 weights while
+    ``--batch_size`` <= 32, an int8 cache once the decode batch
+    (``batch_size // n_samples * n_samples``) passes 1 on one device (any
+    meshed run keeps the model dtype: resolve_cache_dtype)."""
+    weight_dtype = args.weight_dtype
+    if weight_dtype == "auto":
+        weight_dtype = "int8" if args.batch_size <= 32 else "model"
+    decode_b = max(args.batch_size // args.n_samples, 1) * args.n_samples
+    cache_dtype = args.cache_dtype
+    if cache_dtype == "auto":
+        cache_dtype = "model" if decode_b <= 1 or meshed else "int8"
+    return cache_dtype, weight_dtype, decode_b
+
+
 def load_params(model_path: str, mcfg: ModelConfig, device="cpu") -> Dict:
     """The model's parameters from ``--model_path`` on ``device``, as stored
     (a train state's f32 masters like a reference checkpoint's weights): a
@@ -184,16 +202,8 @@ def main(argv=None, mcfg: ModelConfig | None = None,
                                          gpt2_vocab=len(tok))
         else:
             mcfg, dcfg = ModelConfig(), DataConfig()
-    # 'auto' weights / cache resolve ONCE per run from the nominal batch so
-    # every batch of the run samples with the same numerics
-    weight_dtype = args.weight_dtype
-    if weight_dtype == "auto":
-        weight_dtype = "int8" if args.batch_size <= 32 else "model"
-    cache_dtype = args.cache_dtype
-    decode_b = max(args.batch_size // args.n_samples, 1) * args.n_samples
-    if cache_dtype == "auto":
-        # any meshed run resolves the model dtype (resolve_cache_dtype)
-        cache_dtype = "model" if decode_b <= 1 or mesh is not None else "int8"
+    cache_dtype, weight_dtype, decode_b = resolve_run_dtypes(
+        args, meshed=mesh is not None)
     if mesh is not None and decode_b % mesh.size(0):
         raise ValueError(f"decode batch {decode_b} (batch_size // n_samples * "
                          f"n_samples) must divide over the data axis "

@@ -109,12 +109,13 @@ def sample_next_token(
     nucleus, draw; a row whose previous token is PAD stays PAD.
     ``generator``: a ``torch.Generator`` / ``None``, or a threefry key
     (``[2]``; with ``per_row_keys`` a batch of keys ``[B, 2]``, each row
-    drawing over its candidates from its own key). Returns ``[B]`` int32
+    drawing over its candidates from its own key). ``topk_impl="approx"``
+    (``lax.approx_max_k`` in the JAX package) takes the exact top-k, which
+    is what ``approx_max_k`` computes off the TPU; the TPU's recall-0.99
+    partial reduce has no counterpart on the card. Returns ``[B]`` int32
     token ids."""
-    if topk_impl != "exact":
-        raise NotImplementedError(
-            f"topk_impl={topk_impl!r}: the TPU's approximate top-k has no "
-            "PyTorch counterpart")
+    if topk_impl not in ("exact", "approx"):
+        raise ValueError(f"topk_impl={topk_impl!r}: expected 'exact' or 'approx'")
     if repetition_penalty != 1.0:
         logits = apply_repetition_penalty(logits, seen_counts,
                                           repetition_penalty)

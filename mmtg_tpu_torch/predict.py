@@ -58,7 +58,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="decode-matmul weight precision; 'auto' → int8 at "
                         "REPL batch sizes (n_samples <= 32)")
     p.add_argument("--topk_impl", default="exact", choices=["exact", "approx"],
-                   help="top-k sampling; 'approx' is not ported")
+                   help="top-k sampling; 'approx' takes the exact top-k, as "
+                        "lax.approx_max_k does off the TPU")
     p.add_argument("--attn_impl", default="auto",
                    choices=["auto", "pallas", "fused", "xla"],
                    help="decode step: 'fused' runs all layers in the "

@@ -42,6 +42,14 @@ def setup_logger(log_path: Optional[str] = None, name: str = "mmtg_tpu_torch") -
         parent = os.path.dirname(log_path)
         if parent:
             os.makedirs(parent, exist_ok=True)
+        # a later run in the same process logging to the same path (after
+        # the file was removed, say) gets one handler on the new file, not
+        # a second one that would duplicate every line
+        for h in list(logger.handlers):
+            if (isinstance(h, logging.FileHandler)
+                    and h.baseFilename == os.path.abspath(log_path)):
+                logger.removeHandler(h)
+                h.close()
         fh = logging.FileHandler(log_path)
         fh.setFormatter(fmt)
         logger.addHandler(fh)

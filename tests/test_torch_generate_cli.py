@@ -63,9 +63,10 @@ def test_cli_writes_one_line_per_sample(files, reference_vocab_path,
 ])
 def test_cli_unported_flags_raise(files, reference_vocab_path, tiny_model_cfg,
                                   tiny_data_cfg, extra):
-    """Approximate top-k is not ported and raises; a mesh flag without
-    torchrun raises (a mesh needs one process a rank); the int4 cache and the
-    whole-step kernel are ported, and write their samples."""
+    """A mesh flag without torchrun raises (a mesh needs one process a
+    rank); the int4 cache and the whole-step kernel are ported, and write
+    their samples; approximate top-k takes the exact top-k and writes the
+    exact run's samples."""
     out = str(files[0] / f"samples_{extra[1]}.txt")
     run = lambda: cli.main(  # noqa: E731
         _args(files, reference_vocab_path, "--batch_size", "2", "--n_samples", "1",
@@ -75,13 +76,17 @@ def test_cli_unported_flags_raise(files, reference_vocab_path, tiny_model_cfg,
         with pytest.raises(RuntimeError, match="torchrun"):
             run()
         return
-    if extra[0] == "--topk_impl":
-        with pytest.raises(NotImplementedError):
-            run()
-        return
     run()
     with open(out, encoding="utf-8") as f:
-        assert len(f.read().splitlines()) == 3
+        lines = f.read().splitlines()
+    assert len(lines) == 3
+    if extra[0] == "--topk_impl":
+        exact = str(files[0] / "samples_exact.txt")
+        cli.main(_args(files, reference_vocab_path, "--batch_size", "2", "--n_samples",
+                       "1", "--save_samples", "--save_samples_path", exact),
+                 mcfg=tiny_model_cfg, dcfg=tiny_data_cfg)
+        with open(exact, encoding="utf-8") as f:
+            assert f.read().splitlines() == lines
 
 
 @pytest.mark.parametrize("extra", [

@@ -70,3 +70,42 @@ def test_pad_begets_pad():
                                      torch.zeros(2, 120, dtype=torch.int16),
                                      last, top_k=3)
     assert int(tok[0]) == SPECIAL.pad_id and int(tok[1]) != SPECIAL.pad_id
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["one_key", "per_row_keys"])
+def test_approx_topk_matches_jax(per_row):
+    """topk_impl="approx" against JAX's lax.approx_max_k on the CPU, where it
+    computes the exact top-k: f32 logits [64, 13317], top-k 10, top-p 0.7,
+    the same threefry key: the same tokens."""
+    import jax
+
+    from mmtg_tpu_torch.ops import prng
+
+    rng = np.random.default_rng(5)
+    B, V = 64, 13317
+    logits = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    seen = rng.integers(0, 3, (B, V)).astype(np.int16)
+    last = rng.integers(1, 100, B).astype(np.int32)
+    jk, tk = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    if per_row:
+        jk = jax.vmap(lambda s: jax.random.fold_in(jk, s))(jnp.arange(B))
+        tk = prng.fold_in(tk, torch.arange(B))
+    kw = dict(temperature=1.1, top_k=10, top_p=0.7, repetition_penalty=1.5,
+              topk_impl="approx", per_row_keys=per_row)
+    ref = jsampling.sample_next_token(jk, jnp.asarray(logits), jnp.asarray(seen),
+                                      jnp.asarray(last), **kw)
+    got = sampling.sample_next_token(tk, torch.from_numpy(logits),
+                                     torch.from_numpy(seen), torch.from_numpy(last),
+                                     **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    exact = sampling.sample_next_token(tk, torch.from_numpy(logits),
+                                       torch.from_numpy(seen), torch.from_numpy(last),
+                                       **dict(kw, topk_impl="exact"))
+    np.testing.assert_array_equal(got.numpy(), exact.numpy())
+
+
+def test_unknown_topk_impl_raises():
+    with pytest.raises(ValueError, match="topk_impl"):
+        sampling.sample_next_token(None, torch.zeros(2, 50), torch.zeros(2, 50),
+                                   torch.ones(2, dtype=torch.int32), top_k=3,
+                                   topk_impl="sorted")

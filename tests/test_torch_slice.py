@@ -109,20 +109,22 @@ def test_sampled_generate_frames_and_seed(setup):
     dict(topk_impl="approx"),
 ])
 def test_unported_options_raise(setup, change):
-    """Approximate top-k has no PyTorch counterpart and raises; the int4
-    cache, the merged cache and attn_impl='fused' are ported and give
-    frame-legal tokens."""
+    """Approximate top-k takes the exact top-k (lax.approx_max_k off the
+    TPU): the tokens of topk_impl='exact'; the int4 cache, the merged cache
+    and attn_impl='fused' are ported and give frame-legal tokens."""
     gcfg = dataclasses.replace(
         GenerateConfig(length=24, cache_dtype="int8", weight_dtype="model"),
         **change)
     run = lambda: decoding.generate(  # noqa: E731
         setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"], gcfg,
         setup["tbatch"], torch.Generator().manual_seed(0))
-    if "topk_impl" in change:
-        with pytest.raises(NotImplementedError):
-            run()
-        return
     toks = run().numpy()
+    if "topk_impl" in change:
+        exact = decoding.generate(
+            setup["tparams"], setup["tconst"], setup["mcfg"], setup["dcfg"],
+            dataclasses.replace(gcfg, topk_impl="exact"), setup["tbatch"],
+            torch.Generator().manual_seed(0)).numpy()
+        np.testing.assert_array_equal(toks, exact)
     assert toks.shape == (2, 25)
     assert (toks[:, 21] == SPECIAL.eos_id).all() and (toks[:, 22] == SPECIAL.start_id).all()
 
