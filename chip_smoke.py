@@ -7,8 +7,11 @@ the numbers in PERF.md):
     python3 chip_smoke.py [--json results.json] [--profile] [--build-serial]
 
 Phases, each printing one line (any failure raises and exits non-zero):
-  1. build the CUDA kernels from mmtg_tpu_torch/csrc/ (nvcc, sm_90a) and
-     print the build time and the card's name and power limit;
+  1. look up the card's published peaks (memory rate, bf16 and f32 operation
+     rates) in mmtg_tpu_torch/utils/roofline.py by its name (a card the
+     tables do not know fails here, before anything is timed), build the
+     CUDA kernels from mmtg_tpu_torch/csrc/ (nvcc, sm_90a) and print the
+     build time and the card's name and power limit;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes: the decode-attention kernel through its seven
      wrappers (fp / int8 / int4 / merged caches, with and without the append:
@@ -22,7 +25,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
      64 -> 128) at B=64, T=256. Each is timed (CUDA events, median of single calls queued behind a sleep
      kernel so host overhead is excluded) beside its plain version and one
      PyTorch library call used nowhere in the port, and its bound (the
-     larger of bytes / 3.35 TB/s and operations / peak) is computed; then
+     larger of bytes / the card's memory rate and operations / its peak
+     rate for their type, phase 1's peaks) is computed; then
      the same for every decode wrapper (bf16), the GRU and the whole-step
      kernel (both types) at B=1 (the p50 path) and B=512, the whole-step
      kernel's ptxas line and launch plan beside its times;
@@ -30,15 +34,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
      (12-layer 768-d GPT-2, vocab 13317, 2048-d WenLan, random seeded
      weights) in bf16: B=64 with the int8 cache, then B=8 and B=1 with the
      bf16 cache; the kernel launch counters prove the kernels ran; the B=1
-     call's median wall over 5 calls is the p50 latency;
+     call's median wall over 5 calls is the p50 latency; each call's (and
+     the p50's) decode hbm_util (utils/roofline.py: the modeled bytes of
+     the call's batch, length and resolved dtypes / wall / the card's
+     memory rate), which must lie in (0, 1.05];
   4. teacher-forced logits through the kernels vs through the plain
      versions, full width, f32: fp, int8, int4 and merged caches, and the
      whole-step kernel;
   5. the generate CLI on a synthetic .pth checkpoint;
   6. the train path, train.make_train_step, at full width: bf16 compute /
      f32 masters, B=64, dropout on, remat ("auto"), 1 warm-up + 5 timed steps on
-     one repeated batch (loss finite and falling, launch counts asserted),
-     then B=8 in f32 without dropout: loss and every gradient leaf through
+     one repeated batch (loss finite and falling, launch counts asserted;
+     the step's mfu and hw_flops_util from utils/roofline.py, each in
+     (0, 1.05]), then B=8 in f32 without dropout: loss and every gradient leaf through
      the kernels vs through the plain attention;
   7. the train CLI (default device: the card) on synthetic records, depth
      cut to 2 layers: an epoch, a checkpoint, a resumed second epoch; then the
@@ -60,6 +68,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      bf16: int4 cache, merged k||v cache, the whole-step kernel
      (attn_impl="fused"), beside the int8 per-layer path; launch counts
      asserted (2640 per-layer launches, or 220 of the whole-step kernel);
+     each call's hbm_util as in phase 3;
  13. generate_stream with per-row seeds at B=64 vs generate with the same
      seeds (equal token for token), and the time to the first block;
  14. the service as `python -m mmtg_tpu_torch.serve` builds it (default
@@ -111,7 +120,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
      remat, 1 warm-up + 3 timed steps each on the unpacked step at B=64 and
      B=256, the head-major step at B=64 and the packed step on 32 rows of
      512 (step time, samples/s, peak memory beside the bytes each policy was
-     predicted to keep; the attention launches asserted: the forward twice a
+     predicted to keep; mfu and hw_flops_util of each unpacked run as in
+     phase 6; the attention launches asserted: the forward twice a
      layer under full, once otherwise; peak memory at B=256 ordered full <
      save_qkv_ctx < save_ctx_fc1 < save_all <= no remat); then f32 with
      dropout at B=8 and on 4 packed rows: each policy's loss and every
@@ -167,9 +177,7 @@ TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (attention, GRU)
 LENGTH = 220
 P50_CALLS = 5  # B=1 generate calls whose median wall is the p50 latency
 DEVICE = "cuda"
-# published H100 SXM peaks the bounds are reckoned against
-MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+SHARE_MAX = 1.05  # a roofline share above this means a wrong count or wall
 TRAIN_T, TRAIN_HD = 256, 64  # 15 + 221 = 236 tokens padded to 256
 TRAIN_BATCHES = (8, 64)  # the kernel-vs-plain check; the train step runs 64
 # mha_train_packed vs its plain version: (ctx, dqkv, dqb). ctx and dqkv are
@@ -209,15 +217,73 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_kind() -> str:
+    import torch
+
+    return torch.cuda.get_device_name()
+
+
+def card_peaks(kind: str) -> tuple:
+    """(memory bytes/s, {dtype name: operations/s}) of the card named
+    ``kind``: the published figures in mmtg_tpu_torch/utils/roofline.py.
+    A card the tables do not know raises ValueError naming it."""
+    from mmtg_tpu_torch.utils import roofline
+
+    return (roofline.peak_hbm_gbps(kind) * 1e9,
+            {"bfloat16": roofline.peak_bf16_tflops(kind) * 1e12,
+             "float32": roofline.peak_f32_tflops(kind) * 1e12})
+
+
 def bound(nbytes: float, ops: float, dname: str) -> dict:
     """The least time the card could take: each input read and each output
     written once at the memory rate, the operations at the peak rate of
     their type; the larger of the two."""
-    by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
+    mem_rate, op_rates = card_peaks(device_kind())
+    by_bytes = nbytes / mem_rate * 1e3
+    by_ops = ops / op_rates[dname] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 bytes=nbytes, operations=ops)
+
+
+def check_shares(what: str, r: dict, keys) -> dict:
+    """Fails unless each roofline share ``r[key]`` lies in (0, SHARE_MAX]."""
+    for k in keys:
+        check(0.0 < r[k] <= SHARE_MAX, f"{what}: {k} {r[k]} is outside (0, "
+              f"{SHARE_MAX}]: the modeled count or the measured wall is wrong")
+    return r
+
+
+def decode_share(what, gcfg, mcfg, dcfg, b, wall_s, dtype) -> dict:
+    """roofline.decode_hbm_util of one generate call of ``b`` rows, with the
+    length, cache and weight dtypes the call resolved and its model dtype;
+    the share checked."""
+    from mmtg_tpu_torch.decoding import resolve_cache_dtype, resolve_weight_dtype
+    from mmtg_tpu_torch.utils import roofline
+
+    return check_shares(what, roofline.decode_hbm_util(
+        mcfg, dcfg, b, gcfg.length, wall_s, device_kind(),
+        cache_dtype=resolve_cache_dtype(gcfg, b),
+        weight_dtype=resolve_weight_dtype(gcfg, b),
+        model_dtype=roofline.dtype_name(dtype)), ("hbm_util",))
+
+
+def train_share(what, mcfg, dcfg, b, step_ms, remat) -> dict:
+    """roofline.train_mfu of one bf16 train step of ``b`` unpacked rows; the
+    shares checked."""
+    from mmtg_tpu_torch.utils import roofline
+
+    return check_shares(what, roofline.train_mfu(
+        mcfg, dcfg, b, step_ms / 1e3, device_kind(), remat=remat),
+        ("mfu", "hw_flops_util"))
+
+
+def _hbm(r: dict) -> str:
+    return f"hbm_util {r['hbm_util']} ({r['achieved_gbps']} GB/s)"
+
+
+def _mfu(r: dict) -> str:
+    return f"mfu {r['mfu']} hw_flops_util {r['hw_flops_util']}"
 
 
 def device_ms(fn, reps: int = 25, warmup: int = 5, between=None) -> float:
@@ -248,6 +314,10 @@ def device_ms(fn, reps: int = 25, warmup: int = 5, between=None) -> float:
 def phase_build(out, serial=False):
     from mmtg_tpu_torch.kernels import _build
 
+    kind = device_kind()
+    mem_rate, op_rates = card_peaks(kind)  # before anything is timed
+    out["peaks"] = dict(kind=kind, memory_bytes_per_s=mem_rate,
+                        operations_per_s=op_rates)
     t0 = time.perf_counter()
     _build.load()
     secs = time.perf_counter() - t0
@@ -265,8 +335,10 @@ def phase_build(out, serial=False):
     with open(_build.library_path() + ".log") as f:
         regs = [ln.strip() for ln in f if "Used" in ln]
     print(f"phase 1 build: ok, {secs:.1f} s, {len(_build.sources())} sources "
-          f"-> {os.path.relpath(_build.library_path())}; ptxas: "
-          + " | ".join(regs))
+          f"-> {os.path.relpath(_build.library_path())}; peaks of {kind} "
+          f"(mmtg_tpu_torch/utils/roofline.py): {mem_rate / 1e9:g} GB/s, bf16 "
+          f"{op_rates['bfloat16'] / 1e12:g} TFLOP/s, f32 "
+          f"{op_rates['float32'] / 1e12:g}; ptxas: " + " | ".join(regs))
     print(f"gpu: {gpu_line()}")
     out["build_s"] = secs
     out["ptxas"] = regs
@@ -1033,10 +1105,12 @@ def phase_generate(out, gpu):
         _only(got, expected, what)
         _check_tokens(toks, mcfg, dcfg, what)
         tps = b * LENGTH / wall
+        share = decode_share(f"phase 3 {what}", gcfg, mcfg, dcfg, b, wall,
+                             torch.bfloat16)
         out[f"generate_{what.replace(' ', '_')}"] = dict(
-            wall_s=wall, tok_per_s=tps, launches=got)
-        lines.append(f"{what}: {wall:.3f} s, {tps:.1f} tok/s, launches "
-                     f"{ {k: v for k, v in got.items() if v} }")
+            wall_s=wall, tok_per_s=tps, launches=got, roofline=share)
+        lines.append(f"{what}: {wall:.3f} s, {tps:.1f} tok/s, {_hbm(share)}, "
+                     f"launches { {k: v for k, v in got.items() if v} }")
     launches = _counts()  # ---- read just after the main path ---------------
     # B=1 p50: the run above and P50_CALLS - 1 more of the same call
     what, b, gcfg, _ = runs[-1]
@@ -1049,8 +1123,11 @@ def phase_generate(out, gpu):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     p50 = statistics.median(walls)
-    out["generate_b1_p50"] = dict(p50_s=p50, walls_s=walls, tok_per_s=LENGTH / p50)
-    lines.append(f"b1 p50 of {P50_CALLS} calls {p50:.3f} s ({LENGTH / p50:.1f} tok/s)")
+    share = decode_share("phase 3 b1 p50", gcfg, mcfg, dcfg, b, p50, torch.bfloat16)
+    out["generate_b1_p50"] = dict(p50_s=p50, walls_s=walls, tok_per_s=LENGTH / p50,
+                                  roofline=share)
+    lines.append(f"b1 p50 of {P50_CALLS} calls {p50:.3f} s ({LENGTH / p50:.1f} "
+                 f"tok/s, {_hbm(share)})")
     print(f"phase 3 generate (full width, bf16, {LENGTH} tokens, on {gpu}): ok; "
           + "; ".join(lines))
     return launches
@@ -1144,9 +1221,12 @@ def phase_generate_serving(out, gpu):
         before = now
         _only(got, {**expected, "fused_gru": 2}, what)
         _check_tokens(toks, mcfg, dcfg, what)
-        res[what] = dict(wall_s=wall, tok_per_s=64 * LENGTH / wall, launches=got)
+        share = decode_share(f"phase 12 {what}", gcfg, mcfg, dcfg, 64, wall,
+                             torch.bfloat16)
+        res[what] = dict(wall_s=wall, tok_per_s=64 * LENGTH / wall, launches=got,
+                         roofline=share)
         lines.append(f"{what}: {wall:.3f} s, {64 * LENGTH / wall:.1f} tok/s, "
-                     f"launches {expected}")
+                     f"{_hbm(share)}, launches {expected}")
     launches = _counts()  # ---- read just after the main path ---------------
     out["generate_serving_b64"] = res
     print(f"phase 12 generate, serving decode paths (full width, bf16, B=64, {LENGTH} "
@@ -1553,10 +1633,12 @@ def phase_train(out, gpu, profile):
     # at B=64); nothing else
     _only(launches, _train_launches("mha_train_packed", L, STEPS, batch, dcfg),
           "train")
+    r["roofline"] = train_share("phase 6 train", mcfg, dcfg, B, r["step_ms"], True)
     out["train_b64"] = r
     print(f"phase 6 train (full width, bf16 compute / f32 masters, B={B}, "
           f"dropout on, remat, {STEPS} steps, on {gpu}): ok; median step "
-          f"{r['step_ms']:.1f} ms, {r['samples_per_s']:.1f} samples/s, loss "
+          f"{r['step_ms']:.1f} ms, {r['samples_per_s']:.1f} samples/s, "
+          f"{_mfu(r['roofline'])}, loss "
           f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, peak "
           f"{r['peak_memory_gib']:.1f} GiB, launches fwd "
           f"{launches['mha_train_packed_fwd']} bwd {launches['mha_train_packed_bwd']}")
@@ -1780,6 +1862,10 @@ def phase_remat(out, gpu):
                                                  remat=tcfg.remat), what)
             runs[run] = {k: r[k] for k in ("step_ms", "step_ms_all", "samples_per_s",
                                            "peak_memory_gib", "losses", "launches")}
+            # no share for packed rows: the FLOP model has no packed form
+            if fn != "mha_train_packed_seg":
+                runs[run]["roofline"] = train_share(what, mcfg, dcfg, B, r["step_ms"],
+                                                    tcfg.remat)
             del state, step, tx, r
             gc.collect()
             torch.cuda.empty_cache()
@@ -1793,7 +1879,8 @@ def phase_remat(out, gpu):
         launches[cell] = {run: v["launches"] for run, v in runs.items()}
         lines.append(f"{cell} ({fn}, {B} rows of {Tp}): " + ", ".join(
             f"{run} {v['step_ms']:.1f} ms {v['samples_per_s']:.0f}/s "
-            f"{v['peak_memory_gib']:.2f} GiB"
+            + (f"{_mfu(v['roofline'])} " if "roofline" in v else "")
+            + f"{v['peak_memory_gib']:.2f} GiB"
             + (f" (+{v['measured_extra_gb']:.2f} GB, predicted "
                f"+{v['predicted_extra_gb']:.2f})" if run in REMAT_POLICIES[1:] else "")
             + f" fwd/bwd {v['launches'][fn + '_fwd']}/{v['launches'][fn + '_bwd']}"

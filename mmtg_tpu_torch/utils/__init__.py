@@ -1,1 +1,1 @@
-"""Shared utilities: timing and logging."""
+"""Shared utilities: timing, logging and the roofline accounting."""

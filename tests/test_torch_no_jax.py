@@ -41,7 +41,8 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.predict", "mmtg_tpu_torch.native",
                  "mmtg_tpu_torch.parallel", "mmtg_tpu_torch.parallel.mesh",
                  "mmtg_tpu_torch.parallel.pipeline",
-                 "mmtg_tpu_torch.quality_loop"):
+                 "mmtg_tpu_torch.quality_loop",
+                 "mmtg_tpu_torch.utils.roofline"):
         assert name in mods
 
 
