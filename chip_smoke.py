@@ -75,8 +75,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      device: the card), full width: concurrent requests through submit, one
      streamed over HTTP on a local port, /reload, a clean stop; every
      response held against generate with the same seeds.
- 15. the LSTM, RNN and TRM encoder channels at full width: for each,
-     decoding.generate at B=64 (bf16, int8 cache: 2640 launches of the
+ 15. the LSTM, RNN and TRM encoder channels at full width, the decoder cut
+     to 2 layers: for each,
+     decoding.generate at B=64 (bf16, int8 cache: 440 launches of the
      int8-append kernel and none of the GRU kernel), teacher-forced f32
      logits through the kernels vs the plain versions, and 1 + 2 bf16 train
      steps at B=64 (dropout, remat; mha_train_packed's counts asserted);
@@ -94,24 +95,26 @@ Phases, each printing one line (any failure raises and exits non-zero):
      with the swap probe, two indices; MMTGDataset's token columns through
      the native row packer vs the Python framing, and both framings' rate
      (rows a second) over 4096 rows.
- 19. the sharded serving path over torch.distributed, full width, B=64, 220
-     tokens, ranks started as child processes by `python -m
+ 19. the sharded serving path over torch.distributed, full width cut to 2
+     layers, B=64, 220 tokens, ranks started as child processes by `python -m
      torch.distributed.run` (each launch with its own time limit; a failed
      rank fails the phase) on the cards there are (the backend by the rule
      of parallel/mesh.py: gloo when ranks share a card): on the meshes
-     (2, 1), (1, 2) and (2, 2), generate_sharded in bf16 and f32 (wall,
-     launches a rank, all-reduces a step and their time, TP ranks' tokens
-     checked equal), an int8 cache and (DP-only) the whole-step kernel on
-     two sentence frames, generate_stream_sharded = generate_sharded token
-     for token, f32 step logits of the sharded decode on forced tokens
+     (2, 1), (1, 2) and (2, 2), generate_sharded in bf16 and in f32 over
+     three sentence frames (wall, launches a rank, all-reduces a step and
+     their time, TP ranks' tokens checked equal), an int8 cache and
+     (DP-only) the whole-step kernel on two sentence frames,
+     generate_stream_sharded = generate_sharded token for token (f32),
+     f32 step logits of the sharded decode on forced tokens
      within 1e-4 of the single-device step, the share of f32 rows equal to
      single-device generate (reported), and per rank the decode kernels
      and the GRU at the shard shapes against their plain versions; then
      `python -m mmtg_tpu_torch.serve` on a (2, 2) mesh under torchrun (f32,
-     buckets 4,8): a window of three one-shot and one streamed request over
+     all 12 layers, buckets 4,8): a window of three one-shot and one streamed request over
      HTTP, /reload, one more request, each held against generate_sharded on
      the mesh, SIGTERM to rank 0 and every rank exiting 0.
- 20. training over the mesh under torchrun: data, tensor and pipeline
+ 20. training over the mesh under torchrun (full width cut to 2 layers):
+     data, tensor and pipeline
      parallel and ZeRO-1 train steps against the single-card step, then the
      train CLI on a mesh (see phase_mesh_train); on a TP mesh the
      collectives a step under the policy "auto" resolves to beside "full"'s.
@@ -137,13 +140,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
      --pack_row_len 256, 3 epochs). The val loss must fall across the stage
      changes; every train run's and generate call's launch counts are
      asserted.
-(Phases 11-14 run after phase 4, phase 21 after phase 9, phases 15-18 after
-phase 10, then phases 22, 19 and 20.)
+ 23. the serving and latency tools (mmtg_tpu_torch/tools/) through their
+     ``run`` at full width in bf16, one seeded model: bench_serve (64
+     closed-loop clients, 256 requests, buckets 8-64, int8 cache) on the
+     per-layer path with 3 solo requests and on the whole-step kernel, each
+     path's saturation capacity C in requests/s; bench_stream, 3 streams
+     each equal to its batched response, then 16 concurrent streams
+     (buckets 8,16, 2 rounds) sharing windows; soak_serve, 20 s of open-loop
+     Poisson arrivals at 0.5 C (no rejection, nothing lost) and at 2 C with
+     max_queue_depth 128 (shedding, nothing lost, the backlog within the
+     queue plus three windows); bench_serve_http with JSON and npz bodies
+     at one bucket (every response equal to submit's); fixed_cost_sweep at B=64 over four
+     lengths, whose F bench_latency adds to every row's memory floor
+     (batches 1,8,32 x weights model,int8; each wall at least its floor).
+     Every scenario's launches are held against its windows or calls.
+(Phases 11-14 run after phase 4, then phase 23, phase 21 after phase 9,
+phases 15-18 after phase 10, then phase 22 with phases 19 and 20 beside it,
+each in a thread of its own: their torchrun jobs mostly start processes
+and wait on gloo, and phase 22 has no speed metric; their walls are taken
+side by side, and phase 20's one in-process call waits for phase 22's
+counted runs.)
 Where a train step runs with remat and the policy "auto" (phases 6-10, 15,
 17, 20), its attention launches are asserted for the policy "auto" resolves
 to (train._resolve_remat_policy): the kept qkv and context at these batches,
 a forward and a backward a layer.
-It then prints its total time, the card's name and power limit, the
+It then prints its total time and each phase's seconds, the card's name
+and power limit, the
 kernels' JSON line (with each mesh kernel's launches a rank on phase 19's
 meshes) and, last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
@@ -151,8 +173,11 @@ and of one packed train step;
 --build-serial also times one nvcc process over all sources beside the
 parallel build; --kernels-only stops after phase 2 (to time another
 checkout's kernels with this script's measurements); --mesh-train-only runs
-phase 1 and phase 20 alone, --quality-only phase 1 and phase 22. Without a
-CUDA device it exits non-zero and prints no result.
+phase 1 and phase 20 alone, --quality-only phase 1 and phase 22,
+--serving-only phase 1 and phase 23. Without a
+CUDA device it exits non-zero and prints no result. Every process it
+starts dies with its parent, and whatever is still running when the script
+ends, also on SIGTERM, is stopped and reaped before it exits.
 """
 
 from __future__ import annotations
@@ -166,6 +191,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 L, B_ATT, T_CAP, D, H = 12, 64, 256, 768, 12
@@ -175,6 +201,14 @@ GRU_SHAPE = dict(T=5, B=64, I=2048, H=512)
 OTHER_BATCHES = (1, 512)  # phase 2 beside B=64: the p50 path and the widest batch
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (attention, GRU)
 LENGTH = 220
+# the depth of the paths whose subject is not the decoder's depth: the
+# encoder channels (phase 15) and the mesh runs (phases 19 and 20; the
+# meshed service keeps all 12 layers), as of the train CLI runs (7, 10, 20)
+CUT_DEPTH = 2
+# a warm-up decode's length: one sentence frame, every shape of the call but
+# the cache's capacity (the port compiles nothing: a warm-up only meets the
+# library handles and the allocator)
+WARM_LENGTH = 22
 P50_CALLS = 5  # B=1 generate calls whose median wall is the p50 latency
 DEVICE = "cuda"
 SHARE_MAX = 1.05  # a roofline share above this means a wrong count or wall
@@ -221,6 +255,115 @@ def device_kind() -> str:
     import torch
 
     return torch.cuda.get_device_name()
+
+
+def depth_cut(n_layer: int):
+    """The repo's model cut to ``n_layer`` GPT-2 layers, its width kept."""
+    import dataclasses
+
+    mcfg, dcfg = model_configs()
+    return dataclasses.replace(mcfg, gpt2=dataclasses.replace(
+        mcfg.gpt2, n_layer=n_layer)), dcfg
+
+
+# ---------------------------------------------------------------------------
+# The processes the script starts: torchrun launchers and their ranks. A
+# launcher runs each rank in a session of its own, so a rank outlives a
+# launcher that is killed; here each of them dies with its parent
+# (PR_SET_PDEATHSIG), the script adopts what a dead parent leaves
+# (PR_SET_CHILD_SUBREAPER), and, on its way out, stops and reaps every child
+# still there, also when it ends on SIGTERM.
+
+PR_SET_PDEATHSIG, PR_SET_CHILD_SUBREAPER = 1, 36
+WITH_PARENT = "--with-parent"  # chip_smoke.py --with-parent <module> <its argv>
+
+
+def _prctl(option: int, value: int) -> bool:
+    import ctypes
+
+    return ctypes.CDLL(None, use_errno=True).prctl(option, value, 0, 0, 0) == 0
+
+
+def _die_with_parent() -> None:
+    """The kernel SIGKILLs this process when the one that started it ends."""
+    import signal
+
+    _prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+
+
+def _run_module_with_parent(argv) -> int:
+    """``python -m argv[0] argv[1:]`` in this process, which dies with its
+    parent (how the script runs torchrun, and torchrun the CLIs)."""
+    import runpy
+
+    _die_with_parent()
+    sys.argv = list(argv)
+    runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+    return 0
+
+
+def module_cmd(module: str, *args: str) -> tuple:
+    """``-m module args`` as a script and its arguments (what torchrun
+    takes): this file, run through :func:`_run_module_with_parent`."""
+    return (os.path.abspath(__file__), WITH_PARENT, module, *args)
+
+
+def torchrun_cmd(nproc: int, args) -> list:
+    """``python -m torch.distributed.run --standalone`` with ``nproc`` ranks,
+    each running ``args`` (a script and its flags)."""
+    return [sys.executable, *module_cmd("torch.distributed.run"), "--standalone",
+            "--nproc_per_node", str(nproc), *args]
+
+
+def _children() -> dict:
+    """{pid: (state, command line)} of this process's children (/proc)."""
+    me, found = os.getpid(), {}
+    for p in os.listdir("/proc"):
+        if not p.isdigit():
+            continue
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me:
+                continue
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError, ValueError):
+            continue
+        found[int(p)] = (fields[0], cmd.strip()[:200])
+    return found
+
+
+def _stop_children(grace_s: float = 20.0) -> None:
+    """SIGTERM every child still running (after PR_SET_CHILD_SUBREAPER, also
+    every orphaned descendant), SIGKILL what outlives ``grace_s``, reap them
+    all, and name on stderr what had to be stopped."""
+    import signal
+
+    stopped, sig = {}, signal.SIGTERM
+    deadline = time.monotonic() + grace_s
+    while True:
+        kids = _children()
+        for pid, (state, cmd) in kids.items():
+            if state != "Z" and (pid not in stopped or sig == signal.SIGKILL):
+                stopped.setdefault(pid, cmd)
+                try:
+                    os.kill(pid, sig)
+                except ProcessLookupError:
+                    pass
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        if not kids or time.monotonic() > deadline + 10:
+            break
+        if time.monotonic() > deadline:
+            sig = signal.SIGKILL
+        time.sleep(0.1)
+    if stopped:
+        print(f"chip_smoke: stopped {len(stopped)} process(es) still running: "
+              + "; ".join(f"{pid} {cmd}" for pid, cmd in stopped.items()),
+              file=sys.stderr)
 
 
 def card_peaks(kind: str) -> tuple:
@@ -1031,6 +1174,35 @@ def _reset_counts():
         setattr(obj, attr, 0)
 
 
+# held around a counted run while phases 19 and 20 run beside phase 22: the
+# counts are this process's, and phase 20 launches kernels in it too
+COUNTED = threading.Lock()
+
+
+def _beside(fn, *args):
+    """``fn(*args)`` started in a thread of its own (a daemon: the script's
+    exit stops its child processes, and with them the thread); returns a
+    function that waits for it and gives its result or raises its error."""
+    box = {}
+
+    def target():
+        try:
+            box["result"] = fn(*args)
+        except BaseException as e:  # re-raised by the waiting thread
+            box["error"] = e
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    return result
+
+
 def _only(launches, expected, what):
     """The launch counts are ``expected`` and every other kernel's is 0."""
     want = {k: expected.get(k, 0) for k in launches}
@@ -1070,6 +1242,8 @@ def _check_tokens(toks, mcfg, dcfg, what, length=LENGTH):
 
 
 def phase_generate(out, gpu):
+    import dataclasses
+
     import torch
 
     from mmtg_tpu_torch.configs import GenerateConfig
@@ -1086,8 +1260,8 @@ def phase_generate(out, gpu):
              {"decode_attention_fp_append": steps, "fused_gru": 2})]
     batches = {b: make_batch(b) for _, b, _, _ in runs}
     for _, b, gcfg, _ in runs:  # warm-up (cuBLAS handles, allocator)
-        generate(params, const, mcfg, dcfg, gcfg, batches[b],
-                 torch.Generator(device=DEVICE).manual_seed(0))
+        generate(params, const, mcfg, dcfg, dataclasses.replace(gcfg, length=WARM_LENGTH),
+                 batches[b], torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
 
     _reset_counts()  # ---- the main path starts here --------------------------
@@ -1185,6 +1359,8 @@ def phase_generate_serving(out, gpu):
     """The serving decode paths of decoding.generate at full width, B=64, bf16,
     220 tokens: int4 cache, merged k||v cache, the whole-step kernel, beside
     the int8 per-layer path of the same run; launch counts asserted."""
+    import dataclasses
+
     import torch
 
     from mmtg_tpu_torch.configs import GenerateConfig
@@ -1203,8 +1379,8 @@ def phase_generate_serving(out, gpu):
              {"decode_block_fused": LENGTH})]
     batch = make_batch(64)
     for _, gcfg, _ in runs:  # warm-up
-        generate(params, const, mcfg, dcfg, gcfg, batch,
-                 torch.Generator(device=DEVICE).manual_seed(0))
+        generate(params, const, mcfg, dcfg, dataclasses.replace(gcfg, length=WARM_LENGTH),
+                 batch, torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
 
     _reset_counts()  # ---- the main path starts here --------------------------
@@ -2155,7 +2331,7 @@ def phase_channels(out, gpu):
     from mmtg_tpu_torch.params import tree_to
 
     t_phase = time.perf_counter()
-    base_mcfg, dcfg = model_configs()
+    base_mcfg, dcfg = depth_cut(CUT_DEPTH)
     L = base_mcfg.gpt2.n_layer
     train_batch = _train_batch(64, dcfg, 8)
     tokens = _framed_tokens(8, TF_STEPS, 3)
@@ -2221,8 +2397,8 @@ def phase_channels(out, gpu):
         torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     out["channels"] = dict(wall_s=wall, **res)
-    print(f"phase 15 encoder channels LSTM / RNN / TRM (full width; generate bf16 "
-          f"B=64 int8 cache, teacher-forced f32 B=8 kernels vs plain <= "
+    print(f"phase 15 encoder channels LSTM / RNN / TRM (full width, {L} layers; "
+          f"generate bf16 B=64 int8 cache, teacher-forced f32 B=8 kernels vs plain <= "
           f"{TEACHER_FORCED_TOL['int8']}, {CHANNEL_TRAIN_STEPS} bf16 train steps B=64): "
           f"ok; wall {wall:.1f} s on {gpu}; " + "; ".join(lines))
 
@@ -2600,11 +2776,12 @@ def phase_quality(out, gpu, tmp):
 
     @contextlib.contextmanager
     def observe(label):
-        torch.cuda.synchronize()
-        _reset_counts()  # ---- each run of this path starts here ------------------
-        yield
-        torch.cuda.synchronize()
-        seen[label] = _counts()  # ---- read just after it ---------------------------
+        with COUNTED:
+            torch.cuda.synchronize()
+            _reset_counts()  # ---- each run of this path starts here --------------
+            yield
+            torch.cuda.synchronize()
+            seen[label] = _counts()  # ---- read just after it -----------------------
 
     t_phase = time.perf_counter()
     work = os.path.join(tmp, "quality")
@@ -2710,6 +2887,261 @@ def phase_quality(out, gpu, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 23: the serving and latency tools (mmtg_tpu_torch/tools/)
+
+TOOL_BUCKETS = "8,16,32,64"
+SOAK = dict(seconds=20, snapshot_every_s=5, buckets="8,32,64", producers=2,
+            overload_depth=128, attn_impl="fused")
+SWEEP = dict(batch=64, lengths=(60, 120, 180, 220), runs=3)
+SERVING_BUDGET_S = 180  # the phase's share of the script's time limit
+
+
+def _decode_launches(attn_impl, cache_dtype, length, calls, L):
+    """The launch counts of ``calls`` decode calls (service windows or
+    generate calls) of ``length`` tokens: the decode step's kernel (one
+    launch a layer and step on the per-layer path, one a step fused) and
+    the encoder's two GRUs a call."""
+    if attn_impl == "fused":
+        want = {"decode_block_fused": length * calls}
+    else:
+        kernel = {"int8": "decode_attention_int8_append",
+                  "model": "decode_attention_fp_append",
+                  "int4": "decode_attention_int4_append"}[cache_dtype]
+        want = {kernel: L * length * calls}
+    want["fused_gru"] = 2 * calls
+    return want
+
+
+def phase_serving_tools(out, gpu):
+    """Phase 23: each tool of mmtg_tpu_torch/tools/ through its ``run`` at
+    full width in bf16 on the card (one seeded model shared by all): the
+    service saturated by 64 closed-loop clients on the per-layer path (int8
+    cache) and on the whole-step kernel, solo requests, sequential and
+    concurrent streams, two 20 s open-loop Poisson soaks (half and twice the
+    saturation capacity), the HTTP front with JSON and npz bodies, the
+    fixed-cost sweep and the decode latency matrix against its memory floor.
+    Every scenario's launches are counted from 0 and held against the
+    windows (or calls) it ran."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mmtg_tpu_torch.tools import (bench_latency, bench_serve,
+                                      bench_serve_http, bench_stream,
+                                      fixed_cost_sweep, soak_serve)
+    from mmtg_tpu_torch.tools.serve_common import build_model
+
+    t_phase = time.perf_counter()
+    mcfg, dcfg = model_configs()
+    L = mcfg.gpt2.n_layer
+    kind = device_kind()
+    t0 = time.perf_counter()
+    weights = build_model(device=DEVICE)[:2]
+    build_s = time.perf_counter() - t0
+    seen, res = {}, {}
+
+    def tool(mod, name, argv):
+        """``mod.run`` on the card, its printed lines kept (shown if it fails)."""
+        @contextlib.contextmanager
+        def observe(label):
+            torch.cuda.synchronize()
+            _reset_counts()
+            yield
+            torch.cuda.synchronize()
+            seen[f"{name} {label}"] = _counts()
+
+        args = mod.build_arg_parser().parse_args(argv + ["--device", DEVICE])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+                r = mod.run(args, observe=observe, weights=weights)
+        except BaseException:
+            print(f"phase 23 {name} failed; its output:\n{buf.getvalue()}")
+            raise
+        r.update(seconds=time.perf_counter() - t0, argv=argv, output=buf.getvalue())
+        res[name] = r
+        return r
+
+    def windows_launched(name, r, attn):
+        """Each scenario's launches = its windows' (serve_common.scenario)."""
+        for label, f in r["service"].items():
+            check(f["device"] == kind and f["attn_impl"] == attn[label],
+                  f"phase 23 {name} {label}: service {f}")
+            _only(seen[f"{name} {label}"], _decode_launches(
+                f["attn_impl"], f["cache_dtype"], LENGTH, f["windows"], L),
+                f"phase 23 {name} {label} ({f['windows']} windows)")
+
+    # ---- bench_serve: saturation per path, then solo ----------------------
+    serve_argv = ["--buckets", TOOL_BUCKETS, "--clients", "64", "--requests",
+                  "256", "--cache-dtype", "int8"]
+    sk = tool(bench_serve, "bench_serve kernel",
+              serve_argv + ["--attn-impl", "kernel", "--solo-runs", "3"])
+    windows_launched("bench_serve kernel", sk,
+                     {"saturation": "kernel", "solo": "kernel"})
+    sf = tool(bench_serve, "bench_serve fused",
+              serve_argv + ["--attn-impl", "fused", "--solo-runs", "0"])
+    windows_launched("bench_serve fused", sf, {"saturation": "fused"})
+    sat = {"kernel": sk["lines"][0]["detail"], "fused": sf["lines"][0]["detail"]}
+    cap = {p: d["requests_per_s"] for p, d in sat.items()}  # C, requests/s
+    for p, r in (("kernel", sk), ("fused", sf)):
+        check(sat[p]["mean_batch"] > 1
+              and sat[p]["batches"] == r["service"]["saturation"]["windows"],
+              f"phase 23 bench_serve {p}: {sat[p]}")
+    solo = sk["lines"][1]
+    print(f"phase 23 bench_serve (64 closed-loop clients, 256 requests, buckets "
+          f"{TOOL_BUCKETS}, int8 cache, on {gpu}): ok; " + "; ".join(
+              f"{p}: {d['requests_per_s']} requests/s, "
+              f"{round(256 * LENGTH / d['wall_s'])} tok/s, p50 {d['p50_latency_s']} s, "
+              f"p95 {d['p95_latency_s']} s, mean_batch {d['mean_batch']}, fill "
+              f"{d['mean_fill']}, {d['batches']} windows "
+              f"({r['service']['saturation']['windows_per_s']:.2f}/s), weights "
+              f"{r['service']['saturation']['weight_dtype']}"
+              for (p, d), r in zip(sat.items(), (sk, sf)))
+          + f"; solo (bucket 8, zero window, weights "
+          f"{sk['service']['solo']['weight_dtype']}): p50 {solo['value']} s, best "
+          f"{solo['detail']['best_s']} s of {solo['detail']['runs']}")
+
+    # ---- bench_stream: sequential, then 16 concurrent streams -------------
+    st = tool(bench_stream, "bench_stream", ["--streams", "3"])
+    d = st["lines"][0]["detail"]
+    check(d["tokens_identical_to_batched"] and st["service"]["streams"]["windows"] == 6,
+          f"phase 23 bench_stream: {d}, {st['service']}")
+    windows_launched("bench_stream", st, {"streams": "kernel"})
+    sc = tool(bench_stream, "bench_stream concurrent",
+              ["--concurrent", "16", "--buckets", "8,16", "--rounds", "2"])
+    c = sc["lines"][0]["detail"]
+    check(c["mean_batch"] > 1, f"phase 23 concurrent streams share no window: {c}")
+    windows_launched("bench_stream concurrent", sc, {"concurrent": "kernel"})
+    print(f"phase 23 bench_stream (buckets 8, weights {d['gcfg']['weight_dtype']}, cache "
+          f"{d['gcfg']['cache_dtype']}, on {gpu}): ok; 3 streams equal their batched "
+          f"responses; time to first sentence p50 {d['ttfs_ms_p50']} ms (best "
+          f"{d['ttfs_ms_best']}), inter-block p50 {d['inter_block_ms_p50']} ms, stream "
+          f"total p50 {d['stream_total_ms_p50']} ms against one-shot "
+          f"{d['oneshot_ms_p50']} ms; 16 concurrent streams (buckets 8,16), "
+          f"{len(c['rounds'])} rounds: {sc['lines'][0]['value']} tok/s, time to first "
+          f"sentence p50 {c['ttfs_ms_p50']} ms, total p50 {c['stream_total_ms_p50']} "
+          f"ms, mean_batch {c['mean_batch']}, {c['windows']} windows")
+
+    # ---- soak_serve: open-loop Poisson at 0.5 C and 2 C -------------------
+    C = cap[SOAK["attn_impl"]]
+    max_bucket = int(SOAK["buckets"].split(",")[-1])
+
+    def soak(name, rate, depth):
+        r = tool(soak_serve, name, [
+            "--rate", f"{rate:.3f}", "--duration_s", str(SOAK["seconds"]),
+            "--snapshot_every_s", str(SOAK["snapshot_every_s"]),
+            "--buckets", SOAK["buckets"], "--producers", str(SOAK["producers"]),
+            "--max_queue_depth", str(depth), "--cache-dtype", "int8",
+            "--attn-impl", SOAK["attn_impl"]])
+        windows_launched(name, r, {"soak": SOAK["attn_impl"]})
+        return r, r["lines"][-1]
+
+    under, su = soak("soak_serve under", 0.5 * C, 4096)
+    check(su["ok"] and su["rejected"] == 0 and su["lost"] == 0,
+          f"phase 23 soak at 0.5 C: {su}")
+    over, so = soak("soak_serve overload", 2 * C, SOAK["overload_depth"])
+    # the queue, plus the window forming and at most two formed windows not
+    # yet collected (serve.GenerationService._inflight); a producer may pass
+    # the depth check while another's put is under way
+    bound = SOAK["overload_depth"] + SOAK["producers"] - 1 + 3 * max_bucket
+    check(so["ok"] and so["rejected"] > 0 and so["lost"] == 0
+          and so["max_backlog"] <= bound,
+          f"phase 23 soak at 2 C: {so} (backlog bound {bound})")
+
+    def intervals(r):
+        return ", ".join(f"{ln['interval_p50_s']}/{ln['interval_p99_s']}"
+                         for ln in r["lines"][:-1])
+
+    print(f"phase 23 soak_serve ({SOAK['attn_impl']} path, C = {C} requests/s from "
+          f"bench_serve, {SOAK['producers']} Poisson producers, {SOAK['seconds']} s, "
+          f"buckets {SOAK['buckets']}, on {gpu}): ok; 0.5 C: {su['done']} done, 0 "
+          f"rejected, p50 {su['p50_s']} s, p99 {su['p99_s']} s, per-interval p50/p99 "
+          f"{intervals(under)} s, max backlog {su['max_backlog']}, mean_batch "
+          f"{su['mean_batch']}; 2 C (max_queue_depth {SOAK['overload_depth']}): "
+          f"{so['done']} done, {so['rejected']} rejected, 0 lost, p50 {so['p50_s']} s, "
+          f"p99 {so['p99_s']} s, per-interval {intervals(over)} s, max backlog "
+          f"{so['max_backlog']} (bound {bound}), mean_batch {so['mean_batch']}, "
+          f"{so['tokens_per_s']} tok/s")
+
+    # ---- bench_serve_http: JSON and npz bodies ----------------------------
+    # one bucket: in bf16 a response depends on the bucket its window was
+    # padded to, so only then does every response equal submit()'s
+    ht = tool(bench_serve_http, "bench_serve_http",
+              ["--clients", "16", "--requests", "64", "--buckets", "64",
+               "--cache-dtype", "int8", "--attn-impl", "fused"])
+    windows_launched("bench_serve_http", ht, {"json": "fused", "npz": "fused"})
+    check(ht["tokens_checked"], "phase 23 http: the responses were not checked")
+    for line in ht["lines"]:
+        d = line["detail"]
+        check(d["requests_ok"] == 64 and d["errors"] == 0, f"phase 23 http: {line}")
+    for enc, f in ht["service"].items():
+        check(64 / f["windows"] > 1, f"phase 23 http {enc}: no window held two rows")
+    print(f"phase 23 bench_serve_http (16 keep-alive clients, 64 requests an encoding, "
+          f"bucket 64, fused path, on {gpu}): ok; every response equals submit() "
+          "with its seed; " + "; ".join(
+              f"{enc}: {line['detail']['requests_per_s']} requests/s, p50 "
+              f"{line['detail']['p50_latency_s']} s, p95 {line['detail']['p95_latency_s']}"
+              f" s, body {line['detail']['payload_bytes']} B, client encode "
+              f"{line['detail']['client_encode_ms_per_req']} ms, mean_batch "
+              f"{64 / ht['service'][enc]['windows']:.1f}"
+              for enc, line in zip(("json", "npz"), ht["lines"])))
+
+    # ---- fixed_cost_sweep, then bench_latency with its F ------------------
+    sw = tool(fixed_cost_sweep, "fixed_cost_sweep", [
+        "--batch", str(SWEEP["batch"]), "--lengths", ",".join(map(str, SWEEP["lengths"])),
+        "--runs", str(SWEEP["runs"]), "--cache-dtype", "int8"])
+    for n in SWEEP["lengths"]:
+        _only(seen[f"fixed_cost_sweep L={n}"],
+              _decode_launches("kernel", "int8", n, SWEEP["runs"], L),
+              f"phase 23 fixed_cost_sweep L={n}")
+    fit = sw["lines"][0]
+    F = fit["fixed_ms"]
+    lat = tool(bench_latency, "bench_latency", [
+        "--batches", "1,8,32", "--weight-dtypes", "model,int8", "--runs", "3",
+        "--fixed-cost-ms", str(F)])
+    detail = lat["lines"][0]["detail"]
+    check(detail["fixed_cost_ms"] == F and detail["device"] == kind,
+          f"phase 23 bench_latency: {detail}")
+    for row, (label, calls) in zip(detail["rows"], lat["calls"].items()):
+        check(row["x_of_floor"] >= 1, f"phase 23 bench_latency {label}: the wall is "
+              f"under its modeled floor: {row}")
+        _only(seen[f"bench_latency {label}"], _decode_launches(
+            row["attn_impl"], row["cache_dtype"], LENGTH, calls, L),
+            f"phase 23 bench_latency {label}")
+    print(f"phase 23 fixed_cost_sweep (B={SWEEP['batch']}, int8 cache, lengths "
+          f"{SWEEP['lengths']}, p50 of {SWEEP['runs']}, on {gpu}): ok; walls "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in sw["walls_s"].items())
+          + f"; F {F} ms, step {fit['per_step_ms_at_0']} ms at 0, "
+          f"{fit['per_step_ms_at_L']} at {SWEEP['lengths'][-1]}, F {fit['fixed_share_pct']}%"
+          f" of the wall")
+    print(f"phase 23 bench_latency ({LENGTH} tokens, p50 of 3, floor = "
+          f"roofline.decode_bytes_model / {detail['hbm_peak_gbps']} GB/s + F, on {gpu}): "
+          "ok; " + "; ".join(
+              f"b{r['batch']} w {r['weight_dtype']} c {r['cache_dtype']}: {r['p50_ms']} ms "
+              f"(floor {r['memory_floor_ms']}, x{r['x_of_floor']})"
+              for r in detail["rows"]))
+
+    totals = {}
+    for counts in seen.values():
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    for name in ("decode_attention_int8_append", "decode_attention_fp_append",
+                 "fused_gru", "decode_block_fused"):
+        check(totals[name] > 0, f"phase 23: {name} was not launched")
+    wall = time.perf_counter() - t_phase
+    out["serving_tools"] = dict(
+        gpu=gpu, phase_s=wall, model_build_s=build_s, capacity_requests_per_s=cap,
+        fixed_cost_ms=F, launches=seen, tools=res)
+    print(f"phase 23 serving tools: ok; {wall:.1f} s (budget {SERVING_BUDGET_S} s; "
+          f"model built in {build_s:.1f} s; " + ", ".join(
+              f"{name} {r['seconds']:.1f} s" for name, r in res.items())
+          + f"), on {gpu}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phase 19: the sharded serving path over a (data, model) process mesh
 
 MESH_B = 64
@@ -2722,20 +3154,23 @@ MESH_LOGIT_TOL = 1e-4  # f32 sharded step vs single-device step, max-abs
 AR_REPS = 50
 # the runs that only show a kernel on the mesh path decode two sentence frames
 SHORT_LENGTH = 44
+# the f32 runs (streamed against one-shot, against one device, the tokens
+# the step logits are held on): three frames, past TF_STEPS
+F32_LENGTH = 66
 MESH_JOB_CMD = (os.path.abspath(__file__), "--mesh-job")  # + the spec's path
 
 
-def _mesh_runs(dp, tp):
+def _mesh_runs(dp, tp, n_layer):
     """(what, dtype name, GenerateConfig changes, expected launches a rank)
     of one mesh: the meshed 'auto' (full-precision cache) in bf16 at full
     length; at SHORT_LENGTH an explicit int8 cache (DP-only and TP) and the
     whole-step kernel on the DP-only mesh, where it is in scope."""
     runs = [("bf16 auto", "bfloat16", {},
-             {"decode_attention_fp_append": 12 * LENGTH, "fused_gru": 2})]
+             {"decode_attention_fp_append": n_layer * LENGTH, "fused_gru": 2})]
     if (dp, tp) != (2, 2):
         runs.append(("bf16 int8 cache", "bfloat16",
                      dict(cache_dtype="int8", length=SHORT_LENGTH),
-                     {"decode_attention_int8_append": 12 * SHORT_LENGTH,
+                     {"decode_attention_int8_append": n_layer * SHORT_LENGTH,
                       "fused_gru": 2}))
     if tp == 1:
         runs.append(("bf16 fused", "bfloat16",
@@ -2784,6 +3219,7 @@ def mesh_job(spec_path):
     from mmtg_tpu_torch.ops import prng
     from mmtg_tpu_torch.parallel import mesh as pmesh
 
+    _die_with_parent()
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2796,7 +3232,7 @@ def mesh_job(spec_path):
     inputs = {}
     for dname in ("bfloat16", "float32"):
         mcfg, dcfg, params, const, make_batch = _full_width_inputs(
-            getattr(torch, dname), 0)
+            getattr(torch, dname), 0, *depth_cut(CUT_DEPTH))
         inputs[dname] = (params, const, make_batch(MESH_B))
     key = prng.PRNGKey(3, device=DEVICE)
     seeds = torch.arange(MESH_B, dtype=torch.int32, device=DEVICE) * 7 + 1
@@ -2805,7 +3241,8 @@ def mesh_job(spec_path):
         params, const, batch = inputs["float32"]
         # the cache the meshed 'auto' resolves to
         ref = decoding.generate(params, const, mcfg, dcfg,
-                                GenerateConfig(cache_dtype="model", weight_dtype="auto"),
+                                GenerateConfig(cache_dtype="model", weight_dtype="auto",
+                                               length=F32_LENGTH),
                                 batch, key, row_seeds=seeds)
     with torch.no_grad():
         for j, (dp, tp) in enumerate(spec["meshes"]):
@@ -2819,7 +3256,7 @@ def mesh_job(spec_path):
                     decoding.generate_sharded(
                         params, const, mcfg, dcfg, GenerateConfig(length=22), batch,
                         key, mesh, row_seeds=seeds)
-            for what, dname, change, expected in _mesh_runs(dp, tp):
+            for what, dname, change, expected in _mesh_runs(dp, tp, CUT_DEPTH):
                 params, const, batch = inputs[dname]
                 gcfg = GenerateConfig(**{"cache_dtype": "auto", "weight_dtype": "auto",
                                          **change})
@@ -2842,7 +3279,8 @@ def mesh_job(spec_path):
                                        / gcfg.length)
             # f32: the sharded engine, streamed vs one-shot, vs one device
             params, const, batch = inputs["float32"]
-            gcfg = GenerateConfig(cache_dtype="auto", weight_dtype="auto")
+            gcfg = GenerateConfig(cache_dtype="auto", weight_dtype="auto",
+                                  length=F32_LENGTH)
             torch.cuda.synchronize()
             dist.barrier()
             t0 = time.perf_counter()
@@ -2908,6 +3346,7 @@ def mesh_job(spec_path):
             dist.barrier()
         serve_spec = spec.get("serve")
         if serve_spec:  # the windows the meshed service will decode, same mesh
+            mcfg, dcfg = model_configs()  # the service's model: all its layers
             s = serve._serving_setup(serve.build_arg_parser().parse_args(
                 serve_spec["argv"]), mcfg, dcfg)
             gcfg = serve._service_gcfg(s["gcfg"], s["buckets"], meshed=True)
@@ -2943,17 +3382,15 @@ def _stop_torchrun(proc, grace_s=60.0):
 
 
 def _torchrun(nproc, args, timeout, cwd):
-    """``python -m torch.distributed.run --standalone`` of ``args`` (a
-    script or ``-m module`` and its flags) with ``nproc`` ranks; raises with
-    the end of the output when a rank fails or the time runs out (the
-    launcher and its ranks then stopped)."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), *args]
-    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+    """:func:`torchrun_cmd` of ``args`` (a script and its flags, or
+    :func:`module_cmd`) with ``nproc`` ranks; raises with the end of the
+    output when a rank fails or the time runs out (the launcher and its
+    ranks then stopped, as when the script is stopped meanwhile)."""
+    proc = subprocess.Popen(torchrun_cmd(nproc, args), cwd=cwd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    except BaseException:  # the time ran out, or the script is being stopped
         _stop_torchrun(proc)
         raise
     check(proc.returncode == 0, f"torchrun {' '.join(args[:2])} ... exited "
@@ -2964,7 +3401,7 @@ SERVE_SEED, SERVE_BUCKETS = 5, "4,8"
 # the service's first window: (sample, seed) of three one-shot requests and,
 # last, a streamed one
 SERVE_WINDOW = ([0, 1, 2, 4], [40, 41, 42, 77])
-SERVE_CMD = ("-m", "mmtg_tpu_torch.serve")
+SERVE_CMD = module_cmd("mmtg_tpu_torch.serve")
 
 
 def _mesh_serve(out, paths, tmp, samples, want, model):
@@ -2986,10 +3423,8 @@ def _mesh_serve(out, paths, tmp, samples, want, model):
     from mmtg_tpu_torch import serve
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "4", *SERVE_CMD,
-           *_serve_argv(paths, model), "--mesh_data", "2", "--mesh_model", "2",
-           "--port", "0", "--no_warmup"]
+    cmd = torchrun_cmd(4, [*SERVE_CMD, *_serve_argv(paths, model), "--mesh_data", "2",
+                           "--mesh_model", "2", "--port", "0", "--no_warmup"])
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -3070,7 +3505,7 @@ def _mesh_serve(out, paths, tmp, samples, want, model):
 def _serve_argv(paths, model):
     return ["--model_path", model, "--tokenizer_path", paths["vocab"],
             "--token_emb_path", paths["emb"], "--buckets", SERVE_BUCKETS,
-            "--max_wait_ms", "500", "--seed", str(SERVE_SEED)]
+            "--max_wait_ms", "2000", "--seed", str(SERVE_SEED)]
 
 
 def phase_mesh(out, gpu, paths, tmp):
@@ -3138,8 +3573,10 @@ def phase_mesh(out, gpu, paths, tmp):
             ar = m.get("all_reduce_ms_bfloat16")
             steps = m["runs"]["bf16 auto"]
             lines.append(
-                f"{name} ({m['backend']}): generate_sharded B={MESH_B} {LENGTH} tokens "
-                f"bf16 {steps['wall_s']:.2f} s, f32 {m['runs']['f32 auto']['wall_s']:.2f} s; "
+                f"{name} ({m['backend']}): generate_sharded B={MESH_B} {LENGTH} tokens, "
+                f"{CUT_DEPTH} layers: "
+                f"bf16 {steps['wall_s']:.2f} s, f32 ({F32_LENGTH} tokens) "
+                f"{m['runs']['f32 auto']['wall_s']:.2f} s; "
                 f"{steps['all_reduces_per_step']:g} all-reduces a step"
                 + (f" at {ar['device']:.3f} ms each on the device ({ar['host']:.3f} ms host) "
                    f"= {ar['device'] * steps['all_reduces_per_step']:.1f} ms a step"
@@ -3201,7 +3638,7 @@ def _mesh_train_fn(name):
             "mha_train" if impl == "kernel_padded" else "mha_train_packed")
 
 
-def _mesh_train_launches(name, steps, policy, n_layer=L):
+def _mesh_train_launches(name, steps, policy, n_layer):
     """Launches a rank in ``steps`` steps under the resolved remat ``policy``:
     a forward and a backward a layer, and the remat forward again under
     "full"; a stage runs its layers on each micro-batch, and the backward
@@ -3283,7 +3720,7 @@ def _mesh_bf16_steps(name, mesh, pp, mcfg, dcfg, params, const, batch):
     layout = pmesh.train_layout(mesh)
     policy = ttrain._resolve_remat_policy(tcfg.remat_policy, local, pp,
                                           dcfg.topic_prompt_length, layout.dp)
-    _only(launches, _mesh_train_launches(name, steps, policy), what)
+    _only(launches, _mesh_train_launches(name, steps, policy, mcfg.gpt2.n_layer), what)
     check(all(x == x and abs(x) < 1e6 for x in losses), f"{what}: loss {losses}")
     check(steps == 1 or losses[-1] < losses[0], f"{what}: loss did not fall {losses}")
     # one more step, each collective between two synchronizations
@@ -3457,6 +3894,7 @@ def mesh_train_job(spec_path):
     from mmtg_tpu_torch.kernels import _build
     from mmtg_tpu_torch.parallel import mesh as pmesh
 
+    _die_with_parent()
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3466,7 +3904,8 @@ def mesh_train_job(spec_path):
     _build.load()  # the library phase 1 built; a rank waits if one is building
     res = dict(rank=info.rank, world=info.world_size, backend=info.backend,
                device=str(info.device), load_s=time.perf_counter() - t0, runs={})
-    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7)
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.float32, 7,
+                                                      *depth_cut(CUT_DEPTH))
     g = mcfg.gpt2
     mcfg32 = dataclasses.replace(mcfg, dropout=0.0, gpt2=dataclasses.replace(
         g, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0))
@@ -3505,7 +3944,7 @@ def mesh_train_job(spec_path):
     return 0
 
 
-MESH_CLI_CMD = ("-m", "mmtg_tpu_torch.train")
+MESH_CLI_CMD = module_cmd("mmtg_tpu_torch.train")
 
 
 def _mesh_train_cli(paths, tmp):
@@ -3518,8 +3957,7 @@ def _mesh_train_cli(paths, tmp):
 
     from mmtg_tpu_torch import generate as gen_cli
 
-    mcfg, dcfg = model_configs()
-    mcfg = dataclasses.replace(mcfg, gpt2=dataclasses.replace(mcfg.gpt2, n_layer=2))
+    mcfg, dcfg = depth_cut(CUT_DEPTH)
     cfg_json = os.path.join(tmp, "gpt2_depth2.json")
     with open(cfg_json, "w") as f:
         json.dump(dataclasses.asdict(mcfg.gpt2), f)
@@ -3546,13 +3984,14 @@ def _mesh_train_cli(paths, tmp):
     check(second == ["step_00000002.pt", "step_00000004.pt"],
           f"phase 20 CLI checkpoints after --resume on --mesh_model 2: {second}")
     samples = os.path.join(tmp, "samples_mesh.txt")
-    t0 = time.perf_counter()
-    gen_cli.main(["--data_path", paths["test"], "--model_path", save,
-                  "--tokenizer_path", paths["vocab"], "--token_emb_path", paths["emb"],
-                  "--batch_size", "4", "--n_samples", "2", "--save_samples",
-                  "--save_samples_path", samples], mcfg=mcfg, dcfg=dcfg)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
+    with COUNTED:  # not inside another phase's counted run
+        t0 = time.perf_counter()
+        gen_cli.main(["--data_path", paths["test"], "--model_path", save,
+                      "--tokenizer_path", paths["vocab"], "--token_emb_path", paths["emb"],
+                      "--batch_size", "4", "--n_samples", "2", "--save_samples",
+                      "--save_samples_path", samples], mcfg=mcfg, dcfg=dcfg)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
     with open(samples, encoding="utf-8") as f:
         lines = f.read().splitlines()
     check(len(lines) == 4 and all(ln.strip() for ln in lines),
@@ -3622,8 +4061,8 @@ def phase_mesh_train(out, gpu, paths, tmp):
     out["mesh_train"] = dict(runs=runs, cli=cli, phase_s=wall)
     torch.cuda.synchronize()
     print(f"phase 20 training over the mesh ({torch.cuda.device_count()} card(s), on "
-          f"{gpu}, {wall:.1f} s; global batch {MESH_TRAIN_B} bf16, {MESH_TRAIN_F32_B} "
-          f"f32): ok; " + "; ".join(lines)
+          f"{gpu}, {wall:.1f} s; full width, {CUT_DEPTH} layers; global batch "
+          f"{MESH_TRAIN_B} bf16, {MESH_TRAIN_F32_B} f32): ok; " + "; ".join(lines)
           + f"; train CLI under torchrun (2 layers): --mesh_data 2 --zero1 epoch "
           f"{cli['zero1_epoch_s']:.1f} s, --resume on --mesh_model 2 "
           f"{cli['resume_tp_s']:.1f} s, single-device generate on its save path "
@@ -3671,6 +4110,9 @@ def _write_json(path, out):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == [WITH_PARENT]:  # torchrun, or a CLI rank torchrun started
+        return _run_module_with_parent(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
@@ -3687,6 +4129,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quality-only", action="store_true",
                     help="phase 1 (the build), then phase 22 (the quality loop) "
                          "alone: no kernels line")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="phase 1 (the build), then phase 23 (the serving and "
+                         "latency tools) alone: no kernels line")
     ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-train-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3704,57 +4149,89 @@ def main(argv=None) -> int:
         return mesh_job(args.mesh_job)
     if args.mesh_train_job:  # one rank of phase 20, started by phase_mesh_train
         return mesh_train_job(args.mesh_train_job)
+    import signal
+
+    def stopped(signum, frame):  # unwinds through every finally: clause
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, stopped)
+    _prctl(PR_SET_CHILD_SUBREAPER, 1)
+    try:
+        return _run(args, torch)
+    finally:
+        _stop_children()
+
+
+def _run(args, torch) -> int:
+    """The phases (see the module docstring); each one's seconds are kept."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    out = {"torch": torch.__version__, "cuda": torch.version.cuda}
-    phase_build(out, args.build_serial)
+    out = {"torch": torch.__version__, "cuda": torch.version.cuda, "phase_s": {}}
+
+    def timed(number, phase, *a):
+        t0 = time.perf_counter()
+        r = phase(out, *a)
+        out["phase_s"][number] = round(time.perf_counter() - t0, 1)
+        return r
+
+    timed(1, phase_build, args.build_serial)
     gpu = gpu_line()
     out["gpu"] = gpu
-    if args.mesh_train_only or args.quality_only:
+    if args.mesh_train_only or args.quality_only or args.serving_only:
         tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
         try:
             if args.mesh_train_only:
-                phase_mesh_train(out, gpu, _cli_fixtures(tmp, model_configs()[1]), tmp)
+                timed(20, phase_mesh_train, gpu, _cli_fixtures(tmp, model_configs()[1]),
+                      tmp)
+            elif args.quality_only:
+                timed(22, phase_quality, gpu, tmp)
             else:
-                phase_quality(out, gpu, tmp)
+                timed(23, phase_serving_tools, gpu)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         _write_json(args.json, out)
+        print(f"chip_smoke: seconds a phase {out['phase_s']}")
         print(f"gpu: {gpu}")
         return 0
-    results = phase_kernels(out)
+    results = timed(2, phase_kernels)
     if args.kernels_only:
         _write_json(args.json, out)
         print(f"gpu: {gpu}")
         return 0
     # each main path's run, the counts set to 0 before it and read after it
-    launches = {"generate": phase_generate(out, gpu)}
-    phase_teacher_forced(out)
-    launches["oracle"] = phase_oracle(out)
-    launches["generate_serving"] = phase_generate_serving(out, gpu)
-    launches["stream"] = phase_stream(out, gpu)
+    launches = {"generate": timed(3, phase_generate, gpu)}
+    timed(4, phase_teacher_forced)
+    launches["oracle"] = timed(11, phase_oracle)
+    launches["generate_serving"] = timed(12, phase_generate_serving, gpu)
+    launches["stream"] = timed(13, phase_stream, gpu)
     mcfg, dcfg = model_configs()
     tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
     try:
         paths = _cli_fixtures(tmp, dcfg)
         model = _reference_checkpoint(tmp)
-        phase_cli(out, paths, tmp, model)
-        launches["serve"] = phase_serve(out, gpu, paths, model)
+        timed(5, phase_cli, paths, tmp, model)
+        launches["serve"] = timed(14, phase_serve, gpu, paths, model)
         os.remove(model)
-        launches["train"] = phase_train(out, gpu, args.profile)
-        phase_train_cli(out, paths, tmp)
-        launches["train_packed"] = phase_train_packed(out, gpu, args.profile)
-        launches["train_head_major"] = phase_train_head_major(out, gpu)
-        launches["remat"] = phase_remat(out, gpu)
-        phase_packed_cli(out, paths, tmp)
-        phase_channels(out, gpu)
-        phase_forward_infer(out, gpu)
-        phase_english(out, gpu, tmp)
-        phase_predict(out, gpu, paths, tmp)
-        launches["quality"] = phase_quality(out, gpu, tmp)
-        launches["mesh"] = phase_mesh(out, gpu, paths, tmp)
-        launches["mesh_train"] = phase_mesh_train(out, gpu, paths, tmp)
+        launches["serving_tools"] = timed(23, phase_serving_tools, gpu)
+        launches["train"] = timed(6, phase_train, gpu, args.profile)
+        timed(7, phase_train_cli, paths, tmp)
+        launches["train_packed"] = timed(8, phase_train_packed, gpu, args.profile)
+        launches["train_head_major"] = timed(9, phase_train_head_major, gpu)
+        launches["remat"] = timed(21, phase_remat, gpu)
+        timed(10, phase_packed_cli, paths, tmp)
+        timed(15, phase_channels, gpu)
+        timed(16, phase_forward_infer, gpu)
+        timed(17, phase_english, gpu, tmp)
+        timed(18, phase_predict, gpu, paths, tmp)
+        # phases 19 and 20 (torchrun jobs: processes that mostly start up
+        # and wait on gloo) run beside each other and phase 22, which has
+        # no speed metric; their walls are taken side by side
+        mesh = _beside(timed, 19, phase_mesh, gpu, paths, tmp)
+        mesh_train = _beside(timed, 20, phase_mesh_train, gpu, paths, tmp)
+        launches["quality"] = timed(22, phase_quality, gpu, tmp)
+        launches["mesh"] = mesh()
+        launches["mesh_train"] = mesh_train()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3811,6 +4288,9 @@ def main(argv=None) -> int:
                 for mesh, runs in launches["mesh"].items()}
             check(any(extra["mesh_launches_per_rank"].values()),
                   f"{name} was not launched on the mesh path (phase 19)")
+        # every scenario of the serving and latency tools (phase 23)
+        if launches["serving_tools"].get(name):
+            extra["serving_tools_launches"] = launches["serving_tools"][name]
         # every train run and generate call of the quality loop (phase 22)
         q = (launches["quality"][f"{name}_fwd"] + launches["quality"][f"{name}_bwd"]
              if name in TRAIN_FNS else launches["quality"][name])
@@ -3826,7 +4306,8 @@ def main(argv=None) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 22 phases in {out['total_s']:.1f} s")
+    print(f"chip_smoke: 23 phases in {out['total_s']:.1f} s; seconds a phase "
+          f"{out['phase_s']}")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

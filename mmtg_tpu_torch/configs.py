@@ -209,10 +209,11 @@ class GenerateConfig:
     # per-sentence scheme the reference rebuilds at inference
     # (model.py:296-306). See SURVEY.md §3.3 for the inconsistency.
     type_id_scheme: str = "train"
-    # Decode attention: 'auto' | 'pallas' | 'xla' all mean the per-layer
-    # path (the JAX package's names, kept for flag parity: the port attends
-    # through its CUDA kernel for CUDA tensors and through the plain version
-    # for CPU tensors); 'fused' runs all layers of a step in the whole-step
+    # Decode attention: 'auto' | 'kernel' | 'pallas' | 'xla' all mean the
+    # per-layer path ('kernel' is the port's name, what resolve_attn_impl
+    # returns; the others are the JAX package's, kept for flag parity: the
+    # port attends through its CUDA kernel for CUDA tensors and through the
+    # plain version for CPU tensors); 'fused' runs all layers of a step in the whole-step
     # kernel (ops/decode_megakernel) where its scope holds — int8 split
     # cache, full-precision weights — and the per-layer path elsewhere
     # (decoding.resolve_attn_impl).

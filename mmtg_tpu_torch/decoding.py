@@ -64,7 +64,7 @@ from mmtg_tpu_torch.parallel import mesh as pmesh
 
 SPECIAL = SpecialTokens()
 _CACHE_DTYPES = ("model", "int8", "int4")
-_ATTN_IMPLS = ("auto", "pallas", "xla", "fused")
+_ATTN_IMPLS = ("auto", "kernel", "pallas", "xla", "fused")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -105,9 +105,9 @@ def resolve_attn_impl(gcfg: GenerateConfig, d_kv: int,
                       tp_axis: Optional[str] = None,
                       batch_size: Optional[int] = None) -> str:
     """The EFFECTIVE decode implementation: ``"fused"`` (the whole-step
-    kernel) or ``"kernel"`` (the per-layer loop, which ``auto`` / ``pallas``
-    / ``xla`` all mean here). ``fused`` holds only inside its scope — int8
-    split cache (``merged_kv`` off), full-precision weights, ``d_kv`` a
+    kernel) or ``"kernel"`` (the per-layer loop, which ``kernel`` /
+    ``auto`` / ``pallas`` / ``xla`` all mean here). ``fused`` holds only
+    inside its scope — int8 split cache (``merged_kv`` off), full-precision weights, ``d_kv`` a
     multiple of 8 for the kernel's 16-byte weight loads, no tensor
     parallelism (``tp_axis``) — and resolves to the per-layer kernels
     elsewhere, as in the JAX package. ``'auto'`` cache / weights resolve per

@@ -15,6 +15,17 @@ import mmtg_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# a small model for the run above: the tools' payloads draw topic ids up to
+# 7999, so the vocabulary is 8192
+_TINY = (
+    "ModelConfig(seq_len=5, topic=ChannelConfig(input_dim=64, hidden_dim=32, "
+    "type='MLP'), image=ChannelConfig(input_dim=64, hidden_dim=32), "
+    "text=ChannelConfig(input_dim=64, hidden_dim=32), self_att_hidden_size=32, "
+    "self_att_heads=4, mm_att_out_dim=64, gpt2=GPT2Config(vocab_size=8192, "
+    "n_positions=256, n_ctx=250, n_embd=48, n_layer=2, n_head=4)), "
+    "DataConfig(wenlan_emb_size=64, max_seq_length=22)")
+
+
 def _modules():
     names = ["mmtg_tpu_torch"]
     for info in pkgutil.walk_packages(mmtg_tpu_torch.__path__, "mmtg_tpu_torch."):
@@ -42,17 +53,32 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.parallel", "mmtg_tpu_torch.parallel.mesh",
                  "mmtg_tpu_torch.parallel.pipeline",
                  "mmtg_tpu_torch.quality_loop",
-                 "mmtg_tpu_torch.utils.roofline"):
+                 "mmtg_tpu_torch.utils.roofline",
+                 "mmtg_tpu_torch.tools", "mmtg_tpu_torch.tools.serve_common",
+                 "mmtg_tpu_torch.tools.bench_serve",
+                 "mmtg_tpu_torch.tools.bench_stream",
+                 "mmtg_tpu_torch.tools.soak_serve",
+                 "mmtg_tpu_torch.tools.bench_serve_http",
+                 "mmtg_tpu_torch.tools.fixed_cost_sweep",
+                 "mmtg_tpu_torch.tools.bench_latency"):
         assert name in mods
 
 
 def test_importing_the_port_never_imports_jax():
+    """Every module imported, then a serving tool's ``run`` on the CPU at a
+    tiny config: neither loads ``jax``, ``mmtg_tpu`` or the repo's tools/."""
     code = (
         "import importlib, sys\n"
         f"for m in {_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k == 'mmtg_tpu' or k.startswith('mmtg_tpu.'))\n"
+        "from mmtg_tpu_torch.configs import *\n"
+        "from mmtg_tpu_torch.tools import bench_serve\n"
+        f"mcfg, dcfg = {_TINY}\n"
+        "bench_serve.run(bench_serve.build_arg_parser().parse_args("
+        "'--clients 2 --requests 2 --buckets 2 --solo-runs 1 --device cpu'"
+        ".split()), mcfg, dcfg)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'mmtg_tpu', 'tools', 'serve_common'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -60,8 +86,8 @@ def test_importing_the_port_never_imports_jax():
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|mmtg_tpu)(?:[.\s]|$)", re.M)
@@ -84,7 +110,14 @@ def test_no_source_imports_jax_or_the_jax_package():
             "mmtg_tpu_torch/ops/decode_megakernel.py",
             "mmtg_tpu_torch/predict.py", "mmtg_tpu_torch/native.py",
             "mmtg_tpu_torch/parallel/mesh.py",
-            "mmtg_tpu_torch/parallel/pipeline.py"} <= names
+            "mmtg_tpu_torch/parallel/pipeline.py",
+            "mmtg_tpu_torch/tools/serve_common.py",
+            "mmtg_tpu_torch/tools/bench_serve.py",
+            "mmtg_tpu_torch/tools/bench_stream.py",
+            "mmtg_tpu_torch/tools/soak_serve.py",
+            "mmtg_tpu_torch/tools/bench_serve_http.py",
+            "mmtg_tpu_torch/tools/fixed_cost_sweep.py",
+            "mmtg_tpu_torch/tools/bench_latency.py"} <= names
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _IMPORT.findall(f.read())
@@ -99,3 +132,24 @@ def test_the_import_pattern_catches_what_it_should():
                  "import mmtg_tpu_torch", "# from mmtg_tpu import x in a comment",
                  ":mod:`mmtg_tpu.decoding`"):
         assert not _IMPORT.search(line), line
+
+
+# the JAX tools' own way to their helper: the repo's tools/ put on sys.path
+_TOOLS_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:tools|serve_common)(?:[.\s]|$)|sys\.path", re.M)
+
+
+def test_the_port_tools_do_not_reach_the_repo_tools():
+    """mmtg_tpu_torch/tools/ imports its helpers from the port's package,
+    never the repo's tools/ (by name or through sys.path)."""
+    files = glob.glob(os.path.join(REPO, "mmtg_tpu_torch", "tools", "*.py"))
+    assert len(files) == 8
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            found = _TOOLS_IMPORT.findall(f.read())
+        assert not found, f"{os.path.relpath(path, REPO)}: {found}"
+    for line in ("from serve_common import build_model", "import tools.bench_serve",
+                 "sys.path.insert(0, here)"):
+        assert _TOOLS_IMPORT.search(line), line
+    assert not _TOOLS_IMPORT.search(
+        "from mmtg_tpu_torch.tools.serve_common import build_model")
