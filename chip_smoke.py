@@ -154,7 +154,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
      lengths, whose F bench_latency adds to every row's memory floor
      (batches 1,8,32 x weights model,int8; each wall at least its floor).
      Every scenario's launches are held against its windows or calls.
-(Phases 11-14 run after phase 4, then phase 23, phase 21 after phase 9,
+ 24. the trace tools (mmtg_tpu_torch/tools/), each run as a user runs it, a
+     process of its own at full width in bf16: trace_decode at B=512 (int8
+     cache, the per-layer step) and at B=64 on the whole-step kernel
+     (--attn-impl fused), trace_train at B=256 (3 steps); each trace read
+     back by trace_train --parse-only --json: the categories sum to the busy
+     total (within 0.1 ms a step), busy is within the wall, and the events
+     of each of the port's kernels equal the launches reckoned for the path
+     (2640 decode attention and 2 GRU; 220 whole-step and 2 GRU; 36 of each
+     train-attention kernel under the policy "auto"); each trace's busy
+     share, categories and top 10 ops are printed.
+(Phases 11-14 run after phase 4, then phases 23 and 24, phase 21 after phase 9,
 phases 15-18 after phase 10, then phase 22 with phases 19 and 20 beside it,
 each in a thread of its own: their torchrun jobs mostly start processes
 and wait on gloo, and phase 22 has no speed metric; their walls are taken
@@ -169,12 +179,13 @@ and power limit, the
 kernels' JSON line (with each mesh kernel's launches a rank on phase 19's
 meshes) and, last, the device JSON line.
 --profile adds a torch.profiler kernel-time split of one B=64 train step
-and of one packed train step;
+and of one packed train step, in phase 24's categories;
 --build-serial also times one nvcc process over all sources beside the
 parallel build; --kernels-only stops after phase 2 (to time another
 checkout's kernels with this script's measurements); --mesh-train-only runs
 phase 1 and phase 20 alone, --quality-only phase 1 and phase 22,
---serving-only phase 1 and phase 23. Without a
+--serving-only phase 1 and phase 23, --trace-only phase 1 and phase 24.
+Without a
 CUDA device it exits non-zero and prints no result. Every process it
 starts dies with its parent, and whatever is still running when the script
 ends, also on SIGTERM, is stopped and reaped before it exits.
@@ -276,6 +287,7 @@ def depth_cut(n_layer: int):
 
 PR_SET_PDEATHSIG, PR_SET_CHILD_SUBREAPER = 1, 36
 WITH_PARENT = "--with-parent"  # chip_smoke.py --with-parent <module> <its argv>
+AFTER = "--after"  # chip_smoke.py --with-parent --after <go file> <module> <argv>
 
 
 def _prctl(option: int, value: int) -> bool:
@@ -293,19 +305,43 @@ def _die_with_parent() -> None:
 
 def _run_module_with_parent(argv) -> int:
     """``python -m argv[0] argv[1:]`` in this process, which dies with its
-    parent (how the script runs torchrun, and torchrun the CLIs)."""
+    parent (how the script runs torchrun, and torchrun the CLIs). After
+    ``--after GO``: first :func:`_ready_to_trace`, then wait until the file
+    ``GO`` exists."""
     import runpy
 
     _die_with_parent()
+    if argv[:1] == [AFTER]:
+        go, argv = argv[1], argv[2:]
+        _ready_to_trace()
+        while not os.path.exists(go):
+            time.sleep(0.05)
     sys.argv = list(argv)
     runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
     return 0
 
 
-def module_cmd(module: str, *args: str) -> tuple:
+def _ready_to_trace() -> None:
+    """What a trace tool's process pays before any of its work: the imports
+    (7-8 s on an H100 host). Phase 24 lets a tool's process do this while
+    the tool before it runs. (Not the profiler's own start-up, about 7 s
+    more: a second profiler session in one process lost the last kernel
+    records of its trace on an H100, so each tool starts its one profiler
+    session itself.)"""
+    import torch  # noqa: F401
+    from torch.profiler import ProfilerActivity, profile  # noqa: F401
+
+    import mmtg_tpu_torch.tools.trace_decode  # noqa: F401
+    import mmtg_tpu_torch.tools.trace_train  # noqa: F401
+    from mmtg_tpu_torch import decoding, train  # noqa: F401
+
+
+def module_cmd(module: str, *args: str, after=None) -> tuple:
     """``-m module args`` as a script and its arguments (what torchrun
-    takes): this file, run through :func:`_run_module_with_parent`."""
-    return (os.path.abspath(__file__), WITH_PARENT, module, *args)
+    takes): this file, run through :func:`_run_module_with_parent` (which
+    waits for the file ``after`` first, when given)."""
+    gate = (AFTER, after) if after else ()
+    return (os.path.abspath(__file__), WITH_PARENT, *gate, module, *args)
 
 
 def torchrun_cmd(nproc: int, args) -> list:
@@ -1705,47 +1741,38 @@ def _check_trained(what, r, state):
 
 
 def _profile_step(out, key, what, step, state, const, batch):
-    """A torch.profiler kernel-time split of one train step."""
+    """One train step under utils/logging.maybe_profile (the GPU timeline
+    alone), attributed by the trace tools' parser and categories
+    (tools/trace_train.parse_trace, as phase 24)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
 
-    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, const, batch, 3)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel events only: an operator's row repeats its kernels' time
-    rows = sorted(((e.key, e.self_device_time_total, e.count)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    check(bool(rows), f"{what} profile: torch.profiler recorded no kernel")
-    groups = {}
-    for name, us, _ in rows:
-        low = name.lower()
-        group = ("attention kernels (mha_*)" if "mha_" in low else
-                 "GEMM" if any(w in low for w in ("nvjet", "gemm", "cutlass", "cublas")) else
-                 "indexing / gather backward" if "index" in low or "gather" in low
-                 or "scatter" in low else
-                 "reductions (LayerNorm stats, softmax, sums)" if "reduce" in low
-                 or "softmax" in low else
-                 "random bits (dropout masks)" if "distribution" in low
-                 or "philox" in low or "random" in low else
-                 "elementwise" if "elementwise" in low else "other")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
-    total = sum(groups.values())
+    from mmtg_tpu_torch.tools import trace_train
+    from mmtg_tpu_torch.utils.logging import maybe_profile
+
+    d = tempfile.mkdtemp(prefix="mmtg_profile_")
+    try:
+        with maybe_profile(d, host_ops=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, const, batch, 3)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        r = trace_train.parse_trace(d, 1)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(r["on_gpu"] and bool(r["per_op"]),
+          f"{what} profile: torch.profiler recorded no kernel")
+    groups = {label: us / 1e3 for label, us in r["cats"].most_common()}
+    total = r["total_us"] / 1e3
     out[key] = dict(
-        wall_ms=wall_ms, device_ms=total, busy_share=total / wall_ms,
-        groups_ms=groups,
-        kernels=[dict(name=n[:120], ms=us / 1e3, calls=c) for n, us, c in rows[:25]])
+        wall_ms=wall_ms, device_ms=total, device_wall_ms=r["wall_us"] / 1e3,
+        busy_share=total / wall_ms, groups_ms=groups,
+        kernels=[dict(name=n[:120], ms=us / 1e3, calls=r["per_op_count"][n])
+                 for n, us in r["per_op"].most_common(25)])
     print(f"{what} profile (one step under torch.profiler): wall "
           f"{wall_ms:.1f} ms, kernel time {total:.1f} ms (busy share "
           f"{total / wall_ms:.3f}); " + "; ".join(
-              f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
-                                                     key=lambda kv: -kv[1])))
+              f"{g} {ms:.1f} ms" for g, ms in groups.items()))
     return state
 
 
@@ -3142,6 +3169,178 @@ def phase_serving_tools(out, gpu):
 
 
 # ---------------------------------------------------------------------------
+# Phase 24: the trace tools (mmtg_tpu_torch/tools/trace_decode.py,
+# trace_train.py)
+
+TRACE_RUNS = (  # (label, tool module, its flags, steps the trace holds)
+    ("decode B=512 int8 per-layer", "trace_decode", ("--batch", "512"), LENGTH),
+    ("decode B=64 int8 fused", "trace_decode",
+     ("--batch", "64", "--attn-impl", "fused"), LENGTH),
+    ("train B=256", "trace_train", ("--batch", "256", "--steps", "3"), 3),
+)
+TRACE_TIMEOUT_S = 300  # one tool's process
+TRACE_BUDGET_S = 60  # the phase's share of the script's time limit
+TRACE_SUM_TOL_MS = 0.1  # categories against the busy total, a step
+# the port's kernels as the trace names them (demangled), by family
+TRACE_KERNELS = {"decode_attention": r"decode_attention\w*kernel",
+                 "fused_gru": r"fused_gru_kernel",
+                 "decode_block_fused": r"decode_block_fused_kernel",
+                 "mha_fwd_tc_kernel": r"mha_fwd_tc_kernel",
+                 "mha_bwd_dq_tc_kernel": r"mha_bwd_dq_tc_kernel",
+                 "mha_bwd_dkdv_tc_kernel": r"mha_bwd_dkdv_tc_kernel"}
+
+
+def trace_events(parse: dict) -> dict:
+    """Events of each of the port's kernel families in a parsed trace
+    (``trace_train.parse_trace``), and a check that every one of them falls
+    in a category row that names it."""
+    import re
+
+    from mmtg_tpu_torch.tools.trace_train import category
+
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    for name, n in parse["per_op_count"].items():
+        for fam, pat in TRACE_KERNELS.items():
+            if re.search(pat, name):
+                counts[fam] += n
+                label = category(name)
+                check(label != "other" and ("mha_" if fam.startswith("mha_")
+                                            else fam) in label,
+                      f"phase 24: {name[:80]} falls in '{label}'")
+    return counts
+
+
+def _trace_expected(label, L, dcfg):
+    """The kernel events a trace must hold: the launches reckoned for its
+    path (``_decode_launches`` for a decode call, ``_train_launches`` for the
+    train steps under the policy ``auto`` resolves to at B=256)."""
+    import numpy as np
+
+    want = dict.fromkeys(TRACE_KERNELS, 0)
+    if label.startswith("decode"):
+        fused = "fused" in label
+        d = _decode_launches("fused" if fused else "kernel", "int8", LENGTH, 1, L)
+        want["fused_gru"] = d["fused_gru"]
+        if fused:
+            want["decode_block_fused"] = d["decode_block_fused"]
+        else:
+            want["decode_attention"] = d["decode_attention_int8_append"]
+    else:
+        t = _train_launches("mha_train_packed", L, 3,
+                            {"targets": np.empty((256, dcfg.target_length))}, dcfg)
+        want["mha_fwd_tc_kernel"] = t["mha_train_packed_fwd"]
+        want["mha_bwd_dq_tc_kernel"] = t["mha_train_packed_bwd"]
+        want["mha_bwd_dkdv_tc_kernel"] = t["mha_train_packed_bwd"]
+    return want
+
+
+TRACE_CMD = module_cmd  # the tool's command (a CPU rehearsal points it elsewhere)
+
+
+def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu):
+    """``trace_train --parse-only --json`` over one tool's trace, checked
+    (see :func:`phase_trace_tools`) and printed → ``(run record, events)``."""
+    import contextlib
+    import io
+
+    from mmtg_tpu_torch.tools import trace_train
+
+    js = os.path.join(d, "parse.json")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = trace_train.run(trace_train.build_arg_parser().parse_args(
+            ["--parse-only", "--out", d, "--steps", str(steps), "--json", js,
+             "--top", "10"]))
+    parse_s = time.perf_counter() - t0
+    with open(js) as f:
+        s = json.load(f)
+    check(r["parse"]["on_gpu"], f"phase 24 {label}: the trace has no GPU timeline")
+    cats = sum(s["categories_ms"].values())
+    check(abs(cats - s["ms_per_step_busy"]) <= TRACE_SUM_TOL_MS,
+          f"phase 24 {label}: categories {cats} ms against busy "
+          f"{s['ms_per_step_busy']} ms a step")
+    check(s["ms_per_step_busy"] <= s["ms_per_step_wall"],
+          f"phase 24 {label}: busy {s['ms_per_step_busy']} ms over the wall "
+          f"{s['ms_per_step_wall']} ms a step")
+    got, want = trace_events(r["parse"]), _trace_expected(label, L, dcfg)
+    check(got == want, f"phase 24 {label}: kernel events {got} != {want}")
+    traced = [ln for ln in log.splitlines() if ln.startswith("traced ")]
+    rec = dict(tool=tool, run_s=run_s, parse_s=parse_s,
+               traced_line=traced[-1] if traced else None, events=got,
+               busy_share=s["ms_per_step_busy"] / s["ms_per_step_wall"],
+               trace_mb=os.path.getsize(trace_train.newest_trace(d)) / 2 ** 20,
+               report=buf.getvalue(), **s)
+    top = "; ".join(f"{n[:60]} {ms} ms x{r['parse']['per_op_count'][n]}"
+                    for n, ms in s["top_ops_ms"].items())
+    print(f"phase 24 {tool} {label} (full width, bf16, on {gpu}): ok; "
+          f"{run_s:.1f} s, trace {rec['trace_mb']:.0f} MB parsed in {parse_s:.1f} s; "
+          f"a {'token' if tool == 'trace_decode' else 'step'}: busy "
+          f"{s['ms_per_step_busy']:.3f} ms, wall {s['ms_per_step_wall']:.3f} ms, busy "
+          f"share {rec['busy_share']:.3f}; categories: "
+          + ", ".join(f"{c} {ms:.3f}" for c, ms in s["categories_ms"].items())
+          + f"; kernel events {({k: v for k, v in got.items() if v})}; top 10: " + top)
+    return rec, got
+
+
+def phase_trace_tools(out, gpu, tmp):
+    """Phase 24: trace_decode (B=512 per-layer, B=64 fused) and trace_train
+    (B=256, 3 steps) run as a user runs them, one process each at full width
+    on the card; each trace read back by ``trace_train --parse-only --json``:
+    categories summing to the busy total, busy within the wall, and every
+    port kernel's events equal to the launches reckoned for the path.
+
+    The three processes start together; the second and third do their
+    imports (``--after``, :func:`_ready_to_trace`) and then wait until the
+    one before them has exited, so no two tools touch the card at once.
+    Each trace is read in a thread while the next tool runs."""
+    import torch
+
+    t_phase = time.perf_counter()
+    mcfg, dcfg = model_configs()
+    L = mcfg.gpt2.n_layer
+    torch.cuda.empty_cache()  # the tools' processes share the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for i, (label, tool, flags, steps) in enumerate(TRACE_RUNS):
+        d = os.path.join(tmp, "trace_" + label.replace(" ", "_").replace("=", ""))
+        go = os.path.join(tmp, f"trace_go_{i}")
+        log = open(os.path.join(tmp, f"trace_log_{i}"), "w+")
+        cmd = [sys.executable, *TRACE_CMD(f"mmtg_tpu_torch.tools.{tool}", *flags,
+                                          "--out", d, "--device", DEVICE,
+                                          after=go if i else None)]
+        procs.append((label, tool, steps, d, go, log, subprocess.Popen(
+            cmd, cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    runs, events, reading = {}, {}, None
+
+    def read(label, *a):
+        runs[label], events[label] = _read_trace(label, *a, L, dcfg, gpu)
+
+    for i, (label, tool, steps, d, go, log, proc) in enumerate(procs):
+        t0 = time.perf_counter()
+        if i:
+            open(go, "w").close()  # the tool before it has exited
+        rc = proc.wait(timeout=TRACE_TIMEOUT_S)
+        run_s = time.perf_counter() - t0
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if rc != 0:
+            print(f"phase 24 {tool} {label} failed:\n{text[-6000:]}")
+        check(rc == 0, f"phase 24 {tool} {label}: exit {rc}")
+        if reading is not None:
+            reading()
+        reading = _beside(read, label, tool, steps, d, text, run_s)
+    reading()
+    wall = time.perf_counter() - t_phase
+    out["trace_tools"] = dict(gpu=gpu, phase_s=wall, runs=runs)
+    print(f"phase 24 trace tools: ok; {wall:.1f} s (budget {TRACE_BUDGET_S} s; "
+          + ", ".join(f"{k} {v['run_s']:.1f} + {v['parse_s']:.1f} s"
+                      for k, v in runs.items()) + f"), on {gpu}")
+    return events
+
+
+# ---------------------------------------------------------------------------
 # Phase 19: the sharded serving path over a (data, model) process mesh
 
 MESH_B = 64
@@ -4097,6 +4296,14 @@ KERNELS = [
 ]
 
 
+# the trace families (phase 24) whose events each kernel's launches make
+TRACE_FAMILY = {name: () for name, *_ in KERNELS}
+TRACE_FAMILY.update(decode_attention_int8_append=("decode_attention",),
+                    fused_gru=("fused_gru",), decode_block_fused=("decode_block_fused",),
+                    mha_train_packed=("mha_fwd_tc_kernel", "mha_bwd_dq_tc_kernel",
+                                      "mha_bwd_dkdv_tc_kernel"))
+
+
 # the kernels the sharded path runs (phase 19)
 MESH_KERNELS = ("decode_attention_int8_append", "decode_attention_fp_append",
                 "fused_gru", "decode_block_fused")
@@ -4132,6 +4339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serving-only", action="store_true",
                     help="phase 1 (the build), then phase 23 (the serving and "
                          "latency tools) alone: no kernels line")
+    ap.add_argument("--trace-only", action="store_true",
+                    help="phase 1 (the build), then phase 24 (the trace tools) "
+                         "alone: no kernels line")
     ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-train-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4178,7 +4388,8 @@ def _run(args, torch) -> int:
     timed(1, phase_build, args.build_serial)
     gpu = gpu_line()
     out["gpu"] = gpu
-    if args.mesh_train_only or args.quality_only or args.serving_only:
+    if (args.mesh_train_only or args.quality_only or args.serving_only
+            or args.trace_only):
         tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
         try:
             if args.mesh_train_only:
@@ -4186,6 +4397,8 @@ def _run(args, torch) -> int:
                       tmp)
             elif args.quality_only:
                 timed(22, phase_quality, gpu, tmp)
+            elif args.trace_only:
+                timed(24, phase_trace_tools, gpu, tmp)
             else:
                 timed(23, phase_serving_tools, gpu)
         finally:
@@ -4214,6 +4427,7 @@ def _run(args, torch) -> int:
         launches["serve"] = timed(14, phase_serve, gpu, paths, model)
         os.remove(model)
         launches["serving_tools"] = timed(23, phase_serving_tools, gpu)
+        launches["trace_tools"] = timed(24, phase_trace_tools, gpu, tmp)
         launches["train"] = timed(6, phase_train, gpu, args.profile)
         timed(7, phase_train_cli, paths, tmp)
         launches["train_packed"] = timed(8, phase_train_packed, gpu, args.profile)
@@ -4288,6 +4502,12 @@ def _run(args, torch) -> int:
                 for mesh, runs in launches["mesh"].items()}
             check(any(extra["mesh_launches_per_rank"].values()),
                   f"{name} was not launched on the mesh path (phase 19)")
+        # the kernel events of each trace of the trace tools (phase 24)
+        traced = {label: {k: v for k, v in ev.items() if v and k in TRACE_FAMILY[name]}
+                  for label, ev in launches["trace_tools"].items()}
+        traced = {label: ev for label, ev in traced.items() if ev}
+        if traced:
+            extra["trace_tools_events"] = traced
         # every scenario of the serving and latency tools (phase 23)
         if launches["serving_tools"].get(name):
             extra["serving_tools_launches"] = launches["serving_tools"][name]
@@ -4306,7 +4526,7 @@ def _run(args, torch) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 23 phases in {out['total_s']:.1f} s; seconds a phase "
+    print(f"chip_smoke: 24 phases in {out['total_s']:.1f} s; seconds a phase "
           f"{out['phase_s']}")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

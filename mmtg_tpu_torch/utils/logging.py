@@ -100,18 +100,22 @@ class StepTimer:
 
 
 @contextlib.contextmanager
-def maybe_profile(trace_dir: Optional[str]):
+def maybe_profile(trace_dir: Optional[str], host_ops: bool = True):
     """``torch.profiler`` trace of the enclosed work (host ops, and the CUDA
     kernels when a card is present), written on exit as a Chrome / Perfetto
     trace ``<trace_dir>/trace_<pid>_<ns>.json``; a no-op for an empty
-    ``trace_dir``."""
+    ``trace_dir``. ``host_ops=False`` with a card records the GPU timeline
+    (and the runtime calls) alone: recording every host operator slows a
+    host-bound loop's dispatch several times over, which would stretch the
+    very wall the device's busy share is read against."""
     if not trace_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] if host_ops or not cuda else []
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:

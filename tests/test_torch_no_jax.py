@@ -60,7 +60,13 @@ def test_module_list_covers_the_package():
                  "mmtg_tpu_torch.tools.soak_serve",
                  "mmtg_tpu_torch.tools.bench_serve_http",
                  "mmtg_tpu_torch.tools.fixed_cost_sweep",
-                 "mmtg_tpu_torch.tools.bench_latency"):
+                 "mmtg_tpu_torch.tools.bench_latency",
+                 "mmtg_tpu_torch.tools.trace_train",
+                 "mmtg_tpu_torch.tools.trace_decode",
+                 "mmtg_tpu_torch.tools.bench_pack",
+                 "mmtg_tpu_torch.tools.multihost_smoke",
+                 "mmtg_tpu_torch.tools.release_check",
+                 "mmtg_tpu_torch.tools.make_fixtures"):
         assert name in mods
 
 
@@ -117,7 +123,13 @@ def test_no_source_imports_jax_or_the_jax_package():
             "mmtg_tpu_torch/tools/soak_serve.py",
             "mmtg_tpu_torch/tools/bench_serve_http.py",
             "mmtg_tpu_torch/tools/fixed_cost_sweep.py",
-            "mmtg_tpu_torch/tools/bench_latency.py"} <= names
+            "mmtg_tpu_torch/tools/bench_latency.py",
+            "mmtg_tpu_torch/tools/trace_train.py",
+            "mmtg_tpu_torch/tools/trace_decode.py",
+            "mmtg_tpu_torch/tools/bench_pack.py",
+            "mmtg_tpu_torch/tools/multihost_smoke.py",
+            "mmtg_tpu_torch/tools/release_check.py",
+            "mmtg_tpu_torch/tools/make_fixtures.py"} <= names
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _IMPORT.findall(f.read())
@@ -143,7 +155,7 @@ def test_the_port_tools_do_not_reach_the_repo_tools():
     """mmtg_tpu_torch/tools/ imports its helpers from the port's package,
     never the repo's tools/ (by name or through sys.path)."""
     files = glob.glob(os.path.join(REPO, "mmtg_tpu_torch", "tools", "*.py"))
-    assert len(files) == 8
+    assert len(files) == 14
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _TOOLS_IMPORT.findall(f.read())
@@ -153,3 +165,27 @@ def test_the_port_tools_do_not_reach_the_repo_tools():
         assert _TOOLS_IMPORT.search(line), line
     assert not _TOOLS_IMPORT.search(
         "from mmtg_tpu_torch.tools.serve_common import build_model")
+
+
+# a module of the JAX package named on a command line (``-m mmtg_tpu.train``,
+# ``mmtg_tpu/...``) or its scripts (``scripts/make_fixtures.py``)
+_JAX_MODULE = re.compile(r"\bmmtg_tpu(?:\.|/)|scripts/(?:make_fixtures|train)\.(?:py|sh)\b")
+
+
+def test_the_port_launchers_run_only_the_port():
+    """scripts/train_torch.sh and generate_torch.sh run the port's CLIs and
+    fixture tool, never a module or script of the JAX package."""
+    for name, wants in (("train_torch.sh", ("-m mmtg_tpu_torch.train",
+                                            "-m mmtg_tpu_torch.tools.make_fixtures")),
+                        ("generate_torch.sh", ("-m mmtg_tpu_torch.generate",
+                                               "-m mmtg_tpu_torch.tools.make_fixtures",
+                                               "bash scripts/train_torch.sh"))):
+        with open(os.path.join(REPO, "scripts", name), encoding="utf-8") as f:
+            text = f.read()
+        assert not _JAX_MODULE.findall(text), f"{name}: {_JAX_MODULE.findall(text)}"
+        for want in wants:
+            assert want in text, f"{name} does not run {want}"
+    for line in ("python -m mmtg_tpu.generate", "python scripts/make_fixtures.py",
+                 "bash scripts/train.sh", "import mmtg_tpu/x"):
+        assert _JAX_MODULE.search(line), line
+    assert not _JAX_MODULE.search("python -m mmtg_tpu_torch.train")
