@@ -29,7 +29,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
      rate for their type, phase 1's peaks) is computed; then
      the same for every decode wrapper (bf16), the GRU and the whole-step
      kernel (both types) at B=1 (the p50 path) and B=512, the whole-step
-     kernel's ptxas line and launch plan beside its times;
+     kernel's ptxas line and launch plan beside its times; then the
+     batch-invariant kernels (no TPU counterpart): the product
+     (ops/matmul) on each of the main path's shapes (a decode step's four
+     products a layer and its LM head, the prefill's per-head
+     probabilities @ values, the beta attention's K = 3 mix), the LayerNorm
+     (ops/layer_norm) and the prefix sum (ops/cumsum) on the nucleus's, at
+     M = 8, 64, 512 rows in bf16 (the product in f32 too, at M = 64 on both
+     weight layouts), each against its plain version, a row alone holding
+     the same bits, and timed beside the library call it replaces and its
+     bound;
   3. the generation path, decoding.generate, at the full model width
      (12-layer 768-d GPT-2, vocab 13317, 2048-d WenLan, random seeded
      weights) in bf16: B=64 with the int8 cache, then B=8 and B=1 with the
@@ -146,11 +155,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      per-layer path with 3 solo requests and on the whole-step kernel, each
      path's saturation capacity C in requests/s; bench_stream, 3 streams
      each equal to its batched response, then 16 concurrent streams
-     (buckets 8,16, 2 rounds) sharing windows; soak_serve, 20 s of open-loop
+     (buckets 8,16, 2 rounds) sharing windows; soak_serve, 12 s of open-loop
      Poisson arrivals at 0.5 C (no rejection, nothing lost) and at 2 C with
      max_queue_depth 128 (shedding, nothing lost, the backlog within the
      queue plus three windows); bench_serve_http with JSON and npz bodies
-     at one bucket (every response equal to submit's); fixed_cost_sweep at B=64 over four
+     at buckets 8,16,32,64 (every response equal to submit's with its seed,
+     whichever bucket its window took); fixed_cost_sweep at B=64 over four
      lengths, whose F bench_latency adds to every row's memory floor
      (batches 1,8,32 x weights model,int8; each wall at least its floor).
      Every scenario's launches are held against its windows or calls.
@@ -164,12 +174,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
      (2640 decode attention and 2 GRU; 220 whole-step and 2 GRU; 36 of each
      train-attention kernel under the policy "auto"); each trace's busy
      share, categories and top 10 ops are printed.
+ 25. batch invariance (tools/batch_invariance.py) on phase 3's model, bf16:
+     one (request, seed) decoded alone and at B = 8, 16, 32, 64, at the first,
+     the middle and the last row among random neighbours, 220 tokens, on the
+     per-layer path (int8 cache and bf16 cache) and the whole-step kernel:
+     each path's first differing step, "none" the pass; the op probe of every
+     op the repair touched (the decode-attention kernel, the whole-step
+     kernel, the batch-invariant product on the LM head and the prefill's
+     products, the prefix sum, the stable top-k, the sampler): a row's bits
+     at each M equal its bits alone; on a mismatch the whole probe's list is printed and the phase
+     fails. Then tools/parity_check on a synthetic full-size reference .pth
+     (two batches of 4): the train, infer and decode surfaces through the
+     kernels in f32 within 5e-4 of the port's plain path on the CPU, bf16
+     beside.
 (Phases 11-14 run after phase 4, then phases 23 and 24, phase 21 after phase 9,
-phases 15-18 after phase 10, then phase 22 with phases 19 and 20 beside it,
-each in a thread of its own: their torchrun jobs mostly start processes
-and wait on gloo, and phase 22 has no speed metric; their walls are taken
-side by side, and phase 20's one in-process call waits for phase 22's
-counted runs.)
+phases 15-18 after phase 10, then phases 22 and 25 with phases 19 and 20
+beside them, each in a thread of its own: their torchrun jobs mostly start
+processes and wait on gloo, and phases 22 and 25 have no speed metric; their
+walls are taken side by side, and phase 20's one in-process call waits for
+the counted runs of phases 22 and 25.)
 Where a train step runs with remat and the policy "auto" (phases 6-10, 15,
 17, 20), its attention launches are asserted for the policy "auto" resolves
 to (train._resolve_remat_policy): the kept qkv and context at these batches,
@@ -240,6 +263,28 @@ PACK_ROWS, PACK_T, PACK_SLOTS = 32, 512, 8  # 32 x 512 = the tokens of B=64 x 25
 # is printed beside the error); f32 as above.
 SEG_TOL = {"float32": TRAIN_TOL["float32"], "bfloat16": (2e-2, 8e-2, 2e-2)}
 LONG_ROWS, LONG_T = 16, 1024  # packed rows of n_positions: the same tokens a step
+# the batch-invariant kernels (no TPU counterpart): the product at each of
+# the main path's shapes (_matmul_cases), the LayerNorm, and the nucleus's
+# prefix sum over the top-k candidates (V = 10; 13317 when top-p filters the
+# whole vocabulary) at the decode's row counts; M = 64 is the kernels line's
+# shape
+INVARIANT_ROWS = (8, 64, 512)
+# the product against cuBLAS's, relative to the largest output: bf16 two
+# roundings of the output (2^-7; summation order moves the f32 sum by far
+# less), f32 the summation order; the prefix sum max-abs on values up to 1
+# (and a rounding above it): bf16 one step at 1 (2^-7), f32 the order of
+# 13317 adds
+MATMUL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+CUMSUM_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# LayerNorm against the eager ops, relative to the largest output: bf16 the
+# mean's and the output's roundings (a sum in another order may round the mean
+# to the next bf16 value: two steps of the output), f32 the summation order
+# and rsqrtf's last bit
+LN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# phase 25: the batches one (request, seed) is decoded at, and the parity
+# check's f32 bound (the JAX tool's)
+INVARIANCE_BATCHES = (1, 8, 16, 32, 64)
+PARITY_ATOL = 5e-4
 
 
 def model_configs():
@@ -773,10 +818,11 @@ def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen, H=H, D=D,
     def rotate(r):  # a different layer per call: the cache is cold
         state["layer"] = r % L
 
+    reps = 25 if B == B_ATT else 11  # the main path's batch, then B = 1 and 512
     ms = device_ms(lambda: run_kernel(caches, scales, TIMED_POSITION,
-                                      state["layer"]), between=rotate)
+                                      state["layer"]), reps=reps, between=rotate)
     plain_ms = device_ms(lambda: run_plain(caches, scales, TIMED_POSITION,
-                                           state["layer"]), between=rotate)
+                                           state["layer"]), reps=reps, between=rotate)
     library_ms = None
     if kind == "fp":
         # the library yardstick: (write the row, then) one SDPA call
@@ -795,7 +841,7 @@ def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen, H=H, D=D,
                 q.view(B, H, 1, D // H), heads(kc), heads(vc),
                 attn_mask=live)
 
-        library_ms = device_ms(run_library, between=rotate)
+        library_ms = device_ms(run_library, reps=reps, between=rotate)
     # the bound counts what this mask needs: live slots only, each
     # stored k and v row once (D, or D/2 bytes for int4)
     n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
@@ -865,6 +911,162 @@ def _gru_vs_plain(results, fg, dtype, B, gen):
             f"{results[key]['bound_ms']:.4f} ms")
 
 
+# the batch-invariant product's shapes on the main path at M rows (x [M, K]
+# @ w [K, N], or batched over Z): name -> (Z, M, K, N, bias, w read
+# transposed). A decode step's four products a layer (48 of its 51) and
+# its LM head (the tied wte.T: the [N, K] layout); the prefill's
+# probabilities @ values (per head, bf16; P + 1 = 16 positions) and the beta
+# attention's 3-way mix (K = 3, zero-padded to 8) from the batched form
+def _matmul_cases(M):
+    P1, heads, hd, steps, enc_h = 16, 12, D // 12, 5, 512
+    return {
+        "qkv": (None, M, D, 3 * D, True, False),
+        "attn_proj": (None, M, D, D, False, False),
+        "mlp_fc": (None, M, D, 4 * D, True, False),
+        "mlp_proj": (None, M, 4 * D, D, False, False),
+        "lm_head": (None, M, D, 13317, False, True),
+        "prefill_pv": (M * heads, P1, P1, hd, False, False),
+        "beta_mix": (M * steps, 1, 3, enc_h, False, False),
+    }
+
+
+def _matmul_vs_plain(results, dtype, M, gen, case):
+    """The batch-invariant product (ops/matmul, the kernel) on one of the
+    main path's shapes (:func:`_matmul_cases`) vs its plain version
+    (``torch.matmul``: cuBLAS) within MATMUL_TOL of the largest output; the
+    first and the last row (of the batched form: batch entry) computed alone
+    give the same bits (the point of the kernel); device times (median of 11)
+    of the kernel, the plain version and the library call of the same
+    function (``F.linear``; ``torch.bmm`` for the batched form), and the
+    bound. Stored under ("matmul", dtype, case, "M<M>")."""
+    import torch
+
+    from mmtg_tpu_torch.ops import matmul as mm
+
+    dname = str(dtype).split(".")[1]
+    Z, rows, K, N, has_bias, trans = _matmul_cases(M)[case]
+    lead = () if Z is None else (Z,)
+    x = torch.randn(*lead, rows, K, generator=gen, device=DEVICE).to(dtype)
+    w = (torch.randn(*lead, *((N, K) if trans else (K, N)), generator=gen, device=DEVICE)
+         * 0.02).to(dtype)
+    w = w.T if trans else w  # the tied LM head's wte.T: a transposed view
+    b = (torch.randn(N, generator=gen, device=DEVICE) * 0.1).to(dtype) if has_bias else None
+    if Z is None:
+        run = lambda a, ww: mm.matmul(a, ww, b)  # noqa: E731
+        plain = lambda a, ww: mm.matmul_plain(a, ww, b)  # noqa: E731
+        library = lambda: torch.nn.functional.linear(x, w.T, b)  # noqa: E731
+        first, last = (x[:1], w), (x[-1:], w)
+    else:
+        run, plain = mm.batched_matmul, mm.matmul_plain
+        library = lambda: torch.bmm(x, w)  # noqa: E731
+        first, last = (x[:1], w[:1]), (x[-1:], w[-1:])
+    before = mm.matmul.launches
+    y = run(x, w)
+    ref = plain(x, w)
+    alone = (run(*first)[0], run(*last)[0])
+    torch.cuda.synchronize()
+    check(mm.matmul.launches == before + 3, "matmul: not one launch a call")
+    check(y.shape == ref.shape and y.dtype == dtype, f"matmul {case} shape/dtype")
+    what = f"matmul {case} {dname} M={M}"
+    check(torch.equal(alone[0], y[0]) and torch.equal(alone[1], y[-1]),
+          f"{what}: a {'row' if Z is None else 'batch entry'} alone differs from the "
+          f"same one among {M}")
+    e = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(e <= MATMUL_TOL[dname] * scale, f"{what}: max-abs {e:.3g} > "
+          f"{MATMUL_TOL[dname]} x {scale:.3g}")
+    ms = device_ms(lambda: run(x, w), reps=11, warmup=2)
+    plain_ms = device_ms(lambda: plain(x, w), reps=11, warmup=2)
+    library_ms = device_ms(library, reps=11, warmup=2)
+    z = 1 if Z is None else Z
+    key = ("matmul", dname, case, f"M{M}")
+    results[key] = dict(
+        max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound((x.numel() + w.numel() + y.numel() + (N if has_bias else 0))
+                * x.element_size(), 2.0 * z * rows * K * N, dname))
+    shape = f"{'' if Z is None else f'{Z}x'}[{rows},{K}]@[{K},{N}]{'+b' if has_bias else ''}"
+    return (f"matmul[{case} {dname} M={M} {shape}] err {e:.3g} (largest {scale:.3g}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+            f"bound {results[key]['bound_ms']:.4f} ms")
+
+
+def _cumsum_vs_plain(results, dtype, R, V, gen):
+    """The batch-invariant prefix sum (ops/cumsum, the kernel) over ``R``
+    rows of ``V`` sorted probabilities vs its plain version (``torch.cumsum``
+    accumulating in f32, rounded once an entry) within CUMSUM_TOL; a row
+    alone gives the same bits; device times of the kernel, the plain version
+    and ``torch.cumsum`` on x itself (the library call the port replaced),
+    and the bound. Stored under ("row_cumsum", dtype, "M<R>") for V = 10,
+    with "V<V>" appended else."""
+    import torch
+
+    from mmtg_tpu_torch.ops import cumsum as cs
+
+    dname = str(dtype).split(".")[1]
+    x = torch.softmax(torch.randn(R, V, generator=gen, device=DEVICE), -1)
+    x = x.sort(dim=-1, descending=True).values.to(dtype)
+    before = cs.row_cumsum.launches
+    y = cs.row_cumsum(x)
+    ref = cs.row_cumsum_plain(x)
+    alone = cs.row_cumsum(x[-1:])[0]
+    torch.cuda.synchronize()
+    check(cs.row_cumsum.launches == before + 2, "row_cumsum: not one launch a call")
+    check(torch.equal(alone, y[-1]),
+          f"row_cumsum {dname} R={R}: a row alone differs from the same row among {R}")
+    e = (y.float() - ref.float()).abs().max().item()
+    check(e <= CUMSUM_TOL[dname], f"row_cumsum {dname} R={R} V={V}: max-abs {e:.3g} > "
+          f"{CUMSUM_TOL[dname]}")
+    ms = device_ms(lambda: cs.row_cumsum(x), reps=11, warmup=2)
+    plain_ms = device_ms(lambda: cs.row_cumsum_plain(x), reps=11, warmup=2)
+    library_ms = device_ms(lambda: torch.cumsum(x, dim=-1), reps=11, warmup=2)
+    key = ("row_cumsum", dname, f"M{R}") + (() if V == 10 else (f"V{V}",))
+    results[key] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        **bound(2 * R * V * x.element_size(), R * V, dname))
+    return (f"row_cumsum[{dname} R={R} V={V}] err {e:.3g} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library (torch.cumsum) {library_ms:.4f} ms bound "
+            f"{results[key]['bound_ms']:.4f} ms")
+
+
+def _layer_norm_vs_plain(results, dtype, M, gen):
+    """The batch-invariant LayerNorm (ops/layer_norm, the kernel) over ``M``
+    rows of the model's width vs its plain version (the eager torch ops)
+    within LN_TOL of the largest output; a row alone gives the same bits;
+    device times of the kernel, the plain version and ``F.layer_norm`` (the
+    library call of the same function), and the bound. Stored under
+    ("layer_norm", dtype, "M<M>")."""
+    import torch
+
+    from mmtg_tpu_torch.ops import layer_norm as ln
+
+    dname = str(dtype).split(".")[1]
+    x = (torch.randn(M, D, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    b = (0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    before = ln.layer_norm_rows.launches
+    y = ln.layer_norm_rows(x, g, b, 1e-5)
+    ref = ln.layer_norm_plain(x, g, b, 1e-5)
+    alone = ln.layer_norm_rows(x[-1:], g, b, 1e-5)[0]
+    torch.cuda.synchronize()
+    check(ln.layer_norm_rows.launches == before + 2, "layer_norm: not one launch a call")
+    check(torch.equal(alone, y[-1]),
+          f"layer_norm {dname} M={M}: a row alone differs from the same row among {M}")
+    e = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(e <= LN_TOL[dname] * scale, f"layer_norm {dname} M={M}: max-abs {e:.3g} > "
+          f"{LN_TOL[dname]} x {scale:.3g}")
+    ms = device_ms(lambda: ln.layer_norm_rows(x, g, b, 1e-5), reps=11, warmup=2)
+    plain_ms = device_ms(lambda: ln.layer_norm_plain(x, g, b, 1e-5), reps=11, warmup=2)
+    library_ms = device_ms(lambda: torch.nn.functional.layer_norm(x, (D,), g, b, 1e-5),
+                           reps=11, warmup=2)
+    e_sz = x.element_size()
+    results[("layer_norm", dname, f"M{M}")] = dict(
+        max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound((2 * M * D + 2 * D) * e_sz, 8.0 * M * D, dname))
+    return (f"layer_norm[{dname} M={M} D={D}] err {e:.3g} (largest {scale:.3g}) kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{results[('layer_norm', dname, f'M{M}')]['bound_ms']:.4f} ms")
+
+
 def phase_kernels(out):
     import torch
 
@@ -894,6 +1096,20 @@ def phase_kernels(out):
             other.append(_gru_vs_plain(results, fg, dtype, B, gen_other))
         other += phase_block_fused(results, gen_other, B)
     print("phase 2 kernels vs plain at B=1 and B=512: ok; " + "; ".join(other))
+    # the batch-invariant kernels at the decode's row counts, bf16, and f32 at
+    # the kernels line's M = 64 (their own generator, as above)
+    inv, gen_inv = [], torch.Generator(device=DEVICE).manual_seed(2)
+    for M in INVARIANT_ROWS:
+        for case in _matmul_cases(M):
+            inv.append(_matmul_vs_plain(results, torch.bfloat16, M, gen_inv, case))
+        inv.append(_cumsum_vs_plain(results, torch.bfloat16, M, 10, gen_inv))
+        inv.append(_layer_norm_vs_plain(results, torch.bfloat16, M, gen_inv))
+    for case in ("mlp_fc", "lm_head"):  # f32 on CUDA cores, both weight layouts
+        inv.append(_matmul_vs_plain(results, torch.float32, 64, gen_inv, case))
+    inv.append(_cumsum_vs_plain(results, torch.float32, 64, 10, gen_inv))
+    inv.append(_layer_norm_vs_plain(results, torch.float32, 64, gen_inv))
+    inv.append(_cumsum_vs_plain(results, torch.bfloat16, 64, 13317, gen_inv))  # top-p alone
+    print("phase 2 batch-invariant kernels vs plain: ok; " + "; ".join(inv))
     print("phase 2 decode_block_fused ptxas: " + " | ".join(_ptxas_of("decode_block_fused")))
     for name, lines in phase_train_attention(results, gen).items():
         print(f"phase 2 {name} vs plain: ok; " + "; ".join(lines))
@@ -1154,9 +1370,24 @@ def phase_train_attention(results, gen):
     return lines
 
 
-def _full_width_inputs(dtype, seed, mcfg=None, dcfg=None):
+_MODELS = {}  # (dtype, seed) -> the repo's model as the decode phases share it
+
+
+def _full_width_inputs(dtype, seed, mcfg=None, dcfg=None, shared=False):
     """Seeded parameters of ``mcfg`` (default: the repo's model) on the card,
-    a random WenLan / CLIP table and a maker of synthetic prompt batches."""
+    a random WenLan / CLIP table and a maker of synthetic prompt batches.
+    ``shared``: the repo's model built once for each dtype and seed, for the
+    phases that only decode with it (3, 12, 13, 25; a train step would
+    update it in place)."""
+    if shared and mcfg is None and (dtype, seed) in _MODELS:
+        return _MODELS[(dtype, seed)]
+    made = _make_full_width_inputs(dtype, seed, mcfg, dcfg)
+    if shared and mcfg is None:
+        _MODELS[(dtype, seed)] = made
+    return made
+
+
+def _make_full_width_inputs(dtype, seed, mcfg=None, dcfg=None):
     import torch
 
     from mmtg_tpu_torch.params import init_params
@@ -1187,14 +1418,20 @@ TRAIN_FNS = ("mha_train_packed", "mha_train_packed_seg", "mha_train")
 
 def _counted():
     """name -> (object, attribute) of every launch count the port keeps."""
+    from mmtg_tpu_torch.ops import cumsum as cs
     from mmtg_tpu_torch.ops import decode_attention as da
     from mmtg_tpu_torch.ops import decode_megakernel as mk
     from mmtg_tpu_torch.ops import fused_gru as fg
+    from mmtg_tpu_torch.ops import layer_norm as ln
+    from mmtg_tpu_torch.ops import matmul as mm
     from mmtg_tpu_torch.ops import train_attention as ta
 
     counted = {fn.__name__: (fn, "launches") for fn in da.WRAPPERS}
     counted["decode_block_fused"] = (mk.decode_block_fused, "launches")
     counted["fused_gru"] = (fg.fused_gru, "launches")
+    counted["matmul"] = (mm.matmul, "launches")
+    counted["row_cumsum"] = (cs.row_cumsum, "launches")
+    counted["layer_norm"] = (ln.layer_norm_rows, "launches")
     for name in TRAIN_FNS:
         counted[f"{name}_fwd"] = (getattr(ta, name), "fwd_launches")
         counted[f"{name}_bwd"] = (getattr(ta, name), "bwd_launches")
@@ -1240,9 +1477,37 @@ def _beside(fn, *args):
 
 
 def _only(launches, expected, what):
-    """The launch counts are ``expected`` and every other kernel's is 0."""
+    """The launch counts are ``expected`` and every other kernel's is 0 (a
+    generation path names the batch-invariant kernels' counts:
+    :func:`_invariant_launches`; a train path launches none of them)."""
     want = {k: expected.get(k, 0) for k in launches}
     check(launches == want, f"{what}: launch counts {launches} != {want}")
+
+
+def _invariant_launches(L, length, calls=1, dcfg=None, fused=False, gru=2,
+                        sampling=True):
+    """The batch-invariant kernels' launches in ``calls`` generate calls of
+    ``length`` tokens and ``L`` layers (``matmul``: the encoder's products —
+    the topic product, an input projection for each of its ``gru``
+    single-layer GRU channels (the fused GRU's; other channel types run
+    torch), the two alpha attentions' five products each, the beta
+    attention's three — the prefill's projector (2), six products a layer
+    and its LM head, then a step's projector (2) and LM head and, on the
+    per-layer path (``fused`` False), its four products a layer;
+    ``row_cumsum``: the nucleus's prefix sum a sampled, not frame-forced,
+    step (none without ``sampling``: a teacher-forced call); ``layer_norm``:
+    the encoder's three, the prefill's two a layer and its final one, a
+    step's final one and, per layer, its two a layer)."""
+    from mmtg_tpu_torch.ops.sampling import frame_forced_token
+
+    frame = 22 if dcfg is None else dcfg.sent_frame_length
+    sampled = sum(not frame_forced_token(i, frame)[0] for i in range(length)) \
+        if sampling else 0
+    encoder = 1 + gru + 2 * 5 + 3
+    products = encoder + 2 + 6 * L + 1 + length * (3 + (0 if fused else 4 * L))
+    norms = 3 + 2 * L + 1 + length * (1 if fused else 2 * L + 1)
+    return {"matmul": calls * products, "row_cumsum": calls * sampled,
+            "layer_norm": calls * norms}
 
 
 def _train_launches(fn, L, steps, batch, dcfg, policy="auto", remat=True,
@@ -1285,15 +1550,16 @@ def phase_generate(out, gpu):
     from mmtg_tpu_torch.configs import GenerateConfig
     from mmtg_tpu_torch.decoding import generate
 
-    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0, shared=True)
     steps = mcfg.gpt2.n_layer * LENGTH  # one launch per layer and step
+    inv = _invariant_launches(mcfg.gpt2.n_layer, LENGTH, dcfg=dcfg)
     runs = [("b64 int8 cache", 64, GenerateConfig(cache_dtype="int8"),
-             {"decode_attention_int8_append": steps, "fused_gru": 2}),
+             {"decode_attention_int8_append": steps, "fused_gru": 2, **inv}),
             ("b8 bf16 cache", 8, GenerateConfig(cache_dtype="model"),
-             {"decode_attention_fp_append": steps, "fused_gru": 2}),
+             {"decode_attention_fp_append": steps, "fused_gru": 2, **inv}),
             # the p50 path: one row, the bf16 cache
             ("b1 bf16 cache", 1, GenerateConfig(cache_dtype="model"),
-             {"decode_attention_fp_append": steps, "fused_gru": 2})]
+             {"decode_attention_fp_append": steps, "fused_gru": 2, **inv})]
     batches = {b: make_batch(b) for _, b, _, _ in runs}
     for _, b, gcfg, _ in runs:  # warm-up (cuBLAS handles, allocator)
         generate(params, const, mcfg, dcfg, dataclasses.replace(gcfg, length=WARM_LENGTH),
@@ -1391,6 +1657,92 @@ def phase_oracle(out):
     return launches
 
 
+def phase_batch_invariance(out, gpu, paths, tmp):
+    """Phase 25: one (request, seed) decoded by generate(..., row_seeds)
+    alone and at B = 8, 16, 32, 64 (rows 0, B//2 and B-1 among random neighbours),
+    220 tokens, bf16 on phase 3's model, on the service's three decode paths
+    (tools/batch_invariance.PATHS): the first step whose token differs, none
+    the pass; the op probe of every op the repair touched (a row's bits at
+    each M against M = 1); on a mismatch the whole probe's list, then a
+    failure. Then tools/parity_check on a synthetic full-size .pth, two
+    batches of 4 of the CLI fixtures' val rows: f32 max-abs of each surface
+    against the port's plain path on the CPU within PARITY_ATOL, bf16 beside."""
+    import torch
+
+    from mmtg_tpu_torch.tools import batch_invariance as bi
+    from mmtg_tpu_torch.tools import parity_check
+
+    mcfg, dcfg, params, const, _ = _full_width_inputs(torch.bfloat16, 0, shared=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    sample = bi.random_rows(1, mcfg, dcfg, gen, torch.bfloat16, DEVICE)
+    neighbours = [bi.random_rows(max(INVARIANCE_BATCHES), mcfg, dcfg, gen,
+                                 torch.bfloat16, DEVICE)]
+    t0 = time.perf_counter()
+    with COUNTED:
+        _reset_counts()  # ---- this path starts here ------------------------------
+        res = bi.decode_paths(params, const, mcfg, dcfg, sample, neighbours,
+                              INVARIANCE_BATCHES, LENGTH)
+        launches = _counts()  # ---- read just after ---------------------------------
+    decode_s = time.perf_counter() - t0
+    calls = len(INVARIANCE_BATCHES)  # the lone decode, then one a batch size
+    inv = _invariant_launches(mcfg.gpt2.n_layer, LENGTH, 2 * calls, dcfg)
+    fused_inv = _invariant_launches(mcfg.gpt2.n_layer, LENGTH, calls, dcfg, fused=True)
+    inv = {k: v + fused_inv[k] for k, v in inv.items()}
+    steps = mcfg.gpt2.n_layer * LENGTH * calls
+    _only(launches, {"decode_attention_int8_append": steps,
+                     "decode_attention_fp_append": steps,
+                     "decode_block_fused": LENGTH * calls, "fused_gru": 2 * 3 * calls,
+                     **inv}, "phase 25 decode paths")
+    first = {path: r["first_diff"] for path, r in res.items()}
+    t0 = time.perf_counter()
+    ops = bi.op_probe(params, mcfg, dcfg, INVARIANCE_BATCHES, library=False)
+    bad_ops = {k: v["differs"] for k, v in ops.items() if v["differs"]}
+    if any(v is not None for v in first.values()) or bad_ops:
+        full = bi.op_probe(params, mcfg, dcfg, INVARIANCE_BATCHES)
+        print("phase 25 probe: " + json.dumps(bi.differing(
+            {"decode": first, "ops": full})))
+    check(all(v is None for v in first.values()),
+          f"phase 25: a row's tokens depend on its batch: first differing step {first}")
+    check(not bad_ops, f"phase 25: the port's ops differ by M: {bad_ops}")
+    probe_s = time.perf_counter() - t0
+    # ---- parity_check on a synthetic full-size reference .pth -------------
+    t0 = time.perf_counter()
+    pth = os.path.join(tmp, "synthetic_reference.pth")
+    args = parity_check.build_arg_parser().parse_args([
+        "--make-synthetic-ckpt", pth, "--ckpt", pth, "--data", paths["val"],
+        "--vocab", paths["vocab"], "--token_emb_path", paths["emb"],
+        "--batch_size", "4", "--max_batches", "2", "--atol", str(PARITY_ATOL),
+        "--device", DEVICE])
+    with COUNTED:
+        _reset_counts()
+        rep = parity_check.run(args, mcfg, dcfg)
+        parity_launches = {k: v for k, v in _counts().items() if v}
+    os.remove(pth)
+    parity_s = time.perf_counter() - t0
+    check(len(rep["float32"]["train"]["per_batch"]) == 2, f"phase 25 parity: {rep}")
+    check(rep["ok"] and rep["max_abs_logits_diff"] <= PARITY_ATOL,
+          f"phase 25 parity: f32 max-abs {rep['max_abs_logits_diff']} > {PARITY_ATOL}")
+    check(parity_launches.get("mha_train_packed_fwd", 0) > 0
+          and parity_launches.get("decode_attention_fp_append", 0) > 0,
+          f"phase 25 parity: the kernels did not run: {parity_launches}")
+    out["batch_invariance"] = dict(
+        gpu=gpu, first_diff=first, runs={k: r["runs"] for k, r in res.items()},
+        ops=ops, launches=launches, decode_s=decode_s, probe_s=probe_s,
+        parity=rep, parity_launches=parity_launches, parity_s=parity_s)
+    surf = lambda d: ", ".join(f"{k} {v['max_abs_logits_diff']:.3g}"  # noqa: E731
+                               for k, v in d.items())
+    print(f"phase 25 batch invariance (full width, bf16, {LENGTH} tokens, B "
+          f"{','.join(map(str, INVARIANCE_BATCHES))}, rows 0, B//2 and B-1, on {gpu}): ok; "
+          f"first differing step " + ", ".join(f"{k} {'none' if v is None else v}"
+                                               for k, v in first.items())
+          + f" ({decode_s:.1f} s); op probe of the port's {len(ops)} ops: none differs "
+          f"({probe_s:.1f} s); launches { {k: v for k, v in launches.items() if v} }")
+    print(f"phase 25 parity_check (synthetic full-size .pth, 2 batches of 4, yardstick "
+          f"the port's plain path on the CPU in f32, on {gpu}): ok; f32 {surf(rep['float32'])}"
+          f" (atol {PARITY_ATOL}); bf16 {surf(rep['bfloat16'])}; {parity_s:.1f} s")
+    return launches
+
+
 def phase_generate_serving(out, gpu):
     """The serving decode paths of decoding.generate at full width, B=64, bf16,
     220 tokens: int4 cache, merged k||v cache, the whole-step kernel, beside
@@ -1402,7 +1754,7 @@ def phase_generate_serving(out, gpu):
     from mmtg_tpu_torch.configs import GenerateConfig
     from mmtg_tpu_torch.decoding import generate
 
-    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0, shared=True)
     steps = mcfg.gpt2.n_layer * LENGTH  # per-layer kernels: one launch a layer and step
     base = dict(weight_dtype="model")
     runs = [("int8 per-layer", GenerateConfig(cache_dtype="int8", **base),
@@ -1431,7 +1783,8 @@ def phase_generate_serving(out, gpu):
         now = _counts()
         got = {k: now[k] - before[k] for k in now}
         before = now
-        _only(got, {**expected, "fused_gru": 2}, what)
+        _only(got, {**expected, "fused_gru": 2, **_invariant_launches(
+            mcfg.gpt2.n_layer, LENGTH, dcfg=dcfg, fused=gcfg.attn_impl == "fused")}, what)
         _check_tokens(toks, mcfg, dcfg, what)
         share = decode_share(f"phase 12 {what}", gcfg, mcfg, dcfg, 64, wall,
                              torch.bfloat16)
@@ -1455,7 +1808,7 @@ def phase_stream(out, gpu):
     from mmtg_tpu_torch.decoding import generate, generate_stream
     from mmtg_tpu_torch.ops import prng
 
-    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0)
+    mcfg, dcfg, params, const, make_batch = _full_width_inputs(torch.bfloat16, 0, shared=True)
     gcfg = GenerateConfig(cache_dtype="int8", weight_dtype="model")
     batch = make_batch(64)
     key = prng.PRNGKey(11, device=DEVICE)
@@ -1483,7 +1836,8 @@ def phase_stream(out, gpu):
     launches = _counts()
     # three decodes (one-shot, streamed, the batch of 8), per-layer kernels
     _only(launches, {"decode_attention_int8_append": 3 * mcfg.gpt2.n_layer * LENGTH,
-                     "fused_gru": 6}, "stream")
+                     "fused_gru": 6,
+                     **_invariant_launches(mcfg.gpt2.n_layer, LENGTH, 3, dcfg)}, "stream")
     out["stream_b64"] = dict(first_block_s=first_s, total_s=total_s,
                              row0_same_in_a_batch_of_8=same)
     print(f"phase 13 generate_stream with row_seeds (full width, bf16, B=64, on {gpu}): "
@@ -1579,7 +1933,9 @@ def phase_serve(out, gpu, paths, model):
               "serve: the streamed response differs from generate with the same seed")
         # 4 one-shot rows in one window (1 launch a step), the stream's window
         # in 10 blocks (1 launch a step); the encoder's two GRUs per window
-        _only(launches, {"decode_block_fused": 2 * LENGTH, "fused_gru": 4}, "serve")
+        L = service.params["gpt2"]["h"]["attn_w"].shape[0]
+        _only(launches, {"decode_block_fused": 2 * LENGTH, "fused_gru": 4,
+                         **_invariant_launches(L, LENGTH, 2, dcfg, fused=True)}, "serve")
         req = urllib.request.Request(
             f"http://localhost:{port}/reload", data=_json.dumps({"model_path": model}).encode(),
             headers={"Content-Type": "application/json"})
@@ -2230,7 +2586,8 @@ def phase_train_cli(out, paths, tmp):
     check(len(lines) == 4 and all(ln.strip() for ln in lines),
           f"generate CLI on the train save path wrote {lines}")
     # B=4: the int8 cache, 2 layers x 220 steps; the encoder's two GRUs
-    _only(gen_counts, {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2},
+    _only(gen_counts, {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2,
+                       **_invariant_launches(2, LENGTH, dcfg=dcfg)},
           "generate CLI on the train save path")
     out["train_cli"] = dict(seconds=secs, val_loss=[val1, val2], launches=counts,
                             generate_seconds=gen_s, generate_loaded=os.path.relpath(loaded, save),
@@ -2382,7 +2739,8 @@ def phase_channels(out, gpu):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         before, got = _delta(before, f"{kind} generate",
-                             {"decode_attention_int8_append": steps})
+                             {"decode_attention_int8_append": steps,
+                              **_invariant_launches(L, LENGTH, dcfg=dcfg, gru=0)})
         _check_tokens(toks, mcfg, dcfg, f"{kind} generate")
         del p16, c16
 
@@ -2399,7 +2757,9 @@ def phase_channels(out, gpu):
               f"logits, kernels vs plain: {tf_err:.3g} > {TEACHER_FORCED_TOL['int8']}")
         # the prefill takes START, then one cached step a later token
         before, _ = _delta(before, f"{kind} teacher-forced",
-                           {"decode_attention_int8_append": L * (TF_STEPS - 1)})
+                           {"decode_attention_int8_append": L * (TF_STEPS - 1),
+                            **_invariant_launches(L, TF_STEPS - 1, dcfg=dcfg, gru=0,
+                                                  sampling=False)})
         del a, b
 
         state, step = _train_state(params, mcfg, dcfg)
@@ -2567,7 +2927,8 @@ def phase_english(out, gpu, tmp):
                         torch.Generator(device=DEVICE).manual_seed(1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        before, got = _delta(before, f"english generate {what}", expected)
+        before, got = _delta(before, f"english generate {what}",
+                             {**expected, **_invariant_launches(L, LENGTH, dcfg=dcfg)})
         _check_tokens(toks, mcfg, dcfg, f"english generate {what}")
         gen_res[what] = dict(wall_s=wall, tok_per_s=b * LENGTH / wall, launches=got)
     del p16, c16
@@ -2625,7 +2986,8 @@ def phase_english(out, gpu, tmp):
                   "--save_samples_path", samples], mcfg=cli_mcfg, dcfg=cli_dcfg)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    _only(_counts(), {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2},
+    _only(_counts(), {"decode_attention_int8_append": 2 * LENGTH, "fused_gru": 2,
+                      **_invariant_launches(2, LENGTH, dcfg=cli_dcfg)},
           "english generate CLI")
     with open(samples, encoding="utf-8") as f:
         lines = f.read().splitlines()
@@ -2689,7 +3051,8 @@ def phase_predict(out, gpu, paths, tmp):
           and text.count("swap probe") == 2, f"predict printed {text!r}")
     calls = 2 * 2  # two indices, each plain and swapped
     _only(_counts(), {"decode_attention_int8_append": calls * 2 * LENGTH,
-                      "fused_gru": 2 * calls}, "predict")
+                      "fused_gru": 2 * calls,
+                      **_invariant_launches(2, LENGTH, calls, dcfg)}, "predict")
 
     native = WordPieceTokenizer.from_file(paths["vocab"])
     check(native.native is not None, "the native WordPiece tokenizer did not load")
@@ -2831,7 +3194,8 @@ def phase_quality(out, gpu, tmp):
             check(len(lines) == 8 and all(ln.strip() for ln in lines),
                   f"phase 22 {mode} seed {s}: {len(lines)} lines")
             _only(seen[f"generate {mode} s{s}"],
-                  {kernel: L * LENGTH, "fused_gru": 2},
+                  {kernel: L * LENGTH, "fused_gru": 2,
+                   **_invariant_launches(L, LENGTH, dcfg=dcfg)},
                   f"phase 22 generate {mode} ({m['cache_dtype']} cache, "
                   f"{m['weight_dtype']} weights) seed {s}")
     check(rep["config"]["modes"]["model"]["cache_dtype"] == "model"
@@ -2917,7 +3281,7 @@ def phase_quality(out, gpu, tmp):
 # Phase 23: the serving and latency tools (mmtg_tpu_torch/tools/)
 
 TOOL_BUCKETS = "8,16,32,64"
-SOAK = dict(seconds=20, snapshot_every_s=5, buckets="8,32,64", producers=2,
+SOAK = dict(seconds=12, snapshot_every_s=4, buckets="8,32,64", producers=2,
             overload_depth=128, attn_impl="fused")
 SWEEP = dict(batch=64, lengths=(60, 120, 180, 220), runs=3)
 SERVING_BUDGET_S = 180  # the phase's share of the script's time limit
@@ -2926,8 +3290,9 @@ SERVING_BUDGET_S = 180  # the phase's share of the script's time limit
 def _decode_launches(attn_impl, cache_dtype, length, calls, L):
     """The launch counts of ``calls`` decode calls (service windows or
     generate calls) of ``length`` tokens: the decode step's kernel (one
-    launch a layer and step on the per-layer path, one a step fused) and
-    the encoder's two GRUs a call."""
+    launch a layer and step on the per-layer path, one a step fused), the
+    encoder's two GRUs a call and the batch-invariant kernels
+    (:func:`_invariant_launches`)."""
     if attn_impl == "fused":
         want = {"decode_block_fused": length * calls}
     else:
@@ -2936,6 +3301,7 @@ def _decode_launches(attn_impl, cache_dtype, length, calls, L):
                   "int4": "decode_attention_int4_append"}[cache_dtype]
         want = {kernel: L * length * calls}
     want["fused_gru"] = 2 * calls
+    want.update(_invariant_launches(L, length, calls, fused=attn_impl == "fused"))
     return want
 
 
@@ -3093,10 +3459,11 @@ def phase_serving_tools(out, gpu):
           f"{so['tokens_per_s']} tok/s")
 
     # ---- bench_serve_http: JSON and npz bodies ----------------------------
-    # one bucket: in bf16 a response depends on the bucket its window was
-    # padded to, so only then does every response equal submit()'s
+    # the service's whole menu: a response is the same whichever bucket its
+    # window was padded to (batch invariance, phase 25), so every response
+    # must equal submit()'s for its (sample, seed)
     ht = tool(bench_serve_http, "bench_serve_http",
-              ["--clients", "16", "--requests", "64", "--buckets", "64",
+              ["--clients", "16", "--requests", "64", "--buckets", "8,16,32,64",
                "--cache-dtype", "int8", "--attn-impl", "fused"])
     windows_launched("bench_serve_http", ht, {"json": "fused", "npz": "fused"})
     check(ht["tokens_checked"], "phase 23 http: the responses were not checked")
@@ -3106,7 +3473,7 @@ def phase_serving_tools(out, gpu):
     for enc, f in ht["service"].items():
         check(64 / f["windows"] > 1, f"phase 23 http {enc}: no window held two rows")
     print(f"phase 23 bench_serve_http (16 keep-alive clients, 64 requests an encoding, "
-          f"bucket 64, fused path, on {gpu}): ok; every response equals submit() "
+          f"buckets 8,16,32,64, fused path, on {gpu}): ok; every response equals submit() "
           "with its seed; " + "; ".join(
               f"{enc}: {line['detail']['requests_per_s']} requests/s, p50 "
               f"{line['detail']['p50_latency_s']} s, p95 {line['detail']['p95_latency_s']}"
@@ -3187,7 +3554,12 @@ TRACE_KERNELS = {"decode_attention": r"decode_attention\w*kernel",
                  "decode_block_fused": r"decode_block_fused_kernel",
                  "mha_fwd_tc_kernel": r"mha_fwd_tc_kernel",
                  "mha_bwd_dq_tc_kernel": r"mha_bwd_dq_tc_kernel",
-                 "mha_bwd_dkdv_tc_kernel": r"mha_bwd_dkdv_tc_kernel"}
+                 "mha_bwd_dkdv_tc_kernel": r"mha_bwd_dkdv_tc_kernel",
+                 "matmul": r"matmul_(?:bf16|f32)_kernel",
+                 "row_cumsum": r"row_cumsum_kernel",
+                 "layer_norm": r"layer_norm_kernel"}
+# the category row each family's events must fall in (else the family's name)
+TRACE_ROW = {"row_cumsum": "reduce", "layer_norm": "layernorm"}
 
 
 def trace_events(parse: dict) -> dict:
@@ -3204,8 +3576,8 @@ def trace_events(parse: dict) -> dict:
             if re.search(pat, name):
                 counts[fam] += n
                 label = category(name)
-                check(label != "other" and ("mha_" if fam.startswith("mha_")
-                                            else fam) in label,
+                row = TRACE_ROW.get(fam, "mha_" if fam.startswith("mha_") else fam)
+                check(label != "other" and row in label,
                       f"phase 24: {name[:80]} falls in '{label}'")
     return counts
 
@@ -3221,6 +3593,7 @@ def _trace_expected(label, L, dcfg):
         fused = "fused" in label
         d = _decode_launches("fused" if fused else "kernel", "int8", LENGTH, 1, L)
         want["fused_gru"] = d["fused_gru"]
+        want.update(_invariant_launches(L, LENGTH, dcfg=dcfg, fused=fused))
         if fused:
             want["decode_block_fused"] = d["decode_block_fused"]
         else:
@@ -3237,9 +3610,11 @@ def _trace_expected(label, L, dcfg):
 TRACE_CMD = module_cmd  # the tool's command (a CPU rehearsal points it elsewhere)
 
 
-def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu):
+def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu, final=False):
     """``trace_train --parse-only --json`` over one tool's trace, checked
-    (see :func:`phase_trace_tools`) and printed → ``(run record, events)``."""
+    (see :func:`phase_trace_tools`) and printed → ``(run record, events)``.
+    Kernel events short of the launches reckoned (the profiler lost records)
+    pass unless ``final``: the caller traces once more."""
     import contextlib
     import io
 
@@ -3264,16 +3639,19 @@ def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu):
           f"phase 24 {label}: busy {s['ms_per_step_busy']} ms over the wall "
           f"{s['ms_per_step_wall']} ms a step")
     got, want = trace_events(r["parse"]), _trace_expected(label, L, dcfg)
-    check(got == want, f"phase 24 {label}: kernel events {got} != {want}")
+    lost = got != want and all(got[k] <= want[k] for k in want)
+    check(got == want or (lost and not final),
+          f"phase 24 {label}: kernel events {got} != {want}")
     traced = [ln for ln in log.splitlines() if ln.startswith("traced ")]
-    rec = dict(tool=tool, run_s=run_s, parse_s=parse_s,
+    rec = dict(tool=tool, run_s=run_s, parse_s=parse_s, lost_records=lost,
                traced_line=traced[-1] if traced else None, events=got,
                busy_share=s["ms_per_step_busy"] / s["ms_per_step_wall"],
                trace_mb=os.path.getsize(trace_train.newest_trace(d)) / 2 ** 20,
                report=buf.getvalue(), **s)
     top = "; ".join(f"{n[:60]} {ms} ms x{r['parse']['per_op_count'][n]}"
                     for n, ms in s["top_ops_ms"].items())
-    print(f"phase 24 {tool} {label} (full width, bf16, on {gpu}): ok; "
+    print(f"phase 24 {tool} {label} (full width, bf16, on {gpu}): "
+          f"{'the profiler lost kernel records, traced again' if lost else 'ok'}; "
           f"{run_s:.1f} s, trace {rec['trace_mb']:.0f} MB parsed in {parse_s:.1f} s; "
           f"a {'token' if tool == 'trace_decode' else 'step'}: busy "
           f"{s['ms_per_step_busy']:.3f} ms, wall {s['ms_per_step_wall']:.3f} ms, busy "
@@ -3293,7 +3671,10 @@ def phase_trace_tools(out, gpu, tmp):
     The three processes start together; the second and third do their
     imports (``--after``, :func:`_ready_to_trace`) and then wait until the
     one before them has exited, so no two tools touch the card at once.
-    Each trace is read in a thread while the next tool runs."""
+    Each trace is read in a thread while the next tool runs. A trace whose
+    kernel events fall short of the launches (the profiler lost records: none
+    in excess) is taken once more, after the three, and must then hold them
+    all."""
     import torch
 
     t_phase = time.perf_counter()
@@ -3301,25 +3682,19 @@ def phase_trace_tools(out, gpu, tmp):
     L = mcfg.gpt2.n_layer
     torch.cuda.empty_cache()  # the tools' processes share the card
     here = os.path.dirname(os.path.abspath(__file__))
-    procs = []
-    for i, (label, tool, flags, steps) in enumerate(TRACE_RUNS):
-        d = os.path.join(tmp, "trace_" + label.replace(" ", "_").replace("=", ""))
-        go = os.path.join(tmp, f"trace_go_{i}")
+
+    def trace_dir(label):
+        return os.path.join(tmp, "trace_" + label.replace(" ", "_").replace("=", ""))
+
+    def start(i, label, tool, flags, go):
+        d = trace_dir(label)
         log = open(os.path.join(tmp, f"trace_log_{i}"), "w+")
         cmd = [sys.executable, *TRACE_CMD(f"mmtg_tpu_torch.tools.{tool}", *flags,
-                                          "--out", d, "--device", DEVICE,
-                                          after=go if i else None)]
-        procs.append((label, tool, steps, d, go, log, subprocess.Popen(
-            cmd, cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True)))
-    runs, events, reading = {}, {}, None
+                                          "--out", d, "--device", DEVICE, after=go)]
+        return d, log, subprocess.Popen(cmd, cwd=here, stdout=log,
+                                        stderr=subprocess.STDOUT, text=True)
 
-    def read(label, *a):
-        runs[label], events[label] = _read_trace(label, *a, L, dcfg, gpu)
-
-    for i, (label, tool, steps, d, go, log, proc) in enumerate(procs):
-        t0 = time.perf_counter()
-        if i:
-            open(go, "w").close()  # the tool before it has exited
+    def finish(label, tool, log, proc, t0):
         rc = proc.wait(timeout=TRACE_TIMEOUT_S)
         run_s = time.perf_counter() - t0
         log.seek(0)
@@ -3328,10 +3703,33 @@ def phase_trace_tools(out, gpu, tmp):
         if rc != 0:
             print(f"phase 24 {tool} {label} failed:\n{text[-6000:]}")
         check(rc == 0, f"phase 24 {tool} {label}: exit {rc}")
+        return text, run_s
+
+    procs = []
+    for i, (label, tool, flags, steps) in enumerate(TRACE_RUNS):
+        go = os.path.join(tmp, f"trace_go_{i}") if i else None
+        procs.append((label, tool, steps, go, *start(i, label, tool, flags, go)))
+    runs, events, reading = {}, {}, None
+
+    def read(label, *a, final=False):
+        runs[label], events[label] = _read_trace(label, *a, L, dcfg, gpu, final=final)
+
+    for i, (label, tool, steps, go, d, log, proc) in enumerate(procs):
+        t0 = time.perf_counter()
+        if i:
+            open(go, "w").close()  # the tool before it has exited
+        text, run_s = finish(label, tool, log, proc, t0)
         if reading is not None:
             reading()
         reading = _beside(read, label, tool, steps, d, text, run_s)
     reading()
+    for i, (label, tool, flags, steps) in enumerate(TRACE_RUNS):
+        if runs[label]["lost_records"]:
+            shutil.rmtree(trace_dir(label), ignore_errors=True)  # the new trace alone
+            t0 = time.perf_counter()
+            d, log, proc = start(len(TRACE_RUNS) + i, label, tool, flags, None)
+            text, run_s = finish(label, tool, log, proc, t0)
+            read(label, tool, steps, d, text, run_s, final=True)
     wall = time.perf_counter() - t_phase
     out["trace_tools"] = dict(gpu=gpu, phase_s=wall, runs=runs)
     print(f"phase 24 trace tools: ok; {wall:.1f} s (budget {TRACE_BUDGET_S} s; "
@@ -3365,17 +3763,19 @@ def _mesh_runs(dp, tp, n_layer):
     length; at SHORT_LENGTH an explicit int8 cache (DP-only and TP) and the
     whole-step kernel on the DP-only mesh, where it is in scope."""
     runs = [("bf16 auto", "bfloat16", {},
-             {"decode_attention_fp_append": n_layer * LENGTH, "fused_gru": 2})]
+             {"decode_attention_fp_append": n_layer * LENGTH, "fused_gru": 2,
+              **_invariant_launches(n_layer, LENGTH)})]
     if (dp, tp) != (2, 2):
         runs.append(("bf16 int8 cache", "bfloat16",
                      dict(cache_dtype="int8", length=SHORT_LENGTH),
                      {"decode_attention_int8_append": n_layer * SHORT_LENGTH,
-                      "fused_gru": 2}))
+                      "fused_gru": 2, **_invariant_launches(n_layer, SHORT_LENGTH)}))
     if tp == 1:
         runs.append(("bf16 fused", "bfloat16",
                      dict(cache_dtype="int8", weight_dtype="model", attn_impl="fused",
                           length=SHORT_LENGTH),
-                     {"decode_block_fused": SHORT_LENGTH, "fused_gru": 2}))
+                     {"decode_block_fused": SHORT_LENGTH, "fused_gru": 2,
+                      **_invariant_launches(n_layer, SHORT_LENGTH, fused=True)}))
     return runs
 
 
@@ -4293,6 +4693,20 @@ KERNELS = [
      "train_packed", (PACK_ROWS,)),
     ("decode_block_fused", "mmtg_tpu_torch/csrc/decode_block_fused.cu",
      "mmtg_tpu/ops/decode_megakernel.py:360", "generate_serving", ()),
+    # no TPU counterpart: the library calls they replace on every generation
+    # path, so that a row's tokens do not depend on its batch (phase 25)
+    # (matmul at the step's MLP input product; every shape in "shapes")
+    ("matmul", "mmtg_tpu_torch/csrc/matmul.cu",
+     "none: no TPU kernel; replaces torch.matmul (cuBLAS) for the decode step's "
+     "products and LM head, the prefill's and the encoder's "
+     "(mmtg_tpu_torch/models/gpt2.py)", "generate", ("mlp_fc", "M64")),
+    ("row_cumsum", "mmtg_tpu_torch/csrc/row_cumsum.cu",
+     "none: no TPU kernel; replaces torch.cumsum in the nucleus filter "
+     "(mmtg_tpu_torch/ops/sampling.py)", "generate", ("M64",)),
+    ("layer_norm", "mmtg_tpu_torch/csrc/layer_norm.cu",
+     "none: no TPU kernel; replaces the eager LayerNorm (PyTorch reductions) of the "
+     "encoder, the prefill and the decode step (mmtg_tpu_torch/models/gpt2.py)",
+     "generate", ("M64",)),
 ]
 
 
@@ -4300,6 +4714,8 @@ KERNELS = [
 TRACE_FAMILY = {name: () for name, *_ in KERNELS}
 TRACE_FAMILY.update(decode_attention_int8_append=("decode_attention",),
                     fused_gru=("fused_gru",), decode_block_fused=("decode_block_fused",),
+                    matmul=("matmul",), row_cumsum=("row_cumsum",),
+                    layer_norm=("layer_norm",),
                     mha_train_packed=("mha_fwd_tc_kernel", "mha_bwd_dq_tc_kernel",
                                       "mha_bwd_dkdv_tc_kernel"))
 
@@ -4439,11 +4855,12 @@ def _run(args, torch) -> int:
         timed(17, phase_english, gpu, tmp)
         timed(18, phase_predict, gpu, paths, tmp)
         # phases 19 and 20 (torchrun jobs: processes that mostly start up
-        # and wait on gloo) run beside each other and phase 22, which has
-        # no speed metric; their walls are taken side by side
+        # and wait on gloo) run beside each other and phases 22 and 25,
+        # which have no speed metric; their walls are taken side by side
         mesh = _beside(timed, 19, phase_mesh, gpu, paths, tmp)
         mesh_train = _beside(timed, 20, phase_mesh_train, gpu, paths, tmp)
         launches["quality"] = timed(22, phase_quality, gpu, tmp)
+        launches["batch_invariance"] = timed(25, phase_batch_invariance, gpu, paths, tmp)
         launches["mesh"] = mesh()
         launches["mesh_train"] = mesh_train()
     finally:
@@ -4465,6 +4882,13 @@ def _run(args, torch) -> int:
                 bwd_bound_ms=r["bwd_bound"]["bound_ms"])
         else:
             n, extra = counts[name], {}
+            if name == "matmul":
+                # every main-path shape of phase 2, bf16
+                extra = dict(shapes={
+                    f"{k[2]} {k[3]}": {x: v[x] for x in ("ms", "library_ms", "bound_ms",
+                                                         "max_abs_err")}
+                    for k, v in results.items() if isinstance(k, tuple)
+                    and k[:2] == ("matmul", "bfloat16")})
             if name == "decode_block_fused":
                 # also driven by the service (phase 14); no one PyTorch call
                 # computes a decode step: the port's per-layer step beside it
@@ -4526,7 +4950,7 @@ def _run(args, torch) -> int:
     out["kernels"] = kernels
     out["total_s"] = time.perf_counter() - t_start
     _write_json(args.json, out)
-    print(f"chip_smoke: 24 phases in {out['total_s']:.1f} s; seconds a phase "
+    print(f"chip_smoke: 25 phases in {out['total_s']:.1f} s; seconds a phase "
           f"{out['phase_s']}")
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

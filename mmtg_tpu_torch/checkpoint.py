@@ -27,7 +27,7 @@ import glob
 import json
 import math
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -217,11 +217,13 @@ def newest_step_file(model_path: str) -> str:
     raise FileNotFoundError(f"no step_*.pt checkpoint under {candidates}")
 
 
-def save_train_state(directory: str, step: int, state, keep: int = 5) -> str:
+def save_train_state(directory: str, step: int, state, keep: int = 5,
+                     epoch: Optional[int] = None) -> str:
     """Write ``state`` (a :class:`mmtg_tpu_torch.train.TrainState`) to
     ``<directory>/step_<step>.pt`` — parameters, AdamW state, step and the
-    dropout generator's state, as CPU tensors — and delete all but the
-    ``keep`` newest files. Returns the file's path."""
+    dropout generator's state, as CPU tensors, and ``epoch``, the epoch a
+    resumed run starts at, when given — and delete all but the ``keep``
+    newest files. Returns the file's path."""
     from mmtg_tpu_torch.params import tree_map
 
     os.makedirs(directory, exist_ok=True)
@@ -231,23 +233,26 @@ def save_train_state(directory: str, step: int, state, keep: int = 5) -> str:
     torch.save({"params": tree_map(cpu, state.params),
                 "opt_state": tree_map(cpu, state.opt_state),
                 "step": int(state.step),
-                "rng_state": state.rng.get_state()}, tmp)
+                "rng_state": state.rng.get_state(),
+                **({} if epoch is None else {"epoch": int(epoch)})}, tmp)
     os.replace(tmp, path)
     for old in _step_files(directory)[:-keep]:
         os.remove(old)
     return path
 
 
-def restore_train_state(directory: str, state) -> Tuple[object, int]:
+def restore_train_state(directory: str, state, with_epoch: bool = False):
     """Load the newest ``step_*.pt`` of ``directory`` INTO ``state`` (its
     tensors keep their device and are overwritten in place; the tree must
     match). Returns ``(state, step)``, or ``(state, -1)`` unchanged when the
-    directory holds no checkpoint."""
+    directory holds no checkpoint; ``with_epoch``: ``(state, step, epoch)``,
+    ``epoch`` the saved epoch to resume at, ``None`` for a state saved
+    without one (``scripts/orbax_to_torch.py``'s)."""
     from mmtg_tpu_torch.params import tree_map
 
     files = _step_files(directory)
     if not files:
-        return state, -1
+        return (state, -1, None) if with_epoch else (state, -1)
     raw = torch.load(files[-1], map_location="cpu", weights_only=True)
 
     def load_into(dst, src):
@@ -258,7 +263,10 @@ def restore_train_state(directory: str, state) -> Tuple[object, int]:
     tree_map(load_into, state.params, raw["params"])
     tree_map(load_into, state.opt_state, raw["opt_state"])
     state.rng.set_state(raw["rng_state"])
-    return state._replace(step=int(raw["step"])), int(raw["step"])
+    state = state._replace(step=int(raw["step"]))
+    if with_epoch:
+        return state, int(raw["step"]), raw.get("epoch")
+    return state, int(raw["step"])
 
 
 # safetensors: an 8-byte little-endian header length, a JSON header mapping

@@ -47,10 +47,17 @@
 //     accumulation) with the weight tile as the 16-row side (ldmatrix.trans
 //     from its [k][n] rows) and the batch as the 8-wide side: the stage moves
 //     bytes, not operations, below B = 512, so mma.sync is enough and a B of 1
-//     wastes 7/8 of a narrow side rather than 15/16 of a 64-row wgmma. Where a
-//     tile has fewer 16 x 8 output pieces than warps, the warps split its K and
-//     their sums are added in warp order. f32 stays on CUDA-core FMAs (no TF32:
-//     it keeps about three digits), on the same tiles.
+//     wastes 7/8 of a narrow side rather than 15/16 of a 64-row wgmma. f32
+//     stays on CUDA-core FMAs (no TF32: it keeps about three digits), on the
+//     same tiles.
+//   * Batch invariance: no split depends on B. The plan's tile widths and K
+//     ranges are chosen for a full batch group of 64 rows whatever B is, and
+//     a warp (a thread in f32) sums an output piece over its tile's whole K
+//     range in k order; so each output's summation tree is a function of
+//     (K, N, grid), and a row's h has the same bits at any batch size (the
+//     service promises one answer per (request, seed) whatever its window
+//     holds). Below 8 row pieces a tile keeps some warps idle where a K split
+//     across warps would have used them: the small-B price of the promise.
 //   * Attention: the (batch row, head) items are spread over the grid, four at
 //     a time a block (64 threads each, named barriers: eight items in flight an
 //     SM, where an item is a chain of dependent loads). An item runs the stages
@@ -73,7 +80,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatchGroup = 64;  // rows of a product's input staged at a time
 constexpr int kItemThreads = 64;  // threads that attend over one (row, head) item
-constexpr int kRedBytes = 4096;  // the warps' partial sums (8 x 32 x 4 f32)
 constexpr int kBiasBytes = 1024;  // a column tile's bias slice
 
 template <typename T>
@@ -299,32 +305,23 @@ __device__ __forceinline__ void stage_rows(const T* x, size_t ld, int B, int b0,
 }
 
 // The products of one batch group with one tile, calling out(b, n, sum) (b, n
-// local to the group and tile) once for every output. bf16: tensor cores.
+// local to the group and tile) once for every output. bf16: tensor cores, a
+// warp a 16 x 8 output piece over the tile's whole K, in k order: a row's sums
+// are the same whatever the number of rows nb (no K split across warps, which
+// would follow the number of pieces, and so the batch).
 template <typename Out>
 __device__ __forceinline__ void tile_mma(const unsigned char* wt, int nt, int kt,
-                                         const unsigned char* xs, int nb, float* red, Out out) {
+                                         const unsigned char* xs, int nb, Out out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rowb = nt * 2 + 16, xrowb = kt * 2 + 16;
   const int mtiles = nt / 16, nb8 = (nb + 7) / 8, ksteps = kt / 16;
-  const int P = mtiles * nb8;  // 16 x 8 output pieces
-  const int kparts = P >= kWarps ? 1 : kWarps / P;
-  const int units = P >= kWarps ? P : P * kparts;
   const int mat = lane >> 3, r8 = lane & 7;
-  auto emit = [&](int pair, const float (&c)[4]) {
-    const int n = (pair % mtiles) * 16 + (lane >> 2), b = (pair / mtiles) * 8 + 2 * (lane & 3);
-    if (b < nb) out(b, n, c[0]);
-    if (b + 1 < nb) out(b + 1, n, c[1]);
-    if (b < nb) out(b, n + 8, c[2]);
-    if (b + 1 < nb) out(b + 1, n + 8, c[3]);
-  };
-  for (int u = warp; u < units; u += kWarps) {
-    const int pair = u % P, kp = u / P;
-    const int mt = pair % mtiles, bt = pair / mtiles;
-    const int k0 = kp * ksteps / kparts, k1 = (kp + 1) * ksteps / kparts;
+  for (int u = warp; u < mtiles * nb8; u += kWarps) {
+    const int mt = u % mtiles, bt = u / mtiles;
     float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     const unsigned char* arow = wt + (r8 + ((mat >> 1) << 3)) * rowb + (mt * 16 + ((mat & 1) << 3)) * 2;
     const unsigned char* brow = xs + (bt * 8 + r8) * xrowb + ((mat & 1) << 3) * 2;
-    for (int kk = k0; kk < k1; ++kk) {
+    for (int kk = 0; kk < ksteps; ++kk) {
       unsigned a0, a1, a2, a3, b0, b1;
       asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
                    : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
@@ -338,49 +335,33 @@ __device__ __forceinline__ void tile_mma(const unsigned char* wt, int nt, int kt
           : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
           : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
     }
-    if (kparts == 1) {
-      emit(pair, c);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[(u * 32 + lane) * 4 + j] = c[j];
-    }
-  }
-  if (kparts > 1) {
-    __syncthreads();
-    if (warp < P) {  // the K parts of piece `warp`, added in part order
-      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int kp = 0; kp < kparts; ++kp)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[j] += red[((warp + kp * P) * 32 + lane) * 4 + j];
-      emit(warp, c);
-    }
+    const int n = mt * 16 + (lane >> 2), b = bt * 8 + 2 * (lane & 3);
+    if (b < nb) out(b, n, c[0]);
+    if (b + 1 < nb) out(b + 1, n, c[1]);
+    if (b < nb) out(b, n + 8, c[2]);
+    if (b + 1 < nb) out(b + 1, n + 8, c[3]);
   }
 }
 
 // f32: CUDA-core FMAs, a thread a 4 x 4 block of outputs (4 rows, 4 columns:
-// 5 shared loads for 16 FMAs), and a K part where the blocks are fewer than the
-// threads (added in part order; `red` holds kRedBytes / 64 blocks).
+// 5 shared loads for 16 FMAs) over the tile's whole K, in k order (no K split
+// across threads: see tile_mma).
 template <typename Out>
 __device__ __forceinline__ void tile_fma(const unsigned char* wt_, int nt, int kt,
-                                         const unsigned char* xs_, int nb, float* red, Out out) {
+                                         const unsigned char* xs_, int nb, Out out) {
   const float* wt = reinterpret_cast<const float*>(wt_);
   const float* xs = reinterpret_cast<const float*>(xs_);
   const int wrow = nt + 4, xrow = kt + 4;
   const int cg = nt / 4, O = (nb + 3) / 4 * cg;
-  constexpr int kRedBlocks = kRedBytes / 64;
-  const int kparts = O >= kThreads ? 1 : max(1, min(kThreads, kRedBlocks) / O);
-  const int units = O * kparts;
-  for (int u = threadIdx.x; u < units; u += kThreads) {
-    const int o = u % O, kp = u / O;
-    const int c4 = (o % cg) * 4, r4 = (o / cg) * 4;
-    const int k0 = kp * kt / kparts, k1 = (kp + 1) * kt / kparts;
+  for (int u = threadIdx.x; u < O; u += kThreads) {
+    const int c4 = (u % cg) * 4, r4 = (u / cg) * 4;
     const float* xr = xs + r4 * xrow;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k = k0; k < k1; ++k) {
+    for (int k = 0; k < kt; ++k) {
       const float4 w = *reinterpret_cast<const float4*>(wt + k * wrow + c4);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -394,22 +375,8 @@ __device__ __forceinline__ void tile_fma(const unsigned char* wt_, int nt, int k
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (kparts > 1)
-          red[u * 16 + i * 4 + j] = acc[i][j];
-        else if (r4 + i < nb)
-          out(r4 + i, c4 + j, acc[i][j]);
-      }
-  }
-  if (kparts > 1) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < O * 16; e += kThreads) {
-      const int o = e >> 4, i = (e >> 2) & 3, j = e & 3;
-      float acc = 0.0f;
-      for (int kp = 0; kp < kparts; ++kp) acc += red[(o + kp * O) * 16 + (e & 15)];
-      const int r = (o / cg) * 4 + i;
-      if (r < nb) out(r, (o % cg) * 4 + j, acc);
-    }
+      for (int j = 0; j < 4; ++j)
+        if (r4 + i < nb) out(r4 + i, c4 + j, acc[i][j]);
   }
 }
 
@@ -426,9 +393,8 @@ __device__ void product(const Args<T>& a, int q, const T* x, const T* bias,
   const int rowb = pr.nt * static_cast<int>(sizeof(T)) + 16;
   const int items = N / pr.nt * pr.splits;
   const size_t ld = 9 * static_cast<size_t>(a.D);
-  float* red = reinterpret_cast<float*>(work);
-  T* sbias = reinterpret_cast<T*>(work + kRedBytes);
-  unsigned char* xs = work + kRedBytes + kBiasBytes;
+  T* sbias = reinterpret_cast<T*>(work);
+  unsigned char* xs = work + kBiasBytes;
   const int bias_chunks = pr.nt * static_cast<int>(sizeof(T)) / 16;
   unsigned* counters = a.sync + 1;
   int m = 0;
@@ -451,10 +417,10 @@ __device__ void product(const Args<T>& a, int q, const T* x, const T* bias,
           a.partial[(static_cast<size_t>(s) * a.B + bg) * N + ng] = v;
       };
       if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        tile_mma(wt, pr.nt, kt, xs, nb, red, out);
+        tile_mma(wt, pr.nt, kt, xs, nb, out);
       else
-        tile_fma(wt, pr.nt, kt, xs, nb, red, out);
-      __syncthreads();  // xs and red are staged again
+        tile_fma(wt, pr.nt, kt, xs, nb, out);
+      __syncthreads();  // xs is staged again
     }
     if (pr.splits > 1) {
       // The S items of a column tile (on S blocks: the plan gives a split

@@ -151,7 +151,7 @@ def _scheme(gcfg: GenerateConfig):
 
 
 def _prefill(params, table, mcfg, dcfg, gcfg, batch, fused, first_tok,
-             capacity, attn_impl, tp_group=None):
+             capacity, attn_impl, tp_group=None, use_kernels=True):
     """Topic prompt + first target token through the prefill; returns
     (last-position logits, cache, key_mask). ``gcfg.cache_dtype`` is
     resolved. With ``merged_kv`` the int8 cache of the per-layer path is
@@ -161,14 +161,16 @@ def _prefill(params, table, mcfg, dcfg, gcfg, batch, fused, first_tok,
     P = dcfg.topic_prompt_length
     dev = first_tok.device
     embeds = decoder_input_embeds(params, table, dcfg, fused,
-                                  batch["topic_ids"], first_tok[:, None])
+                                  batch["topic_ids"], first_tok[:, None],
+                                  use_kernels=use_kernels)
     type_ids = torch.cat([batch["tpw_type_ids"].to(torch.int64),
                           torch.zeros(B, 1, dtype=torch.int64, device=dev)], 1)
     attn_mask = torch.cat([batch["tpw_attention_mask"].to(torch.int32),
                            torch.ones(B, 1, dtype=torch.int32, device=dev)], 1)
     logits, cache = prefill_cache(
         params["gpt2"], mcfg.gpt2, embeds, torch.arange(P + 1, device=dev),
-        type_ids, attn_mask, capacity, gcfg.cache_dtype, tp_group=tp_group)
+        type_ids, attn_mask, capacity, gcfg.cache_dtype, tp_group=tp_group,
+        use_kernels=use_kernels)
     if (gcfg.merged_kv and gcfg.cache_dtype == "int8" and attn_impl == "kernel"
             and tp_group is None):
         cache = merge_kv(cache)
@@ -177,14 +179,14 @@ def _prefill(params, table, mcfg, dcfg, gcfg, batch, fused, first_tok,
     return logits[:, -1], cache, key_mask
 
 
-def _step_embed(params, table, dcfg, fused, gcfg, tok, j):
+def _step_embed(params, table, dcfg, fused, gcfg, tok, j, use_kernels=True):
     """Embedding and type id of target token ``tok`` at target position
     ``j``: WenLan vector + its fused window (none past the last one)."""
     wl = wenlan_embed(table, tok)
     T_steps = fused.shape[1]
     if j < dcfg.two_sents_length * T_steps:
         wl = wl + fused[:, min(j // dcfg.two_sents_length, T_steps - 1)]
-    x = project_to_gpt2(params, wl)
+    x = project_to_gpt2(params, wl, use_kernels)
     pos = torch.full_like(tok, j)
     return x, _scheme(gcfg)(pos, tok, dcfg).to(torch.int64)
 
@@ -258,7 +260,7 @@ def _decode_setup(params, const, mcfg, dcfg, gcfg, batch, generator, row_seeds,
 
     fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
                                   batch["img_embs"], batch["r_embs"],
-                                  use_fused_gru=True)
+                                  use_kernels=True)
     start = torch.full((B,), SPECIAL.start_id, dtype=torch.int64, device=dev)
     last_logits, cache, key_mask = _prefill(
         params, table, mcfg, dcfg, gcfg, batch, fused, start, capacity,
@@ -408,14 +410,14 @@ def teacher_forced_decode_logits(
     tokens = tokens.to(torch.int64)
     fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
                                   batch["img_embs"], batch["r_embs"],
-                                  use_fused_gru=use_kernels)
+                                  use_kernels=use_kernels)
     logits, cache, key_mask = _prefill(
         params, table, mcfg, dcfg, gcfg, batch, fused, tokens[:, 0], capacity,
-        attn_impl, tp_group)
+        attn_impl, tp_group, use_kernels)
     out = [logits]
     for j in range(1, K):
         tok = tokens[:, j]
-        x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
+        x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j, use_kernels)
         key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
         out.append(gpt2_decode_step(params["gpt2"], mcfg.gpt2, cache, x, P + j,
                                     tt, key_mask, use_kernels=use_kernels,

@@ -139,6 +139,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [p] * 12 + [i] * 6 + [f, f, i, p]
     )
     lib.mmtg_decode_block_fused.restype = i
+    ll = ctypes.c_longlong
+    lib.mmtg_matmul.argtypes = [p] * 4 + [i] * 4 + [ll] * 3 + [i, i, p]
+    lib.mmtg_matmul.restype = i
+    lib.mmtg_row_cumsum.argtypes = [p, p, i, i, i, p]
+    lib.mmtg_row_cumsum.restype = i
+    lib.mmtg_layer_norm.argtypes = [p] * 4 + [i, i, f, i, p]
+    lib.mmtg_layer_norm.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mmtg_fused_gru.restype = i
     lib.mmtg_mha_train_fwd.argtypes = (

@@ -5,7 +5,7 @@ channels, each of its ``ChannelConfig.type``:
 
   * GRU / LSTM / RNN stacks 2048→512 over the 5 experience steps
     (:func:`mmtg_tpu_torch.ops.rnn.rnn_forward`) — for a single-layer GRU
-    with ``use_fused_gru`` the hand-written fused GRU kernel
+    with ``use_kernels`` the hand-written fused GRU kernel
     (:func:`mmtg_tpu_torch.ops.fused_gru.fused_gru`) instead, which has no
     gradient (never in training, as in the JAX package);
   * 'TRM': a small causal pre-LN transformer block over the steps
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from mmtg_tpu_torch.configs import ModelConfig
 from mmtg_tpu_torch.ops.fused_gru import fused_gru
+from mmtg_tpu_torch.ops.matmul import matmul, matmul_plain
 from mmtg_tpu_torch.ops.rnn import rnn_forward
 
 
@@ -66,21 +67,24 @@ def encoder_forward(
     topic: torch.Tensor,
     image: torch.Tensor,
     text: torch.Tensor,
-    use_fused_gru: bool = False,
+    use_kernels: bool = False,
     dropout_gen: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``topic`` ``[B, in]``; ``image`` / ``text`` ``[T, B, in]``.
     Returns (topic ``[1, B, H]``, image ``[T, B, H]``, text ``[T, B, H]``).
     ``dropout_gen`` (train only; it draws the masks' seeds) turns on the
     recurrent stacks' inter-layer dropout at ``cfg.dropout`` (the TRM
-    channel has none, as in the JAX package); ``use_fused_gru`` routes
-    single-layer GRU channels through the fused GRU kernel."""
-    out_topic = (topic @ params["topic_fc"]["w"] + params["topic_fc"]["b"])[None]
+    channel has none, as in the JAX package); ``use_kernels`` routes
+    single-layer GRU channels through the fused GRU kernel and the topic
+    product through the batch-invariant one (the inference path)."""
+    # the inference path's product through the batch-invariant kernel
+    mm = matmul if use_kernels else matmul_plain
+    out_topic = mm(topic, params["topic_fc"]["w"], params["topic_fc"]["b"])[None]
     outs = {}
     for name, x, ch in (("image", image, cfg.image), ("text", text, cfg.text)):
         if ch.type == "TRM":
             outs[name] = _trm_forward(params[name], x)
-        elif use_fused_gru and ch.type == "GRU" and ch.num_layers == 1:
+        elif use_kernels and ch.type == "GRU" and ch.num_layers == 1:
             lp = params[name]["layers"][0]
             outs[name] = fused_gru(x, lp["w_ih"], lp["w_hh"], lp["b_ih"],
                                    lp["b_hh"])

@@ -55,6 +55,9 @@ from mmtg_tpu_torch.ops.decode_megakernel import (
     decode_block_fused,
     decode_block_fused_plain,
 )
+from mmtg_tpu_torch.ops.layer_norm import layer_norm_plain as layer_norm
+from mmtg_tpu_torch.ops.layer_norm import layer_norm_rows
+from mmtg_tpu_torch.ops.matmul import batched_matmul, matmul, matmul_plain
 from mmtg_tpu_torch.parallel.mesh import all_reduce_
 from mmtg_tpu_torch.ops.train_attention import (
     attention_keep,
@@ -138,16 +141,6 @@ def merge_kv(cache: KVCache) -> KVCache:
         raise ValueError("merge_kv: an int8 split cache is needed")
     return KVCache(torch.cat([cache.k, cache.v], dim=-1), None, cache.k_scale,
                    cache.v_scale, merged=True)
-
-
-def layer_norm(x, g, b, eps):
-    """The JAX package's LayerNorm numerics: row statistics accumulate in
-    f32, elementwise math stays in x's dtype."""
-    mean = x.float().mean(dim=-1, keepdim=True)
-    xm = x - mean.to(x.dtype)
-    var = xm.square().float().mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt(var + eps).to(x.dtype)
-    return xm * rstd * g + b
 
 
 def gelu_new(x):
@@ -396,6 +389,7 @@ def gpt2_forward(
     tp_group=None,
     pp: Optional[Tuple] = None,
     remat_policy: str = "full",
+    use_kernels: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward (train / prefill / teacher forcing).
 
@@ -428,6 +422,12 @@ def gpt2_forward(
         applies with ``return_kv``: the prefill keeps each layer's k/v, has
         no dropout, and materializes the ``[B, 1, T, T]`` bias and soft-maxes
         in the activations' dtype, as the JAX package's prefill does.
+      use_kernels: the prefill's (``return_kv``) products (QKV, the
+        attention's two, the projections, the MLP, the LM head) through the
+        batch-invariant product and its LayerNorms through the
+        batch-invariant LayerNorm (:mod:`mmtg_tpu_torch.ops.matmul`,
+        :mod:`mmtg_tpu_torch.ops.layer_norm`; no gradient), else the torch
+        ops. Prefill only: raises without ``return_kv``.
       lm_head: ``False`` returns the final hidden states ``[B, T, D]``
         (for the chunked loss) instead of logits.
       segment_ids: ``[B, T]`` ids of packed rows
@@ -461,6 +461,15 @@ def gpt2_forward(
         raise ValueError(f"remat_policy {remat_policy!r}: one of "
                          f"{sorted(REMAT_POLICIES)}")
     attn_impl = _ATTN_IMPLS[attn_impl]
+    if use_kernels and not return_kv:
+        raise ValueError("gpt2_forward: use_kernels is prefill-only (return_kv); "
+                         "the train path runs the torch ops (autograd)")
+    # the prefill's products and LayerNorms (ops/matmul, ops/layer_norm: a
+    # row's bits do not depend on the batch, where cuBLAS and PyTorch's
+    # reductions lay a row out by the shape)
+    prefill_mm = matmul if use_kernels else matmul_plain
+    prefill_bmm = batched_matmul if use_kernels else torch.matmul
+    ln = layer_norm_rows if use_kernels else layer_norm
     B, T, D = inputs_embeds.shape
     L = cfg.n_layer
     h = inputs_embeds + params["wpe"][position_ids]
@@ -538,20 +547,20 @@ def gpt2_forward(
         ``resid`` its two residual seeds, ``attn_seed`` ``[1]`` int32,
         ``tape`` its named tensors (:class:`_Tape`; train path)."""
         k_resid1, k_resid2 = resid
-        a = layer_norm(h, lp["ln1_g"], lp["ln1_b"], eps)
+        a = ln(h, lp["ln1_g"], lp["ln1_b"], eps)
         k = v = None
         w_proj = lp["attn_proj_w"]
         b = h.shape[0]
         if return_kv:
-            q, k, v = (a @ lp["attn_w"] + lp["attn_b"]).split(D_kv, dim=-1)
+            q, k, v = prefill_mm(a, lp["attn_w"], lp["attn_b"]).split(D_kv, dim=-1)
             qh, kh, vh = (t.view(b, T, n_head, hd).transpose(1, 2)
                           for t in (q, k, v))
             # f32-accumulated score dot, then the model dtype (as the JAX
             # einsum with preferred_element_type=f32)
-            scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+            scores = prefill_bmm(qh.float(), kh.float().transpose(-1, -2))
             probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
-            ctx = torch.matmul(probs, vh).transpose(1, 2).reshape(b, T, D_kv)
-            attn_out = tp_sum(ctx @ w_proj, tp_group)
+            ctx = prefill_bmm(probs, vh).transpose(1, 2).reshape(b, T, D_kv)
+            attn_out = tp_sum(prefill_mm(ctx, w_proj), tp_group)
         else:
             # the projection bias is added inside the attention function
             w_qkv, b_qkv = lp["attn_w"], lp["attn_b"]
@@ -563,11 +572,15 @@ def gpt2_forward(
                                  attn_rate, 1.0 / math.sqrt(hd))
             attn_out = reduce_from_tp(ctx @ w_proj, tp_group)
         h = h + _dropout(attn_out + lp["attn_proj_b"], cfg.resid_pdrop, k_resid1)
-        m = layer_norm(h, lp["ln2_g"], lp["ln2_b"], eps)
+        m = ln(h, lp["ln2_g"], lp["ln2_b"], eps)
         if not return_kv:
             m = copy_to_tp(m, tp_group)
-        m = gelu_new(tape.product("mlp_fc1", m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
-        m = m @ lp["mlp_proj_w"]
+        if return_kv:
+            m = gelu_new(prefill_mm(m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
+            m = prefill_mm(m, lp["mlp_proj_w"])
+        else:
+            m = gelu_new(tape.product("mlp_fc1", m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
+            m = m @ lp["mlp_proj_w"]
         m = tp_sum(m, tp_group) if return_kv else reduce_from_tp(m, tp_group)
         return h + _dropout(m + lp["mlp_proj_b"], cfg.resid_pdrop, k_resid2), k, v
 
@@ -612,11 +625,11 @@ def gpt2_forward(
                 vs.append(v)
     if T != T_real:
         h = h[:, :T_real]
-    h = layer_norm(h, params["lnf_g"], params["lnf_b"], eps)
+    h = ln(h, params["lnf_g"], params["lnf_b"], eps)
     kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
     if not lm_head:
         return h, kv
-    return h @ params["wte"].T, kv
+    return prefill_mm(h, params["wte"].T), kv
 
 
 def _remat_block(layer, names, h, lp, resid, attn_seed, bias):
@@ -641,16 +654,21 @@ def prefill_cache(
     capacity: int,
     cache_dtype: str = "model",
     tp_group=None,
+    use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt once; return its logits and a cache of ``capacity``
     slots holding the prompt's k/v (``cache_dtype`` ``"model"``, ``"int8"``
     or ``"int4"``). Under ``tp_group`` the cache holds this shard's heads
-    (a quantized one scaled over them alone, as in the JAX package)."""
+    (a quantized one scaled over them alone, as in the JAX package).
+    ``use_kernels=False``: the torch ops for the products and LayerNorms
+    that otherwise take the batch-invariant kernels (a reference for the
+    kernel path)."""
     if cache_dtype not in _CACHE_KINDS:
         raise ValueError(f"unknown cache kind {cache_dtype!r}")
     logits, (k, v) = gpt2_forward(params, cfg, inputs_embeds, position_ids,
                                   token_type_ids, attention_mask,
-                                  return_kv=True, tp_group=tp_group)
+                                  return_kv=True, tp_group=tp_group,
+                                  use_kernels=use_kernels)
     L, B, T, D = k.shape
 
     def padded(x):
@@ -667,13 +685,16 @@ def prefill_cache(
     return logits, KVCache(padded(k), padded(v))
 
 
-def _mm(x, p, l, key):
-    """``x @ W`` for layer ``l``; weight-only int8 (``key_q`` / ``key_s``
-    from :func:`quantize_decode_weights`) dequantizes in the matmul's
-    epilogue, in f32, then casts back to x's dtype."""
+def _mm(x, p, l, key, mm=matmul_plain, bias=None):
+    """``mm(x, W) (+ bias)`` for layer ``l`` (``mm``: ``torch.matmul`` or the
+    batch-invariant kernel, which adds the bias in its epilogue with the same
+    two roundings); weight-only int8 (``key_q`` / ``key_s`` from
+    :func:`quantize_decode_weights`) dequantizes in the matmul's epilogue,
+    in f32, then casts back to x's dtype, before the bias."""
     if key + "_q" in p:
-        return ((x @ p[key + "_q"][l].to(x.dtype)) * p[key + "_s"][l]).to(x.dtype)
-    return x @ p[key][l]
+        y = (mm(x, p[key + "_q"][l].to(x.dtype)) * p[key + "_s"][l]).to(x.dtype)
+        return y if bias is None else y + bias
+    return mm(x, p[key][l], bias)
 
 
 def gpt2_decode_step(
@@ -722,15 +743,24 @@ def gpt2_decode_step(
     else:
         h = _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels,
                            kind, n_head, tp_group)
-    h = layer_norm(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+    # the final LayerNorm and the LM head through the batch-invariant kernels
+    # (ops/layer_norm, ops/matmul): PyTorch's reduction and cuBLAS lay a row
+    # out by B
+    ln = layer_norm_rows if use_kernels else layer_norm
+    h = ln(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+    mm = matmul if use_kernels else matmul_plain
     if "wte_q" in params:
-        return ((h @ params["wte_q"].T.to(h.dtype)) * params["wte_s"].T).to(h.dtype)
-    return h @ params["wte"].T
+        return (mm(h, params["wte_q"].to(h.dtype).T) * params["wte_s"].T).to(h.dtype)
+    return mm(h, params["wte"].T)
 
 
 def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
                    n_head, tp_group=None):
-    """The per-layer decode loop: one append + attention call a layer."""
+    """The per-layer decode loop: one append + attention call a layer; with
+    ``use_kernels`` its LayerNorms and products run the batch-invariant
+    kernels."""
+    ln = layer_norm_rows if use_kernels else layer_norm
+    mm = matmul if use_kernels else matmul_plain
     D_kv = p["attn_w"].shape[-1] // 3
     scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
     if not use_kernels:
@@ -748,15 +778,15 @@ def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
             else decode_attention_int8_append,
             k_cache=cache.k, v_cache=cache.v, **scales)
     for l in range(cfg.n_layer):
-        a = layer_norm(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
-        q, k, v = (_mm(a, p, l, "attn_w") + p["attn_b"][l]).split(D_kv, dim=-1)
+        a = ln(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
+        q, k, v = _mm(a, p, l, "attn_w", mm, p["attn_b"][l]).split(D_kv, dim=-1)
         ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
                      key_mask=key_mask, position=position, layer=l,
                      n_head=n_head)
-        h = h + tp_sum(_mm(ctx, p, l, "attn_proj_w"), tp_group) + p["attn_proj_b"][l]
-        m = layer_norm(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
-        m = gelu_new(_mm(m, p, l, "mlp_fc_w") + p["mlp_fc_b"][l])
-        h = h + tp_sum(_mm(m, p, l, "mlp_proj_w"), tp_group) + p["mlp_proj_b"][l]
+        h = h + tp_sum(_mm(ctx, p, l, "attn_proj_w", mm), tp_group) + p["attn_proj_b"][l]
+        m = ln(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
+        m = gelu_new(_mm(m, p, l, "mlp_fc_w", mm, p["mlp_fc_b"][l]))
+        h = h + tp_sum(_mm(m, p, l, "mlp_proj_w", mm), tp_group) + p["mlp_proj_b"][l]
     return h
 
 

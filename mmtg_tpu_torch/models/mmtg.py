@@ -15,6 +15,8 @@ from mmtg_tpu_torch.configs import DataConfig, ModelConfig, SpecialTokens
 from mmtg_tpu_torch.models.attention import alpha_attention, beta_attention
 from mmtg_tpu_torch.models.encoder import encoder_forward
 from mmtg_tpu_torch.models.gpt2 import gpt2_forward, layer_norm
+from mmtg_tpu_torch.ops.layer_norm import layer_norm_rows
+from mmtg_tpu_torch.ops.matmul import matmul, matmul_plain
 
 SPECIAL = SpecialTokens()
 
@@ -32,26 +34,32 @@ def encode_experiences(
     topic_emb: torch.Tensor,
     img_embs: torch.Tensor,
     r_embs: torch.Tensor,
-    use_fused_gru: bool = False,
+    use_kernels: bool = False,
     dropout_gen: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``topic_emb`` ``[B, 2048]``; ``img_embs`` / ``r_embs`` ``[B, T,
-    2048]``. Returns (fused ``[B, T, 2048]``, kl_per_sample ``[B]``)."""
+    2048]``. Returns (fused ``[B, T, 2048]``, kl_per_sample ``[B]``).
+    ``use_kernels``: the inference kernels — the fused GRU for single-layer
+    GRU channels, and the batch-invariant product and LayerNorm
+    (:mod:`mmtg_tpu_torch.ops.matmul`, :mod:`mmtg_tpu_torch.ops.layer_norm`)
+    for the rest; none has a gradient."""
     dtype = params["encoder"]["topic_fc"]["w"].dtype
     topic_o, image_o, text_o = encoder_forward(
         params["encoder"], mcfg, topic_emb.to(dtype),
         img_embs.to(dtype).transpose(0, 1), r_embs.to(dtype).transpose(0, 1),
-        use_fused_gru=use_fused_gru, dropout_gen=dropout_gen,
+        use_kernels=use_kernels, dropout_gen=dropout_gen,
     )
-    ln = lambda x, p: layer_norm(x, p["g"], p["b"], 1e-5)  # noqa: E731
+    norm = layer_norm_rows if use_kernels else layer_norm
+    ln = lambda x, p: norm(x, p["g"], p["b"], 1e-5)  # noqa: E731
     topic_o = ln(topic_o, params["ln_topic"])  # [1, B, H]
     image_o = ln(image_o, params["ln_image"])  # [T, B, H]
     text_o = ln(text_o, params["ln_text"])
     img_ctx, img_kl = alpha_attention(params["alpha_img"], mcfg,
-                                      image_o.transpose(0, 1))
+                                      image_o.transpose(0, 1), use_kernels)
     text_ctx, text_kl = alpha_attention(params["alpha_text"], mcfg,
-                                        text_o.transpose(0, 1))
-    fused = beta_attention(params["beta"], topic_o[0], img_ctx, text_ctx)
+                                        text_o.transpose(0, 1), use_kernels)
+    fused = beta_attention(params["beta"], topic_o[0], img_ctx, text_ctx,
+                           use_kernels)
     return fused, img_kl + text_kl
 
 
@@ -73,23 +81,27 @@ def add_fused_windows(token_wenlan: torch.Tensor, fused: torch.Tensor,
                                       torch.zeros_like(gathered))
 
 
-def project_to_gpt2(params: Dict, wenlan: torch.Tensor) -> torch.Tensor:
-    """2048 → 512 → tanh → 768, in the projector's dtype."""
+def project_to_gpt2(params: Dict, wenlan: torch.Tensor,
+                    use_kernels: bool = False) -> torch.Tensor:
+    """2048 → 512 → tanh → 768, in the projector's dtype. ``use_kernels``: the
+    products through the batch-invariant kernel (no gradient)."""
+    mm = matmul if use_kernels else matmul_plain
     w1 = params["projector1"]
-    h = torch.tanh(wenlan.to(w1["w"].dtype) @ w1["w"] + w1["b"])
-    return h @ params["projector2"]["w"] + params["projector2"]["b"]
+    h = torch.tanh(mm(wenlan.to(w1["w"].dtype), w1["w"], w1["b"]))
+    return mm(h, params["projector2"]["w"], params["projector2"]["b"])
 
 
 def decoder_input_embeds(params: Dict, wenlan_table: torch.Tensor,
                          dcfg: DataConfig, fused: torch.Tensor,
                          topic_ids: torch.Tensor,
-                         target_ids: torch.Tensor) -> torch.Tensor:
+                         target_ids: torch.Tensor,
+                         use_kernels: bool = False) -> torch.Tensor:
     """GPT-2 ``inputs_embeds`` for [topic prompt | targets]."""
     topic_wl = wenlan_embed(wenlan_table, topic_ids)
     tgt_wl = add_fused_windows(wenlan_embed(wenlan_table, target_ids), fused,
                                dcfg)
     return project_to_gpt2(params, torch.cat([topic_wl, tgt_wl.to(topic_wl.dtype)],
-                                             dim=1))
+                                             dim=1), use_kernels)
 
 
 def train_scheme_type_ids(positions: torch.Tensor, tokens: torch.Tensor,

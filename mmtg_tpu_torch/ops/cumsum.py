@@ -1,0 +1,54 @@
+"""Batch-invariant prefix sum along the last axis (the sampler's nucleus
+filter: the cumulative probability of the sorted candidates).
+
+On the card ``torch.cumsum`` lays a row's scan out by the number of rows, so
+one row's sums, and with them where its nucleus ends, changed with the batch
+size. For CUDA tensors :func:`row_cumsum` launches the hand-written kernel
+``csrc/row_cumsum.cu`` (a block a row, summed in an order set by the row's
+length alone; f32 sums rounded once an entry to the input's type), for CPU
+tensors it runs the plain version, :func:`row_cumsum_plain`. The wrapper
+counts its launches in ``row_cumsum.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mmtg_tpu_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def row_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The prefix sums accumulated in f32, each rounded once to x's type
+    (``torch.cumsum`` of a bf16 tensor on the card rounds its partial sums
+    too)."""
+    return torch.cumsum(x, dim=-1, dtype=torch.float32).to(x.dtype)
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of ``x [..., V]`` along its last axis, in x's
+    type."""
+    if x.device.type == "cpu":
+        return row_cumsum_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_cumsum: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"row_cumsum: dtype {x.dtype} not f32/bf16")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    V = x.shape[-1] if x.dim() else 1
+    R = x.numel() // V if V else 0
+    if R == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.mmtg_row_cumsum(x.data_ptr(), out.data_ptr(), R, V,
+                                  _DTYPE_CODE[x.dtype],
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "mmtg_row_cumsum")
+    row_cumsum.launches += 1
+    return out
+
+
+row_cumsum.launches = 0

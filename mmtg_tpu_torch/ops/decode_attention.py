@@ -14,8 +14,9 @@ the append kernels are held against.
 
 For CUDA tensors every wrapper launches the hand-written kernel
 ``csrc/decode_attention.cu`` (one kernel, the same options as build flags;
-a block per (batch row, head) and, where those cannot fill the card, per
-chunk of the slots: :func:`split_slots`);
+a block per (batch row, head) and chunk of the slots, the chunks set by the
+position alone, :func:`split_slots`, so a row's context has the same bits
+whatever the batch size);
 for CPU tensors it runs the plain PyTorch version
 (:func:`decode_attention_append_plain` / :func:`decode_attention_plain`).
 Each wrapper counts its kernel launches in ``.launches``.
@@ -151,9 +152,8 @@ def decode_attention_append_plain(q, k_new, v_new, k_cache, v_cache, key_mask,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KIND_CODE = {"fp": 0, "int8": 1, "int4": 2}
 # csrc/decode_attention.cu: a block owns one (batch row, head) and a chunk of
-# the slots; below _FILL blocks (two a Hopper SM) the slots are split into
-# chunks of at least _MIN_CHUNK
-_FILL, _MIN_CHUNK = 264, 16
+# _CHUNK slots (one chunk up to position 255: the default 220-token call)
+_CHUNK = 256
 _counters = {}  # (device, stream) -> int32 zeros the kernel leaves zero
 
 
@@ -163,14 +163,14 @@ def int4_pairs(n_head: int, head_dim: int) -> bool:
     return n_head % 2 == 0 and head_dim % 16 == 0
 
 
-def split_slots(blocks: int, position: int):
-    """(chunks, slots a chunk) over the live slots ``0..position`` for
-    ``blocks`` (batch row, head) blocks: one chunk where they fill the card,
-    else chunks of at least ``_MIN_CHUNK`` slots until they do."""
+def split_slots(position: int):
+    """(chunks, slots a chunk) over the live slots ``0..position``: chunks of
+    ``_CHUNK`` slots, the last one holding ``position``, a block each. A
+    function of the position alone, never of the batch: the chunks' partial
+    sums merge in chunk order, so the summation tree of a row's context is
+    the same at any batch size."""
     live = position + 1
-    n = 1 if blocks >= _FILL else max(1, min(-(-live // _MIN_CHUNK), -(-_FILL // blocks)))
-    chunk = -(-live // n)
-    return -(-live // chunk), chunk
+    return -(-live // _CHUNK), _CHUNK
 
 
 def _zeroed_counters(device, n: int) -> torch.Tensor:
@@ -250,7 +250,7 @@ def _launch(kind: str, q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
         raise ValueError("decode attention: cache storage must start on a "
                          "16-byte boundary")
     ctx = torch.empty_like(q)
-    n_split, chunk = split_slots(B * n_head // (2 if pair else 1), position)
+    n_split, chunk = split_slots(position)
     scratch = counters = None
     if n_split > 1:
         scratch = torch.empty(B * n_head * n_split * (hd + 2), dtype=torch.float32,

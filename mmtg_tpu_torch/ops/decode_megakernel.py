@@ -50,7 +50,6 @@ SMEM_PER_SM = 233472     # bytes an SM has for its blocks
 SMEM_RESERVED = 1024     # bytes the runtime keeps per block
 SMEM_STATIC = 256        # room for the kernel's static shared memory
 BLOCKS_PER_SM = (2, 1)   # tried in this order: the first whose plan fits
-_RED_BYTES = 4096        # the warps' partial products (8 warps x 32 lanes x 4 f32)
 _BIAS_BYTES = 1024       # a column tile's bias slice
 # a dependent round trip to L2 under load, in bytes a block could stage from L2
 # in that time: what an item's set-up and a split's partial sums cost beside
@@ -135,14 +134,16 @@ def _att_bytes(D: int, T: int, n_head: int, e: int) -> int:
     return THREADS // ITEM_THREADS * (stage + rows + mask + 4 * groups * (2 + hd))
 
 
-def _choose(K: int, N: int, name: str, B: int, grid: int, e: int, x_cap: int,
+def _choose(K: int, N: int, name: str, grid: int, e: int, x_cap: int,
             w_cap: int) -> Product:
-    """The (nt, splits) with the least on a block's critical path, in bytes:
-    the input rows it stages (from L2), a quarter of its weight bytes (their
-    load is issued two stages ahead), a round trip an item and, for a split
-    product, its partial sums written and its share of them summed, and three
-    more round trips (the fence, the count, the sum). A split product has at
-    most one item a block: its blocks wait for each other."""
+    """The (nt, splits) with the least on a block's critical path, in bytes,
+    for a full batch group of ``BATCH_GROUP`` rows: the input rows it stages
+    (from L2), a quarter of its weight bytes (their load is issued two
+    stages ahead), a round trip an item and, for a split product, its
+    partial sums written and its share of them summed, and three more round
+    trips (the fence, the count, the sum). A split product has at most one
+    item a block: its blocks wait for each other."""
+    B = BATCH_GROUP
     best = None
     for nt in range(16, min(N, _BIAS_BYTES // e) + 1, 16):
         if N % nt:
@@ -171,7 +172,15 @@ def plan(B: int, D: int, L: int, T: int, n_head: int, dtype: torch.dtype,
          sm_count: int) -> Plan:
     """The grid and the split of the work over it. Pure Python: what the
     kernel runs is what this returns. Raises ValueError when no grid of one or
-    two blocks an SM fits a block's shared memory."""
+    two blocks an SM fits a block's shared memory.
+
+    The products' split (tile width, K ranges) is chosen for a full batch
+    group of ``BATCH_GROUP`` rows whatever ``B`` is: the staged rows of a
+    product never pass one group, so that split fits every B, and each
+    output's summation tree (its K ranges; within a range one warp sums the
+    whole tile K in order) is then a function of (K, N, grid) and never of
+    B. A row's h has the same bits at every batch size, with no bound on
+    B."""
     e = 2 if dtype == torch.bfloat16 else 4
     shapes = (("qkv", D, 3 * D), ("proj", D, D), ("fc", D, 4 * D), ("mproj", 4 * D, D))
     # the attention's items, or the LayerNorm's gain, bias and row a warp
@@ -182,15 +191,15 @@ def plan(B: int, D: int, L: int, T: int, n_head: int, dtype: torch.dtype,
         # the input rows of one item may take a quarter of the budget, a
         # block's tiles of one product half of what the work area leaves
         x_cap = budget // 4
-        w_cap = (budget - max(other, x_cap + _RED_BYTES + _BIAS_BYTES)) // 2
+        w_cap = (budget - max(other, x_cap + _BIAS_BYTES)) // 2
         try:
-            prods = tuple(_choose(K, N, name, B, grid, e, x_cap, w_cap)
+            prods = tuple(_choose(K, N, name, grid, e, x_cap, w_cap)
                           for name, K, N in shapes)
         except ValueError:
             continue
         wbuf = max(_tile_bytes(p, grid, e) for p in prods)
-        work = max(max(_x_bytes(B, p.kt, e) for p in prods) + _RED_BYTES + _BIAS_BYTES,
-                   other)
+        work = max(max(_x_bytes(BATCH_GROUP, p.kt, e) for p in prods)
+                   + _BIAS_BYTES, other)
         return Plan(grid, bps, 2 * wbuf + work, wbuf, prods, B * n_head)
     raise ValueError(f"decode_block_fused: B={B}, D={D} in {dtype} has no launch "
                      f"plan that fits {SMEM_PER_BLOCK} bytes of shared memory")

@@ -1,8 +1,9 @@
 """Fused single-layer GRU over the 5-step experience sequence.
 
 PyTorch counterpart of :func:`mmtg_tpu.ops.fused_gru.fused_gru`. The input
-projection ``x @ W_ih + b_ih`` (one large matmul) stays ``torch.matmul``, as
-the TPU version left it to XLA; the recurrence ``h @ W_hh + b_hh`` plus the
+projection ``x @ W_ih + b_ih`` (one large matmul, which the TPU version left
+to XLA) runs the batch-invariant product of :mod:`mmtg_tpu_torch.ops.matmul`
+on the card (``torch.matmul`` in the plain version); the recurrence ``h @ W_hh + b_hh`` plus the
 gates, with ``h`` kept on chip across all T steps, is the hand-written
 kernel ``csrc/fused_gru.cu`` for CUDA tensors (one launch: a thread-block
 cluster splits the hidden columns and exchanges ``h`` through distributed
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from mmtg_tpu_torch.kernels import _build
+from mmtg_tpu_torch.ops.matmul import matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/fused_gru.cu: a cluster of H / 32 blocks, one a 32 hidden columns,
@@ -69,7 +71,9 @@ def fused_gru(x, w_ih, w_hh, b_ih, b_hh) -> torch.Tensor:
     for t in (w_ih, w_hh, b_ih, b_hh):
         if t.device != x.device:
             raise ValueError("fused_gru: all tensors must be on one device")
-    xp = _input_projection(x, w_ih, b_ih).contiguous()
+    # the input projection through the batch-invariant product (a row's
+    # bits do not depend on the batch), in x's dtype, then f32
+    xp = matmul(x, w_ih, b_ih).float().contiguous()
     w = w_hh.float().contiguous()
     if w.data_ptr() % 16:  # the kernel reads W_hh 16 bytes a thread
         w = w.clone()

@@ -20,6 +20,7 @@ import torch
 
 from mmtg_tpu_torch.configs import SpecialTokens
 from mmtg_tpu_torch.ops import prng
+from mmtg_tpu_torch.ops.cumsum import row_cumsum
 
 NEG_INF = -1e30
 SPECIAL = SpecialTokens()
@@ -50,12 +51,26 @@ def ban_tokens(logits: torch.Tensor,
 
 def _nucleus_mask_sorted(sorted_logits: torch.Tensor,
                          top_p: float) -> torch.Tensor:
-    """Keep-first nucleus mask over descending-sorted logits."""
-    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    """Keep-first nucleus mask over descending-sorted logits. The cumulative
+    probability goes through :func:`~mmtg_tpu_torch.ops.cumsum.row_cumsum`
+    (a row's sums do not depend on the batch on the card)."""
+    cum = row_cumsum(torch.softmax(sorted_logits, dim=-1))
     remove = cum > top_p
     remove = torch.cat([torch.zeros_like(remove[..., :1]), remove[..., :-1]],
                        dim=-1)
     return sorted_logits.masked_fill(remove, NEG_INF)
+
+
+def top_k_sorted(logits: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row and their indices, largest
+    first and ties in index order (``lax.top_k``'s order): a stable
+    descending sort, whose result is unique. A row's candidates and their
+    order therefore do not depend on the rows beside it; ``torch.topk``'s tie
+    order does on the card (from about 20 rows of the vocabulary it takes
+    another algorithm), and with bf16 logits the top 10 often hold a tie, so
+    a token the Gumbel draw picks by position changed with the batch."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
@@ -109,11 +124,12 @@ def sample_next_token(
     nucleus, draw; a row whose previous token is PAD stays PAD.
     ``generator``: a ``torch.Generator`` / ``None``, or a threefry key
     (``[2]``; with ``per_row_keys`` a batch of keys ``[B, 2]``, each row
-    drawing over its candidates from its own key). ``topk_impl="approx"``
-    (``lax.approx_max_k`` in the JAX package) takes the exact top-k, which
-    is what ``approx_max_k`` computes off the TPU; the TPU's recall-0.99
-    partial reduce has no counterpart on the card. Returns ``[B]`` int32
-    token ids."""
+    drawing over its candidates from its own key). The top-k candidates come
+    from :func:`top_k_sorted` (ties in index order, whatever the batch).
+    ``topk_impl="approx"`` (``lax.approx_max_k`` in the JAX package) takes
+    the exact top-k, which is what ``approx_max_k`` computes off the TPU; the
+    TPU's recall-0.99 partial reduce has no counterpart on the card. Returns
+    ``[B]`` int32 token ids."""
     if topk_impl not in ("exact", "approx"):
         raise ValueError(f"topk_impl={topk_impl!r}: expected 'exact' or 'approx'")
     if repetition_penalty != 1.0:
@@ -121,7 +137,7 @@ def sample_next_token(
                                           repetition_penalty)
     logits = ban_tokens(logits / temperature)
     if top_k > 0:
-        vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
+        vals, idx = top_k_sorted(logits, min(top_k, logits.shape[-1]))
         if top_p > 0.0:
             vals = _nucleus_mask_sorted(vals, top_p)
         j = _draw(vals, generator, per_row_keys)

@@ -16,7 +16,21 @@ fixed sizes and decodes each batch through
   threefry streams of :mod:`mmtg_tpu_torch.ops.prng`): a request's tokens
   depend only on ``(service base seed, request seed)`` — NOT on which other
   requests share its batch — so the batcher groups requests freely, and a
-  client can replay any response.
+  client can replay any response. On the card this holds in bf16 as in f32
+  because no reduction of the decode is laid out by the batch: the
+  decode-attention kernel splits a row's slots by the position alone, the
+  whole-step kernel's split is planned for a full batch group whatever the
+  batch, every product, LayerNorm and prefix sum whose order cuBLAS and
+  PyTorch would set by the batch runs the port's batch-invariant kernels
+  (:mod:`mmtg_tpu_torch.ops.matmul`, :mod:`mmtg_tpu_torch.ops.layer_norm`,
+  :mod:`mmtg_tpu_torch.ops.cumsum`), and the top-k candidates come from a
+  stable sort (ties in index order, where ``torch.topk``'s order changed
+  with the batch). Shown on an H100 (``chip_smoke.py`` phases 23 and 25,
+  ``tests/test_torch_batch_invariance_cuda.py``) for windows of 1 to 64 rows
+  — the default menu — on the per-layer path (int8 and bf16 caches) and the
+  whole-step kernel, with the default GRU experience channels (the LSTM /
+  RNN / TRM recurrences keep torch products); no split depends on the
+  batch, but windows past 64 rows were not decoded.
 * **Streaming rides the window batcher** (``POST /generate_stream`` →
   Server-Sent Events): a streamed request is packed into an ordinary window
   next to one-shot requests. A window that carries a streamer decodes

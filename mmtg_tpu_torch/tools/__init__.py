@@ -14,5 +14,9 @@ The rest: ``trace_train`` / ``trace_decode`` (per-op device time of a train
 step and of a decode call from a ``torch.profiler`` trace; ``run(args,
 mcfg=None, dcfg=None)``), ``bench_pack`` (host framing rate),
 ``multihost_smoke`` (one train step across processes under ``torchrun``),
-``release_check`` (the one-command gate) and ``make_fixtures`` (the demo
-records and WenLan table)."""
+``release_check`` (the one-command gate), ``make_fixtures`` (the demo
+records and WenLan table), ``export_reference_ckpt`` (a train state to the
+reference's ``.pth``), ``parity_check`` (the port's logits on a reference
+``.pth``, on the card against its plain path on the CPU) and
+``batch_invariance`` (a row's tokens at every batch size, and the op probe
+that finds what moves them)."""

@@ -9,12 +9,14 @@ to the service-level number is the transport and encoding cost a deployment
 pays. Every body is encoded before the clock starts.
 
 Per encoding it reports sustained tok/s, requests/s, latency percentiles
-and the request body's size. With one bucket (``--buckets 64``) it then
-holds every response's tokens against ``submit`` of the same sample and
-seed on the same service, and a mismatch exits non-zero. With several the
-check is left out (a ``#`` line says so): in bf16 on the card a response
-depends on the bucket its window was padded to (the products' shapes), and
-which bucket a request's window took depends on the arrivals.
+and the request body's size. It then holds every response's tokens against
+``submit`` of the same sample and seed on the same service, and a mismatch
+exits non-zero. That holds for any bucket menu: a response does not depend
+on the bucket its window was padded to, nor on the rows beside it (the
+service's batch-composition invariance; on the card the decode's products
+and reductions whose order cuBLAS and PyTorch would set by the batch go
+through the port's batch-invariant kernels, ``ops/matmul``, ``ops/cumsum``),
+so which window a request took does not matter.
 
 Prints one JSON line per encoding (the JAX tool's keys) after a ``# service``
 comment line. Runs on the CUDA card; ``--device cpu`` runs on the CPU;
@@ -178,10 +180,6 @@ def run(args, mcfg=None, dcfg=None, observe: Optional[Observe] = None,
                 line, answers[encoding] = run_scenario(
                     port, payloads, encoding, args.clients, gcfg.length, extra)
             out["lines"].append(emit(line))
-        if len(buckets) > 1:
-            print("# tokens not checked: windows of more than one bucket",
-                  flush=True)
-            return out
         # every response against the service's own answer to the same
         # (sample, seed), submitted together
         futs = [svc.submit(p, seed=i) for i, p in enumerate(payloads)]

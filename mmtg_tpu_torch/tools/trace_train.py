@@ -51,13 +51,15 @@ CPU_CATS = ("cpu_op",)
 CATEGORIES = [
     # (label, regex over "name||long_name", lower case) — FIRST match wins,
     # order matters. The JAX tool's labels and order; its Pallas row names
-    # the port's CUDA kernels (mmtg_tpu_torch/csrc/), in three rows.
+    # the port's CUDA kernels (mmtg_tpu_torch/csrc/), in three rows; the
+    # batch-invariant product and prefix sum fall in the rows of the library
+    # calls they replace (dense matmul, reduce).
     ("attn kernel (CUDA mha_* fwd/bwd, decode_attention)",
      r"mha_\w*kernel|decode_attention\w*kernel"),
     ("decode step kernel (CUDA decode_block_fused)", r"decode_block_fused"),
     ("gru kernel (CUDA fused_gru)", r"fused_gru"),
     ("dense matmul (qkv/mlp/proj/lmhead)",
-     r"nvjet|xmma|cutlass|gemm|gemv|cublas|splitkreduce|"
+     r"nvjet|xmma|cutlass|gemm|gemv|cublas|splitkreduce|matmul_(?:bf16|f32)_kernel|"
      r"aten::(?:mm|addmm|bmm|baddbmm|matmul|linear|einsum|dot|mv|addmv)\b"),
     ("rng bits (dropout)",
      r"philox|distribution|curand|dropout|bernoulli|"
@@ -67,7 +69,7 @@ CATEGORIES = [
      r"computegradientfusedparams"),
     ("gather/scatter (embed/wenlan)", r"gather|scatter|index|embedding"),
     ("reduce (grads/loss/stats)",
-     r"reduce|softmax|aten::(?:sum|mean|amax|amin|max|min|norm|var|std|"
+     r"reduce|softmax|row_cumsum|aten::(?:sum|mean|amax|amin|max|min|norm|var|std|"
      r"argmax|topk|sort|cumsum|logsumexp)\b"),
     ("copy/transpose/reshape",
      r"copy|transpose|reshape|permute|concat|catarray|slice|pad|memcpy|memset|"

@@ -937,14 +937,18 @@ def main(argv=None, mcfg: Optional[ModelConfig] = None,
     if args.resume and args.save_path:
         from mmtg_tpu_torch.checkpoint import restore_train_state
 
-        state, last_step = restore_train_state(
-            os.path.join(args.save_path, "train_state"), state)
+        state, last_step, saved_epoch = restore_train_state(
+            os.path.join(args.save_path, "train_state"), state, with_epoch=True)
         if last_step >= 0:
             # resume the epoch loop where the restored step left off —
             # otherwise a stage-3 model would replay curriculum stage 1
-            # against an already-advanced schedule
-            start_epoch = epoch_for_step(last_step, len(train_data),
-                                         tcfg.batch_size, curriculums, tcfg.epochs)
+            # against an already-advanced schedule. The state saves its
+            # epoch (a packed epoch's steps follow its packing, not the
+            # unpacked count epoch_for_step assumes); a state without one
+            # (scripts/orbax_to_torch.py's) is mapped by its step
+            start_epoch = (saved_epoch if saved_epoch is not None else
+                           epoch_for_step(last_step, len(train_data),
+                                          tcfg.batch_size, curriculums, tcfg.epochs))
             logger.info("Resumed from step %d (epoch %d)", last_step, start_epoch)
             if start_epoch >= tcfg.epochs:
                 logger.warning(
@@ -1045,7 +1049,7 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
                     best_val = val_loss
                     if args.save_model and args.save_path:
                         _save(args.save_path, full_state(state), "best_val",
-                              logger, writer)
+                              logger, writer, epoch=epoch)
 
         trace.close()  # an epoch of fewer than 31 steps: trace what ran
         val_loss, _ = evaluate(eval_step, state.params, const, valid_data, vbs,
@@ -1055,24 +1059,26 @@ def _train_loop(state, tx, const, mcfg, dcfg, tcfg, train_data, valid_data,
                     avg_loss / max(seen_steps, 1), format_time(time.time() - t1))
         if args.save_model and args.save_path:
             _save(args.save_path, full_state(state), f"epoch_{epoch + 1}",
-                  logger, writer)
+                  logger, writer, epoch=epoch + 1)
 
     logger.info("Training finished.")
     return val_loss
 
 
 def _save(save_path: str, state: TrainState, tag: str, logger,
-          writer: bool = True) -> None:
+          writer: bool = True, epoch: Optional[int] = None) -> None:
     """Two artifact streams like the reference's best_val_model.pth /
     epoch_{N}.pth: best-val checkpoints under train_state_best/, epoch
     checkpoints under train_state/ (which --resume reads). ``state`` is the
-    full one; on a mesh only rank 0 (``writer``) writes it."""
+    full one; on a mesh only rank 0 (``writer``) writes it. ``epoch``: the
+    epoch a run resumed from this state starts at (the next one after an
+    epoch's end, the running one mid-epoch), saved beside it."""
     from mmtg_tpu_torch.checkpoint import save_train_state
 
     if not writer:
         return
     sub = "train_state_best" if tag == "best_val" else "train_state"
-    save_train_state(os.path.join(save_path, sub), state.step, state)
+    save_train_state(os.path.join(save_path, sub), state.step, state, epoch=epoch)
     logger.info("Saved %s checkpoint at step %d to %s/%s", tag, state.step,
                 save_path, sub)
 

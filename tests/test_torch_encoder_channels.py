@@ -92,7 +92,7 @@ def test_encoder_forward_matches_jax(tiny_model_cfg, image, text, text_layers):
     fused_gru.fused_gru.launches = 0
     got = encoder.encoder_forward(tparams.from_jax_numpy(tree), mcfg,
                                   torch.from_numpy(topic), torch.from_numpy(img),
-                                  torch.from_numpy(txt), use_fused_gru=True)
+                                  torch.from_numpy(txt), use_kernels=True)
     assert fused_gru.fused_gru.launches == 0  # the GRU kernel is for GRUs only
     for g, r in zip(got, ref):
         assert g.shape[-1] == H

@@ -536,7 +536,9 @@ def test_new_decode_wrappers_reject_bad_input(cuda):
 
 # ---- the regimes of the redesigned kernels ------------------------------------
 
-SWEEP_POSITIONS = [0, 15, 16, 127, 128, 235, 255]  # 255 = T - 1
+# one chunk of slots up to 255, two from 256 (ops/decode_attention.split_slots)
+SWEEP_T = 512
+SWEEP_POSITIONS = [0, 15, 16, 127, 128, 235, 255, 256, 511]  # 511 = T - 1
 SWEEP_WRAPPERS = [("decode_attention_fp_append", "fp", True),
                   ("decode_attention_int8_append", "int8", True),
                   ("decode_attention_int4_append", "int4", True),
@@ -552,17 +554,19 @@ SWEEP_WRAPPERS = [("decode_attention_fp_append", "fp", True),
 @pytest.mark.parametrize("B,H,hd", [(1, 12, 64), (3, 3, 32), (3, 2, 64), (64, 12, 64),
                                     (512, 12, 64)])
 def test_decode_attention_sweep(cuda, dtype, name, kind, append, B, H, hd):
-    """Every wrapper at B = 1 (the slots split into chunks), 3, 64 and 512 (one
-    chunk), H = 2, 3 (int4: D/2 inside a head), 12: ctx within tolerance of the
-    plain version, the appended bytes and scales bit for bit, nothing else
-    written, and after an append the read-only kernel gives the same ctx."""
+    """Every wrapper at B = 1, 3, 64 and 512 at positions of one chunk and of
+    two (a cache of 512 slots), H = 2, 3 (int4: D/2 inside a head), 12: ctx
+    within tolerance of the plain version, the appended bytes and scales bit
+    for bit, nothing else written, and after an append the read-only kernel
+    gives the same ctx."""
     kernel = getattr(da, name)
-    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd, L=2)
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd, L=2,
+                                                         T=SWEEP_T)
     base = caches + scales
     n = len(caches)
     pair = kind == "int4" and da.int4_pairs(H, hd)
-    splits = {da.split_slots(B * H // (2 if pair else 1), p)[0] for p in SWEEP_POSITIONS}
-    assert (max(splits) > 1) == (B * H < 264)  # both regimes are reached
+    splits = {da.split_slots(p)[0] for p in SWEEP_POSITIONS}
+    assert min(splits) == 1 and max(splits) > 1  # both regimes are reached
     for position in SWEEP_POSITIONS:
         kc = [c.clone() for c in base]
         pc = [c.clone() for c in base]
@@ -600,8 +604,10 @@ def test_decode_attention_sweep(cuda, dtype, name, kind, append, B, H, hd):
 def test_decode_attention_split_is_reproducible(cuda):
     """The chunks of a split call merge in chunk order, whichever finishes
     last: two calls give the same bits, and the counts they leave are zero."""
-    q, _, _, mask, caches, scales = _decode_case(cuda, "int8", torch.bfloat16, 1, 12, 64)
-    outs = [da.decode_attention_int8(q, *caches, *scales, mask, 235, 1, n_head=12)
+    q, _, _, mask, caches, scales = _decode_case(cuda, "int8", torch.bfloat16, 1, 12, 64,
+                                                 T=SWEEP_T)
+    assert da.split_slots(400) == (2, 256)
+    outs = [da.decode_attention_int8(q, *caches, *scales, mask, 400, 1, n_head=12)
             for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])

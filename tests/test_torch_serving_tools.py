@@ -313,8 +313,8 @@ def test_run_on_the_cpu_prints_the_jax_keys(case, cfgs, weights, capsys):
             assert row["memory_floor_ms"] is None and row["x_of_floor"] is None
         assert [(r["batch"], r["cache_dtype"]) for r in d["rows"]] == [
             (1, "model"), (1, "model"), (2, "int8"), (2, "int8")]
-    if name == "bench_serve_http":  # each response against submit()'s
-        assert out["tokens_checked"] == (case == "bench_serve_http")
+    if name == "bench_serve_http":  # each response against submit()'s, any menu
+        assert out["tokens_checked"] is True
     if name == "bench_stream" and "concurrent" not in argv:
         assert printed[0]["detail"]["tokens_identical_to_batched"] is True
 

@@ -35,10 +35,10 @@ def test_encode_experiences_matches_jax(setup):
     ref_fused, ref_kl = jmmtg.encode_experiences(
         setup["jparams"], setup["mcfg"], jb["topic_emb"], jb["img_embs"],
         jb["r_embs"])
-    for use_fused_gru in (False, True):
+    for use_kernels in (False, True):
         fused, kl = mmtg.encode_experiences(
             setup["tparams"], setup["mcfg"], tb["topic_emb"], tb["img_embs"],
-            tb["r_embs"], use_fused_gru=use_fused_gru)
+            tb["r_embs"], use_kernels=use_kernels)
         np.testing.assert_allclose(fused.numpy(), np.asarray(ref_fused), atol=1e-5)
         np.testing.assert_allclose(kl.numpy(), np.asarray(ref_kl), atol=1e-5)
 
