@@ -32,11 +32,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      kernel's ptxas line and launch plan beside its times; then the
      batch-invariant kernels (no TPU counterpart): the product
      (ops/matmul) on each of the main path's shapes (a decode step's four
-     products a layer and its LM head, the prefill's per-head
-     probabilities @ values, the beta attention's K = 3 mix), the LayerNorm
-     (ops/layer_norm) and the prefix sum (ops/cumsum) on the nucleus's, at
-     M = 8, 64, 512 rows in bf16 (the product in f32 too, at M = 64 on both
-     weight layouts), each against its plain version, a row alone holding
+     products a layer and its LM head, the projector's two, the prefill's
+     per-head probabilities @ values, the beta attention's K = 3 mix), the
+     LayerNorm (ops/layer_norm) and the prefix sum (ops/cumsum) on the
+     nucleus's, at M = 8, 64, 512 rows in bf16 (the product in f32 too, at
+     M = 64 on both weight layouts; qkv and mlp_proj also at the B = 512
+     prefill's 8192 rows), each against its plain version, a row alone holding
      the same bits, and timed beside the library call it replaces and its
      bound;
   3. the generation path, decoding.generate, at the full model width
@@ -269,6 +270,9 @@ LONG_ROWS, LONG_T = 16, 1024  # packed rows of n_positions: the same tokens a st
 # whole vocabulary) at the decode's row counts; M = 64 is the kernels line's
 # shape
 INVARIANT_ROWS = (8, 64, 512)
+# the prefill's rows at B = 512 (16 positions a row) on qkv and mlp_proj: the
+# launch's one-block form with 128-row tiles and many K ranges
+PREFILL_ROWS, PREFILL_CASES = 16 * 512, ("qkv", "mlp_proj")
 # the product against cuBLAS's, relative to the largest output: bf16 two
 # roundings of the output (2^-7; summation order moves the f32 sum by far
 # less), f32 the summation order; the prefix sum max-abs on values up to 1
@@ -914,9 +918,10 @@ def _gru_vs_plain(results, fg, dtype, B, gen):
 # the batch-invariant product's shapes on the main path at M rows (x [M, K]
 # @ w [K, N], or batched over Z): name -> (Z, M, K, N, bias, w read
 # transposed). A decode step's four products a layer (48 of its 51) and
-# its LM head (the tied wte.T: the [N, K] layout); the prefill's
-# probabilities @ values (per head, bf16; P + 1 = 16 positions) and the beta
-# attention's 3-way mix (K = 3, zero-padded to 8) from the batched form
+# its LM head (the tied wte.T: the [N, K] layout); the step embedding's two
+# projector products (2048 -> 512 -> 768, the other 2 of a step's 51, and the
+# prefill's); the prefill's probabilities @ values (per head, bf16; P + 1 = 16
+# positions) and the beta attention's 3-way mix (K = 3) from the batched form
 def _matmul_cases(M):
     P1, heads, hd, steps, enc_h = 16, 12, D // 12, 5, 512
     return {
@@ -925,9 +930,24 @@ def _matmul_cases(M):
         "mlp_fc": (None, M, D, 4 * D, True, False),
         "mlp_proj": (None, M, 4 * D, D, False, False),
         "lm_head": (None, M, D, 13317, False, True),
+        "proj_in": (None, M, 2048, 512, True, False),
+        "proj_out": (None, M, 512, D, True, False),
         "prefill_pv": (M * heads, P1, P1, hd, False, False),
         "beta_mix": (M * steps, 1, 3, enc_h, False, False),
     }
+
+
+def _matmul_plan(mm, K, N, dtype):
+    """The plan ops/matmul runs for the shape, as text ("" where the tree's
+    ops/matmul has none: a parent's, timed with this script)."""
+    import torch
+
+    if not hasattr(mm, "plan"):
+        return ""
+    pl = mm.plan(K, N, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    if pl.path == "small":
+        return " plan small"
+    return f" plan {pl.bn}x{len(pl.ranges)} ranges of {pl.spr} stages, {pl.slots} in flight"
 
 
 def _matmul_vs_plain(results, dtype, M, gen, case):
@@ -985,9 +1005,9 @@ def _matmul_vs_plain(results, dtype, M, gen, case):
         **bound((x.numel() + w.numel() + y.numel() + (N if has_bias else 0))
                 * x.element_size(), 2.0 * z * rows * K * N, dname))
     shape = f"{'' if Z is None else f'{Z}x'}[{rows},{K}]@[{K},{N}]{'+b' if has_bias else ''}"
-    return (f"matmul[{case} {dname} M={M} {shape}] err {e:.3g} (largest {scale:.3g}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
-            f"bound {results[key]['bound_ms']:.4f} ms")
+    return (f"matmul[{case} {dname} M={M} {shape}{_matmul_plan(mm, K, N, dtype)}] err "
+            f"{e:.3g} (largest {scale:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library {library_ms:.4f} ms bound {results[key]['bound_ms']:.4f} ms")
 
 
 def _cumsum_vs_plain(results, dtype, R, V, gen):
@@ -1104,6 +1124,8 @@ def phase_kernels(out):
             inv.append(_matmul_vs_plain(results, torch.bfloat16, M, gen_inv, case))
         inv.append(_cumsum_vs_plain(results, torch.bfloat16, M, 10, gen_inv))
         inv.append(_layer_norm_vs_plain(results, torch.bfloat16, M, gen_inv))
+    for case in PREFILL_CASES:
+        inv.append(_matmul_vs_plain(results, torch.bfloat16, PREFILL_ROWS, gen_inv, case))
     for case in ("mlp_fc", "lm_head"):  # f32 on CUDA cores, both weight layouts
         inv.append(_matmul_vs_plain(results, torch.float32, 64, gen_inv, case))
     inv.append(_cumsum_vs_plain(results, torch.float32, 64, 10, gen_inv))
@@ -3555,8 +3577,8 @@ TRACE_KERNELS = {"decode_attention": r"decode_attention\w*kernel",
                  "mha_fwd_tc_kernel": r"mha_fwd_tc_kernel",
                  "mha_bwd_dq_tc_kernel": r"mha_bwd_dq_tc_kernel",
                  "mha_bwd_dkdv_tc_kernel": r"mha_bwd_dkdv_tc_kernel",
-                 "matmul": r"matmul_(?:bf16|f32)_kernel",
-                 "row_cumsum": r"row_cumsum_kernel",
+                 "matmul": r"matmul_(?:bf16|f32|small)_kernel",
+                 "row_cumsum": r"row_cumsum_(?:short|long)_kernel",
                  "layer_norm": r"layer_norm_kernel"}
 # the category row each family's events must fall in (else the family's name)
 TRACE_ROW = {"row_cumsum": "reduce", "layer_norm": "layernorm"}

@@ -59,7 +59,7 @@ CATEGORIES = [
     ("decode step kernel (CUDA decode_block_fused)", r"decode_block_fused"),
     ("gru kernel (CUDA fused_gru)", r"fused_gru"),
     ("dense matmul (qkv/mlp/proj/lmhead)",
-     r"nvjet|xmma|cutlass|gemm|gemv|cublas|splitkreduce|matmul_(?:bf16|f32)_kernel|"
+     r"nvjet|xmma|cutlass|gemm|gemv|cublas|splitkreduce|matmul_(?:bf16|f32|small)_kernel|"
      r"aten::(?:mm|addmm|bmm|baddbmm|matmul|linear|einsum|dot|mv|addmv)\b"),
     ("rng bits (dropout)",
      r"philox|distribution|curand|dropout|bernoulli|"

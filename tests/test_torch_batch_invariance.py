@@ -6,6 +6,9 @@ bucket of a (1, 2, 4) menu, and the probe tool runs end to end. The card-side
 checks are ``tests/test_torch_batch_invariance_cuda.py`` and ``chip_smoke.py``
 phase 25."""
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +18,10 @@ import torch
 from mmtg_tpu.ops import sampling as jsampling
 from mmtg_tpu_torch.configs import (ChannelConfig, DataConfig, GenerateConfig,
                                     GPT2Config, ModelConfig)
+from mmtg_tpu_torch.ops import cumsum as cs
 from mmtg_tpu_torch.ops import decode_attention as da
 from mmtg_tpu_torch.ops import decode_megakernel as mk
+from mmtg_tpu_torch.ops import matmul as mm
 from mmtg_tpu_torch.ops import sampling
 from mmtg_tpu_torch.ops.cumsum import row_cumsum, row_cumsum_plain
 from mmtg_tpu_torch.ops.layer_norm import layer_norm_plain, layer_norm_rows
@@ -53,11 +58,83 @@ def test_plan_is_the_same_at_every_batch(dtype, D, n_head):
         assert pl.att_items == B * n_head
 
 
+# the full-width model's products (K, N): a decode step's four a layer, the
+# LM head and the step embedding's two projector products
+_FULL_WIDTH = {"qkv": (768, 2304), "attn_proj": (768, 768), "mlp_fc": (768, 3072),
+               "mlp_proj": (3072, 768), "lm_head": (768, 13317),
+               "proj_in": (2048, 512), "proj_out": (512, 768)}
+
+
+def test_matmul_plan_takes_no_row_count():
+    """``plan`` has no argument for the rows M (or the batch Z)."""
+    mm.plan(768, 768, torch.bfloat16, 132)
+    with pytest.raises(TypeError):
+        mm.plan(8, 768, 768, torch.bfloat16, 132)
+    with pytest.raises(TypeError):
+        mm.plan(768, 768, torch.bfloat16, 132, M=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", list(_FULL_WIDTH.values()) + [
+    (520, 768), (3000, 768), (100, 48), (33, 200), (32, 64), (3, 512), (16, 64)])
+def test_matmul_plan_ranges_partition_k_in_whole_stages(dtype, K, N):
+    """The K ranges cover 0..K in order, each but the last a whole number of
+    the same stages; at most 16 of them; the small path for K <= 32."""
+    pl = mm.plan(K, N, dtype, 132)
+    assert pl.path == ("small" if K <= mm.SMALL_K else "tiled")
+    starts = [k0 for k0, _ in pl.ranges]
+    ends = [k1 for _, k1 in pl.ranges]
+    assert starts[0] == 0 and ends[-1] == K and starts[1:] == ends[:-1]
+    assert 1 <= len(pl.ranges) <= mm.MAX_RANGES and 1 <= pl.slots <= mm.MAX_SLOTS
+    if pl.path == "tiled":
+        assert all((k1 - k0) == pl.spr * pl.bk for k0, k1 in pl.ranges[:-1])
+        assert 0 < ends[-1] - starts[-1] <= pl.spr * pl.bk
+        assert len(pl.ranges) == -(-(-(-K // pl.bk)) // pl.spr)
+    if dtype == torch.float32:
+        assert len(pl.ranges) == 1  # the parity path keeps one range
+
+
+@pytest.mark.parametrize("name", sorted(_FULL_WIDTH))
+def test_matmul_plan_fills_the_card(name):
+    """Column tiles x K ranges reach the 132 SMs for every step and projector
+    product at full width, in bf16, at any M."""
+    K, N = _FULL_WIDTH[name]
+    pl = mm.plan(K, N, torch.bfloat16, 132)
+    assert -(-N // pl.bn) * len(pl.ranges) >= 132
+
+
+@pytest.mark.parametrize("K,N", [(768, 768), (3072, 768), (16, 64), (3, 512)])
+def test_matmul_plan_is_the_same_object_for_any_rows(K, N):
+    """The wrapper's plan for x of 1 to 512 rows (and a batch of any size)
+    is one object: it is read from the weight's shape and the type alone."""
+    w = torch.zeros(K, N, dtype=torch.bfloat16)
+    plans = {mm.plan_of(torch.zeros(M, K, dtype=torch.bfloat16), w, 132)
+             for M in (1, 7, 8, 64, 65, 512)}
+    wz = torch.zeros(3, K, N, dtype=torch.bfloat16)
+    plans |= {mm.plan_of(torch.zeros(3, M, K, dtype=torch.bfloat16), wz, 132) for M in (1, 16)}
+    assert len({id(p) for p in plans}) == 1
+
+
+def test_row_cumsum_path_depends_on_the_row_length_alone():
+    """A thread a row up to V = 32, a block a row past it; no argument names
+    the number of rows."""
+    assert [cs.path(V) for V in (1, 10, 31, 32, 33, 13317)] == [
+        "short", "short", "short", "short", "long", "long"]
+    with pytest.raises(TypeError):
+        cs.path(64, 10)  # (rows, V)
+    # the launch applies the same rule: V <= kShortV, the kernel's own constant
+    src = open(os.path.join(os.path.dirname(cs.__file__), os.pardir, "csrc",
+                            "row_cumsum.cu"), encoding="utf-8").read()
+    assert re.search(r"constexpr int kShortV = (\d+);", src).group(1) == str(cs.SHORT_V)
+    assert "if (V <= kShortV)" in src
+
+
 _SHAPES = [  # (lead shape of x, K, N, weight stored as [N, K], bias)
     ((1,), 48, 144, False, True),     # the decode step's QKV, one row
     ((5,), 48, 48, False, False),     # attn_proj
     ((3, 16), 192, 48, False, False),  # the prefill's mlp_proj rows
     ((4,), 48, 200, True, False),     # the LM head: x @ wte.T
+    ((6,), 256, 64, False, True),     # the projector's 2048 -> 512 (+ b), narrowed
 ]
 
 

@@ -10,8 +10,10 @@ shared conftest imports jax, which such a machine need not have).
 import pytest
 import torch
 
+from mmtg_tpu_torch.ops import cumsum as cs
 from mmtg_tpu_torch.ops import decode_attention as da
 from mmtg_tpu_torch.ops import fused_gru as fg
+from mmtg_tpu_torch.ops import matmul as mm
 from mmtg_tpu_torch.ops import train_attention as ta
 
 pytestmark = pytest.mark.cuda
@@ -892,3 +894,89 @@ def test_mha_train_packed_seg_at_a_data_ranks_rows(cuda, dtype, tols, rate):
     seg = _segment_ids(cuda, B, T, "packer")
     _compare_relative_dqb(ta.mha_train_packed_seg, ta.mha_train_packed_seg_plain,
                           (qkv, qb, seg, seed, H, rate, hd ** -0.5), co, tols)
+
+
+# the batch-invariant product at ragged row counts: a narrow step product
+# ([768, 768]: 12 K ranges), the LM head's N = 13317 (the [N, K] layout, one
+# range), K = 3000 (ranges of 4 stages: not a multiple of a range, nor of a
+# stage) and the small path (K = 16 on the batch axis); against the plain
+# version within 2^-7 (bf16) / 1e-5 (f32) of the largest output
+_MATMUL_CARD = {"attn_proj": (768, 768, False, False), "lm_head": (768, 13317, True, False),
+                "ragged_k": (3000, 768, False, True), "small_k": (16, 64, False, False)}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", sorted(_MATMUL_CARD))
+@pytest.mark.parametrize("M", [1, 7, 9, 63, 65, 511])
+def test_matmul_rows_alone_equal_rows_among_m(cuda, dtype, tol, case, M):
+    """Every row computed alone (the first, the middle, the last) has the
+    bits of the same row among M, two runs give the same bits, and the
+    product is within the tolerance of the plain version."""
+    K, N, trans, has_bias = _MATMUL_CARD[case]
+    batched = case == "small_k"
+    lead = (M,) if batched else ()
+    rows = 16 if batched else M
+    x = torch.randn(*lead, rows, K, generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn(*lead, *((N, K) if trans else (K, N)), generator=cuda, device="cuda")
+         * 0.02).to(dtype)
+    w = w.transpose(-1, -2) if trans else w
+    b = (torch.randn(N, generator=cuda, device="cuda") * 0.1).to(dtype) if has_bias else None
+    run = mm.batched_matmul if batched else (lambda a, ww: mm.matmul(a, ww, b))
+    y, again = run(x, w), run(x, w)
+    ref = mm.matmul_plain(x, w, b)
+    assert torch.equal(y, again)
+    scale = ref.float().abs().max().item()
+    assert (y.float() - ref.float()).abs().max().item() <= tol * scale
+    for r in sorted({0, M // 2, M - 1}):
+        alone = run(x[r:r + 1], w[r:r + 1] if batched else w)[0]
+        assert torch.equal(alone, y[r]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("V", [1, 10, 31, 32, 33, 13317])
+@pytest.mark.parametrize("R", [1, 7, 130])
+def test_row_cumsum_lengths(cuda, dtype, V, R):
+    """Short rows (V <= 32, a thread a row) give a sequential f32 sum's bits;
+    long rows are within 2^-7 (bf16) / 1e-5 (f32) of an f64 sum; a row alone
+    has the bits of the same row among R, and two runs agree."""
+    x = torch.softmax(torch.randn(R, V, generator=cuda, device="cuda"), -1)
+    x = x.sort(dim=-1, descending=True).values.to(dtype)
+    y, again = cs.row_cumsum(x), cs.row_cumsum(x)
+    assert torch.equal(y, again)
+    if cs.path(V) == "short":
+        s = torch.zeros(R, dtype=torch.float32, device="cuda")
+        seq = torch.empty(R, V, dtype=torch.float32, device="cuda")
+        for j in range(V):
+            s = s + x[:, j].float()
+            seq[:, j] = s
+        assert torch.equal(y, seq.to(dtype))
+    else:
+        ref = torch.cumsum(x.double(), dim=-1)
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        assert (y.double() - ref).abs().max().item() <= tol
+    for r in sorted({0, R // 2, R - 1}):
+        assert torch.equal(cs.row_cumsum(x[r:r + 1])[0], y[r]), r
+
+
+# (K, N, M): the decode's row counts on the step, projector and ragged-K
+# shapes, and the prefill's 16 x 512 rows on qkv and mlp_proj, where the
+# launch picks the one-block form with 128-row tiles
+_SPLIT_FORMS = [(K, N, M) for K, N in [(768, 768), (3072, 768), (768, 2304), (2048, 512),
+                                       (520, 768)] for M in (1, 64, 200)] + [
+    (3072, 768, 8192), (768, 2304, 8192)]
+
+
+@pytest.mark.parametrize("K,N,M", _SPLIT_FORMS)
+def test_matmul_split_forms_give_the_same_bits(cuda, K, N, M):
+    """The K split's forms (the ranges on the blocks of a cluster, or walked
+    in order by one block of 64 or of 128 rows) add the same partial sums in
+    the same order: the same bits, whichever the launch picks."""
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=cuda, device="cuda") * 0.02).to(torch.bfloat16)
+    b = (torch.randn(N, generator=cuda, device="cuda") * 0.1).to(torch.bfloat16)
+    pl = mm.plan(K, N, torch.bfloat16, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert len(pl.ranges) > 1
+    forms = (0, 1, 2) + ((3,) if pl.bn == 64 else ())
+    auto, *others = (mm._launch(x, w, b, pl, form) for form in forms)
+    for form, y in zip(forms[1:], others):
+        assert torch.equal(y, auto), form

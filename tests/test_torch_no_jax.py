@@ -163,7 +163,7 @@ def test_the_port_tools_do_not_reach_the_repo_tools():
     """mmtg_tpu_torch/tools/ imports its helpers from the port's package,
     never the repo's tools/ (by name or through sys.path)."""
     files = glob.glob(os.path.join(REPO, "mmtg_tpu_torch", "tools", "*.py"))
-    assert len(files) == 17
+    assert len(files) == 18
     for path in files:
         with open(path, encoding="utf-8") as f:
             found = _TOOLS_IMPORT.findall(f.read())
