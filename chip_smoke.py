@@ -34,7 +34,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      (ops/matmul) on each of the main path's shapes (a decode step's four
      products a layer and its LM head, the projector's two, the prefill's
      per-head probabilities @ values, the beta attention's K = 3 mix), the
-     LayerNorm (ops/layer_norm) and the prefix sum (ops/cumsum) on the
+     LayerNorm (ops/layer_norm) in both its forms (alone, and with the
+     decode step's residual h + y + bias in the same launch: h_new bit-equal
+     to the eager adds) and the prefix sum (ops/cumsum) on the
      nucleus's, at M = 8, 64, 512 rows in bf16 (the product in f32 too, at
      M = 64 on both weight layouts; qkv and mlp_proj also at the B = 512
      prefill's 8192 rows), each against its plain version, a row alone holding
@@ -285,6 +287,9 @@ CUMSUM_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # to the next bf16 value: two steps of the output), f32 the summation order
 # and rsqrtf's last bit
 LN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# the encoder's LayerNorms (models/mmtg.encode_experiences): width and rows
+ENCODER_LN_WIDTH = GRU_SHAPE["H"]
+ENCODER_LN_ROWS = (GRU_SHAPE["B"], GRU_SHAPE["T"] * GRU_SHAPE["B"])
 # phase 25: the batches one (request, seed) is decoded at, and the parity
 # check's f32 bound (the JAX tool's)
 INVARIANCE_BATCHES = (1, 8, 16, 32, 64)
@@ -751,10 +756,14 @@ def phase_block_fused(results, gen, B=B_ATT):
         plain_ms = device_ms(lambda: mk.decode_block_fused_plain(
             *args, n_head=H, eps=cfg.layer_norm_epsilon), reps=11, warmup=2)
         # no one PyTorch call computes a decode step; the yardstick is the
-        # port's own per-layer step: cuBLAS products, eager elementwise ops
-        # and the per-layer decode-attention kernel, 12 layers
-        per_layer_ms = device_ms(lambda: gpt2._decode_layers(
-            p, cfg, cache, h, TIMED_POSITION, mask, True, "int8", H), reps=11, warmup=2)
+        # port's own per-layer step, 12 layers and the last MLP residual it
+        # leaves pending (the fused kernel adds it too)
+        def per_layer_step():
+            hh, (y, bias) = gpt2._decode_layers(
+                p, cfg, cache, h, TIMED_POSITION, mask, True, "int8", H)
+            return hh + y + bias
+
+        per_layer_ms = device_ms(per_layer_step, reps=11, warmup=2)
         n_live = int((mask[:, :TIMED_POSITION + 1] != 0).sum())
         w_bytes, macs = _fused_weight_bytes_and_ops(p)
         e = h.element_size()
@@ -774,8 +783,8 @@ def phase_block_fused(results, gen, B=B_ATT):
             **bound(nbytes, ops, dname))
         lines.append(
             f"decode_block_fused[{dname} B={B}] {summary}; kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms per-layer step (the port's own: cuBLAS "
-            f"+ eager ops + attention kernel) {per_layer_ms:.4f} ms bound "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms per-layer step (the port's own: 12 layers "
+            f"and the last residual add) {per_layer_ms:.4f} ms bound "
             f"{results[key]['bound_ms']:.4f} ms; grid {grid}")
         del p, state, cache, base, base_c, base_s
         torch.cuda.empty_cache()
@@ -1047,44 +1056,98 @@ def _cumsum_vs_plain(results, dtype, R, V, gen):
             f"{results[key]['bound_ms']:.4f} ms")
 
 
-def _layer_norm_vs_plain(results, dtype, M, gen):
+def _layer_norm_vs_plain(results, dtype, M, gen, width=D):
     """The batch-invariant LayerNorm (ops/layer_norm, the kernel) over ``M``
-    rows of the model's width vs its plain version (the eager torch ops)
-    within LN_TOL of the largest output; a row alone gives the same bits;
-    device times of the kernel, the plain version and ``F.layer_norm`` (the
-    library call of the same function), and the bound. Stored under
-    ("layer_norm", dtype, "M<M>")."""
+    rows of ``width`` (the model's, or the encoder's ENCODER_LN_WIDTH) vs its
+    plain version (the eager torch ops) within LN_TOL of the largest output;
+    a row alone gives the same bits; device times of the kernel, the plain
+    version and ``F.layer_norm`` (the library call of the same function),
+    and the bound. Stored under ("layer_norm", dtype, "M<M>"), with "D<width>"
+    after it at another width than the model's."""
     import torch
 
     from mmtg_tpu_torch.ops import layer_norm as ln
 
     dname = str(dtype).split(".")[1]
-    x = (torch.randn(M, D, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
-    g = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
-    b = (0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    x = (torch.randn(M, width, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(width, generator=gen, device=DEVICE)).to(dtype)
+    b = (0.1 * torch.randn(width, generator=gen, device=DEVICE)).to(dtype)
+    key = ("layer_norm", dname, f"M{M}") + (() if width == D else (f"D{width}",))
+    what = f"layer_norm {dname} M={M} D={width}"
     before = ln.layer_norm_rows.launches
     y = ln.layer_norm_rows(x, g, b, 1e-5)
     ref = ln.layer_norm_plain(x, g, b, 1e-5)
     alone = ln.layer_norm_rows(x[-1:], g, b, 1e-5)[0]
     torch.cuda.synchronize()
-    check(ln.layer_norm_rows.launches == before + 2, "layer_norm: not one launch a call")
+    check(ln.layer_norm_rows.launches == before + 2, f"{what}: not one launch a call")
     check(torch.equal(alone, y[-1]),
-          f"layer_norm {dname} M={M}: a row alone differs from the same row among {M}")
+          f"{what}: a row alone differs from the same row among {M}")
     e = (y.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    check(e <= LN_TOL[dname] * scale, f"layer_norm {dname} M={M}: max-abs {e:.3g} > "
+    check(e <= LN_TOL[dname] * scale, f"{what}: max-abs {e:.3g} > "
           f"{LN_TOL[dname]} x {scale:.3g}")
     ms = device_ms(lambda: ln.layer_norm_rows(x, g, b, 1e-5), reps=11, warmup=2)
     plain_ms = device_ms(lambda: ln.layer_norm_plain(x, g, b, 1e-5), reps=11, warmup=2)
-    library_ms = device_ms(lambda: torch.nn.functional.layer_norm(x, (D,), g, b, 1e-5),
+    library_ms = device_ms(lambda: torch.nn.functional.layer_norm(x, (width,), g, b, 1e-5),
                            reps=11, warmup=2)
     e_sz = x.element_size()
-    results[("layer_norm", dname, f"M{M}")] = dict(
+    results[key] = dict(
         max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound((2 * M * D + 2 * D) * e_sz, 8.0 * M * D, dname))
-    return (f"layer_norm[{dname} M={M} D={D}] err {e:.3g} (largest {scale:.3g}) kernel "
+        **bound((2 * M * width + 2 * width) * e_sz, 8.0 * M * width, dname))
+    return (f"layer_norm[{dname} M={M} D={width}] err {e:.3g} (largest {scale:.3g}) kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-            f"{results[('layer_norm', dname, f'M{M}')]['bound_ms']:.4f} ms")
+            f"{results[key]['bound_ms']:.4f} ms")
+
+
+def _add_layer_norm_vs_plain(results, dtype, M, gen):
+    """The residual form (ops/layer_norm.add_layer_norm_rows: the decode
+    step's ``h + y + bias`` and the LayerNorm after it in one launch) over
+    ``M`` rows of the model's width vs its plain version (the eager adds,
+    then ``layer_norm_plain``): ``out`` within LN_TOL of the largest plain
+    output, ``h_new`` bit-equal to the eager adds, the first and the last
+    row alone the same bits, one launch a call; device times of the kernel,
+    the plain version, the library yardstick (the eager adds then
+    ``F.layer_norm``, timed as one call), and the bound. Stored under
+    ("add_layer_norm", dtype, "M<M>")."""
+    import torch
+
+    from mmtg_tpu_torch.ops import layer_norm as ln
+
+    dname = str(dtype).split(".")[1]
+    h = (torch.randn(M, D, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+    y = torch.randn(M, D, generator=gen, device=DEVICE).to(dtype)
+    bias, b = ((0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+               for _ in range(2))
+    g = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    run = lambda hh, yy: ln.add_layer_norm_rows(hh, yy, bias, g, b, 1e-5)  # noqa: E731
+    before = ln.layer_norm_rows.launches
+    h_new, out = run(h, y)
+    ref_h, ref = ln.add_layer_norm_plain(h, y, bias, g, b, 1e-5)
+    alone = [run(h[r:r + 1], y[r:r + 1]) for r in (0, M - 1)]
+    torch.cuda.synchronize()
+    what = f"add_layer_norm {dname} M={M}"
+    check(ln.layer_norm_rows.launches == before + 3, f"{what}: not one launch a call")
+    check(torch.equal(h_new, ref_h), f"{what}: h_new differs from the eager h + y + bias")
+    for r, (ah, ao) in zip((0, M - 1), alone):
+        check(torch.equal(ah[0], h_new[r]) and torch.equal(ao[0], out[r]),
+              f"{what}: row {r} alone differs from the same row among {M}")
+    e = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(e <= LN_TOL[dname] * scale, f"{what}: max-abs {e:.3g} > {LN_TOL[dname]} x "
+          f"{scale:.3g}")
+    ms = device_ms(lambda: run(h, y), reps=11, warmup=2)
+    plain_ms = device_ms(lambda: ln.add_layer_norm_plain(h, y, bias, g, b, 1e-5),
+                         reps=11, warmup=2)
+    library_ms = device_ms(lambda: torch.nn.functional.layer_norm(
+        h + y + bias, (D,), g, b, 1e-5), reps=11, warmup=2)
+    e_sz = h.element_size()
+    key = ("add_layer_norm", dname, f"M{M}")
+    results[key] = dict(
+        max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound((4 * M * D + 3 * D) * e_sz, 10.0 * M * D, dname))
+    return (f"add_layer_norm[{dname} M={M} D={D}] err {e:.3g} (largest {scale:.3g}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (h + y + bias, "
+            f"F.layer_norm) {library_ms:.4f} ms bound {results[key]['bound_ms']:.4f} ms")
 
 
 def phase_kernels(out):
@@ -1131,6 +1194,18 @@ def phase_kernels(out):
     inv.append(_cumsum_vs_plain(results, torch.float32, 64, 10, gen_inv))
     inv.append(_layer_norm_vs_plain(results, torch.float32, 64, gen_inv))
     inv.append(_cumsum_vs_plain(results, torch.bfloat16, 64, 13317, gen_inv))  # top-p alone
+    # the LayerNorm's residual form (its own generator: the cases above keep
+    # their inputs)
+    gen_ln = torch.Generator(device=DEVICE).manual_seed(3)
+    for M in INVARIANT_ROWS:
+        inv.append(_add_layer_norm_vs_plain(results, torch.bfloat16, M, gen_ln))
+    inv.append(_add_layer_norm_vs_plain(results, torch.float32, 64, gen_ln))
+    # the encoder's LayerNorms (D = 512): the topic's B rows and the image and
+    # text channels' T x B rows at the smoke's batch
+    for M in ENCODER_LN_ROWS:
+        inv.append(_layer_norm_vs_plain(results, torch.bfloat16, M, gen_ln, ENCODER_LN_WIDTH))
+    inv.append(_layer_norm_vs_plain(results, torch.float32, ENCODER_LN_ROWS[-1], gen_ln,
+                                    ENCODER_LN_WIDTH))
     print("phase 2 batch-invariant kernels vs plain: ok; " + "; ".join(inv))
     print("phase 2 decode_block_fused ptxas: " + " | ".join(_ptxas_of("decode_block_fused")))
     for name, lines in phase_train_attention(results, gen).items():
@@ -3661,6 +3736,12 @@ def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu, final=False):
           f"phase 24 {label}: busy {s['ms_per_step_busy']} ms over the wall "
           f"{s['ms_per_step_wall']} ms a step")
     got, want = trace_events(r["parse"]), _trace_expected(label, L, dcfg)
+    # the eager elementwise kernels a step (the residual adds the LayerNorm
+    # kernel takes in, gelu_new, sampling)
+    elementwise = sum(
+        n for name, n in r["parse"]["per_op_count"].items()
+        if trace_train.category(name, r["parse"]["long_names"].get(name, ""))
+        .startswith("elementwise")) / steps
     lost = got != want and all(got[k] <= want[k] for k in want)
     check(got == want or (lost and not final),
           f"phase 24 {label}: kernel events {got} != {want}")
@@ -3668,6 +3749,7 @@ def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu, final=False):
     rec = dict(tool=tool, run_s=run_s, parse_s=parse_s, lost_records=lost,
                traced_line=traced[-1] if traced else None, events=got,
                busy_share=s["ms_per_step_busy"] / s["ms_per_step_wall"],
+               elementwise_events_per_step=elementwise,
                trace_mb=os.path.getsize(trace_train.newest_trace(d)) / 2 ** 20,
                report=buf.getvalue(), **s)
     top = "; ".join(f"{n[:60]} {ms} ms x{r['parse']['per_op_count'][n]}"
@@ -3677,7 +3759,8 @@ def _read_trace(label, tool, steps, d, log, run_s, L, dcfg, gpu, final=False):
           f"{run_s:.1f} s, trace {rec['trace_mb']:.0f} MB parsed in {parse_s:.1f} s; "
           f"a {'token' if tool == 'trace_decode' else 'step'}: busy "
           f"{s['ms_per_step_busy']:.3f} ms, wall {s['ms_per_step_wall']:.3f} ms, busy "
-          f"share {rec['busy_share']:.3f}; categories: "
+          f"share {rec['busy_share']:.3f}; elementwise events {elementwise:.2f} a "
+          f"{'token' if tool == 'trace_decode' else 'step'}; categories: "
           + ", ".join(f"{c} {ms:.3f}" for c, ms in s["categories_ms"].items())
           + f"; kernel events {({k: v for k, v in got.items() if v})}; top 10: " + top)
     return rec, got
@@ -4911,6 +4994,13 @@ def _run(args, torch) -> int:
                                                          "max_abs_err")}
                     for k, v in results.items() if isinstance(k, tuple)
                     and k[:2] == ("matmul", "bfloat16")})
+            if name == "layer_norm":
+                # both forms at every row count and width of phase 2
+                extra = dict(shapes={
+                    " ".join(k): {x: v[x] for x in ("ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "max_abs_err")}
+                    for k, v in results.items() if isinstance(k, tuple)
+                    and k[0] in ("layer_norm", "add_layer_norm")})
             if name == "decode_block_fused":
                 # also driven by the service (phase 14); no one PyTorch call
                 # computes a decode step: the port's per-layer step beside it

@@ -146,6 +146,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmtg_row_cumsum.restype = i
     lib.mmtg_layer_norm.argtypes = [p] * 4 + [i, i, f, i, p]
     lib.mmtg_layer_norm.restype = i
+    lib.mmtg_add_layer_norm.argtypes = [p] * 7 + [i, i, f, i, p]
+    lib.mmtg_add_layer_norm.restype = i
     lib.mmtg_fused_gru.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mmtg_fused_gru.restype = i
     lib.mmtg_mha_train_fwd.argtypes = (

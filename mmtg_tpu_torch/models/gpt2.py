@@ -55,6 +55,7 @@ from mmtg_tpu_torch.ops.decode_megakernel import (
     decode_block_fused,
     decode_block_fused_plain,
 )
+from mmtg_tpu_torch.ops.layer_norm import add_layer_norm_plain, add_layer_norm_rows
 from mmtg_tpu_torch.ops.layer_norm import layer_norm_plain as layer_norm
 from mmtg_tpu_torch.ops.layer_norm import layer_norm_rows
 from mmtg_tpu_torch.ops.matmul import batched_matmul, matmul, matmul_plain
@@ -740,26 +741,39 @@ def gpt2_decode_step(
         h = block(h.contiguous(), p, cache.k, cache.v, cache.k_scale,
                   cache.v_scale, key_mask, position, n_head=n_head,
                   eps=cfg.layer_norm_epsilon)
+        pending = None
     else:
-        h = _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels,
-                           kind, n_head, tp_group)
-    # the final LayerNorm and the LM head through the batch-invariant kernels
-    # (ops/layer_norm, ops/matmul): PyTorch's reduction and cuBLAS lay a row
-    # out by B
-    ln = layer_norm_rows if use_kernels else layer_norm
-    h = ln(h, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+        h, pending = _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels,
+                                    kind, n_head, tp_group)
+    # the final LayerNorm (with the last MLP residual still to add) and the LM
+    # head through the batch-invariant kernels (ops/layer_norm, ops/matmul):
+    # PyTorch's reduction and cuBLAS lay a row out by B
+    h = _residual_ln(h, pending, params["lnf_g"], params["lnf_b"], cfg, use_kernels)[1]
     mm = matmul if use_kernels else matmul_plain
     if "wte_q" in params:
         return (mm(h, params["wte_q"].to(h.dtype).T) * params["wte_s"].T).to(h.dtype)
     return mm(h, params["wte"].T)
 
 
+def _residual_ln(h, pending, g, b, cfg, use_kernels):
+    """``(h, LayerNorm(h))``; with ``pending`` = (y, bias) the residual
+    ``h_new = h + y + bias`` and its LayerNorm in one launch → ``(h_new,
+    LayerNorm(h_new))``."""
+    eps = cfg.layer_norm_epsilon
+    if pending is None:
+        return h, (layer_norm_rows if use_kernels else layer_norm)(h, g, b, eps)
+    add_ln = add_layer_norm_rows if use_kernels else add_layer_norm_plain
+    return add_ln(h, *pending, g, b, eps)
+
+
 def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
                    n_head, tp_group=None):
     """The per-layer decode loop: one append + attention call a layer; with
     ``use_kernels`` its LayerNorms and products run the batch-invariant
-    kernels."""
-    ln = layer_norm_rows if use_kernels else layer_norm
+    kernels. A residual ``h + y + bias`` is added inside the LayerNorm that
+    follows it (ops/layer_norm.add_layer_norm_rows: one launch for the two
+    adds and the norm); the last layer's MLP residual is returned pending →
+    ``(h, (y, bias))`` for the final LayerNorm."""
     mm = matmul if use_kernels else matmul_plain
     D_kv = p["attn_w"].shape[-1] // 3
     scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
@@ -777,17 +791,19 @@ def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
             decode_attention_int4_append if kind == "int4"
             else decode_attention_int8_append,
             k_cache=cache.k, v_cache=cache.v, **scales)
+    pending = None  # the previous layer's MLP residual (y, bias)
     for l in range(cfg.n_layer):
-        a = ln(h, p["ln1_g"][l], p["ln1_b"][l], cfg.layer_norm_epsilon)
+        h, a = _residual_ln(h, pending, p["ln1_g"][l], p["ln1_b"][l], cfg, use_kernels)
         q, k, v = _mm(a, p, l, "attn_w", mm, p["attn_b"][l]).split(D_kv, dim=-1)
         ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
                      key_mask=key_mask, position=position, layer=l,
                      n_head=n_head)
-        h = h + tp_sum(_mm(ctx, p, l, "attn_proj_w", mm), tp_group) + p["attn_proj_b"][l]
-        m = ln(h, p["ln2_g"][l], p["ln2_b"][l], cfg.layer_norm_epsilon)
+        y = tp_sum(_mm(ctx, p, l, "attn_proj_w", mm), tp_group)
+        h, m = _residual_ln(h, (y, p["attn_proj_b"][l]), p["ln2_g"][l], p["ln2_b"][l],
+                            cfg, use_kernels)
         m = gelu_new(_mm(m, p, l, "mlp_fc_w", mm, p["mlp_fc_b"][l]))
-        h = h + tp_sum(_mm(m, p, l, "mlp_proj_w", mm), tp_group) + p["mlp_proj_b"][l]
-    return h
+        pending = (tp_sum(_mm(m, p, l, "mlp_proj_w", mm), tp_group), p["mlp_proj_b"][l])
+    return h, pending
 
 
 def quantize_decode_weights(params: Dict, scale_group=None) -> Dict:

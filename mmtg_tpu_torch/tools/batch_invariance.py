@@ -149,7 +149,8 @@ def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
     from mmtg_tpu_torch.ops import decode_attention as da
     from mmtg_tpu_torch.ops import prng
     from mmtg_tpu_torch.ops.cumsum import row_cumsum
-    from mmtg_tpu_torch.ops.layer_norm import layer_norm_rows
+    from mmtg_tpu_torch.ops.layer_norm import (add_layer_norm_plain, add_layer_norm_rows,
+                                               layer_norm_rows)
     from mmtg_tpu_torch.ops.matmul import batched_matmul, matmul, matmul_plain
     from mmtg_tpu_torch.ops.decode_megakernel import decode_block_fused
     from mmtg_tpu_torch.ops.fused_gru import fused_gru
@@ -316,6 +317,14 @@ def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
             x["x"].to(dtype), p["ln1_g"][0], p["ln1_b"][0], eps)),
         "layer_norm": ({"x": (D,)}, lambda x: layer_norm_rows(
             x["x"].to(dtype), p["ln1_g"][0], p["ln1_b"][0], eps)),
+        # a residual h + y + bias and the LayerNorm after it (ln2, ln1 of the
+        # next layer, the final one): the eager adds and ops, the one launch
+        "add_layer_norm [library]": ({"h": (D,), "y": (D,)}, lambda x: add_layer_norm_plain(
+            x["h"].to(dtype), x["y"].to(dtype), p["attn_proj_b"][0], p["ln2_g"][0],
+            p["ln2_b"][0], eps)),
+        "add_layer_norm": ({"h": (D,), "y": (D,)}, lambda x: add_layer_norm_rows(
+            x["h"].to(dtype), x["y"].to(dtype), p["attn_proj_b"][0], p["ln2_g"][0],
+            p["ln2_b"][0], eps)),
         "decode.qkv [library]": ({"x": (D,)}, lib("attn_w")),
         "decode.qkv": ({"x": (D,)}, port("attn_w")),
         "decode.attn_proj [library]": ({"x": (D,)}, lib("attn_proj_w")),

@@ -240,6 +240,7 @@ def test_probe_tool_runs_on_the_cpu(tiny_model):
     # B = 2 at rows 0 and 1, B = 3 at rows 0, 1 and 2
     assert all(len(r) == 5 for r in out["decode_runs"].values())
     assert {"lm_head", "lm_head [library]", "decode_block_fused", "layer_norm",
+            "add_layer_norm", "add_layer_norm [library]",
             "decode_attention_int8_append", "sampling.cumsum"} <= set(out["ops"])
     assert set(out["ops_f32"]) == set(out["ops"])
     bad = bi.differing({"decode": {"x": None, "y": 3},

@@ -13,6 +13,7 @@ import torch
 from mmtg_tpu_torch.ops import cumsum as cs
 from mmtg_tpu_torch.ops import decode_attention as da
 from mmtg_tpu_torch.ops import fused_gru as fg
+from mmtg_tpu_torch.ops import layer_norm as ln
 from mmtg_tpu_torch.ops import matmul as mm
 from mmtg_tpu_torch.ops import train_attention as ta
 
@@ -980,3 +981,65 @@ def test_matmul_split_forms_give_the_same_bits(cuda, K, N, M):
     auto, *others = (mm._launch(x, w, b, pl, form) for form in forms)
     for form, y in zip(forms[1:], others):
         assert torch.equal(y, auto), form
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain_form", "residual_form"])
+@pytest.mark.parametrize("D", [768, 512, 48, 100])
+@pytest.mark.parametrize("M", [1, 8, 64, 512])
+def test_layer_norm_forms_match_plain(cuda, dtype, tol, residual, D, M):
+    """The LayerNorm kernel at the model's widths (16-byte vectors, D a
+    template constant) and at others (D at run time, 100 not a multiple of
+    8), alone or with the residual ``h + y + bias`` taken in: the output
+    within ``chip_smoke.LN_TOL`` of the largest plain one, ``h_new`` bit-equal
+    to the eager adds, each row alone (the first, the middle, the last) the
+    bits of the same row among M, one launch a call, two runs the same."""
+    h = (torch.randn(M, D, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    y = torch.randn(M, D, generator=cuda, device="cuda").to(dtype)
+    bias, b = ((0.1 * torch.randn(D, generator=cuda, device="cuda")).to(dtype)
+               for _ in range(2))
+    g = (1 + 0.1 * torch.randn(D, generator=cuda, device="cuda")).to(dtype)
+    if residual:
+        run = lambda rows: ln.add_layer_norm_rows(*rows, bias, g, b, 1e-5)  # noqa: E731
+        rows, (want_h, ref) = (h, y), ln.add_layer_norm_plain(h, y, bias, g, b, 1e-5)
+    else:
+        run = lambda rows: (rows[0], ln.layer_norm_rows(rows[0], g, b, 1e-5))  # noqa: E731
+        rows, want_h, ref = (h,), h, ln.layer_norm_plain(h, g, b, 1e-5)
+    before = ln.layer_norm_rows.launches
+    h_new, out = run(rows)
+    assert ln.layer_norm_rows.launches == before + 1
+    assert torch.equal(h_new, want_h)
+    assert torch.equal(run(rows)[1], out)
+    scale = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+    for r in sorted({0, M // 2, M - 1}):
+        alone = run(tuple(t[r:r + 1] for t in rows))
+        assert torch.equal(alone[0][0], h_new[r]) and torch.equal(alone[1][0], out[r]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain_form", "residual_form"])
+@pytest.mark.parametrize("D", [768, 512, 100])
+def test_layer_norm_forms_take_permuted_rows(cuda, dtype, residual, D):
+    """A dense but permuted input, ``[B, T, D]`` seen as ``[T, B, D]`` (the
+    layout of a transposed sequence output): the outputs come back in the
+    input's shape with each row where it belongs, the bits of the same call
+    on a contiguous copy."""
+    B, T = 6, 5
+
+    def rows():
+        return (torch.randn(B, T, D, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+
+    h, y = rows().transpose(0, 1), rows().transpose(0, 1)
+    assert not h.is_contiguous()
+    bias, g, b = ((1 + 0.1 * torch.randn(D, generator=cuda, device="cuda")).to(dtype)
+                  for _ in range(3))
+    if residual:
+        got = ln.add_layer_norm_rows(h, y, bias, g, b, 1e-5)
+        want = ln.add_layer_norm_rows(h.contiguous(), y.contiguous(), bias, g, b, 1e-5)
+        assert torch.equal(got[0], h + y + bias)
+    else:
+        got = (ln.layer_norm_rows(h, g, b, 1e-5),)
+        want = (ln.layer_norm_rows(h.contiguous(), g, b, 1e-5),)
+    for a, w in zip(got, want):
+        assert a.shape == (T, B, D) and torch.equal(a, w)
