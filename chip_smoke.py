@@ -41,7 +41,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
      M = 64 on both weight layouts; qkv and mlp_proj also at the B = 512
      prefill's 8192 rows), each against its plain version, a row alone holding
      the same bits, and timed beside the library call it replaces and its
-     bound;
+     bound; and the product's two tensor-parallel modes (partial_out,
+     acc_in) on the row-parallel shards of tp = 2 (attn_proj [M, 384] @
+     [384, 768], mlp_proj [M, 1536] @ [1536, 768]) at the same M (f32 at
+     64), against their plain version, the two ranks' chain the whole
+     product's bits, timed beside F.linear on the shard;
   3. the generation path, decoding.generate, at the full model width
      (12-layer 768-d GPT-2, vocab 13317, 2048-d WenLan, random seeded
      weights) in bf16: B=64 with the int8 cache, then B=8 and B=1 with the
@@ -89,8 +93,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      response held against generate with the same seeds.
  15. the LSTM, RNN and TRM encoder channels at full width, the decoder cut
      to 2 layers: for each,
-     decoding.generate at B=64 (bf16, int8 cache: 440 launches of the
-     int8-append kernel and none of the GRU kernel), teacher-forced f32
+     decoding.generate at B=64 with row seeds (bf16, int8 cache: 440
+     launches of the int8-append kernel, none of the GRU kernel, every
+     channel product and LayerNorm through the batch-invariant kernels), one
+     of its rows decoded alone giving the same 220 tokens, teacher-forced f32
      logits through the kernels vs the plain versions, and 1 + 2 bf16 train
      steps at B=64 (dropout, remat; mha_train_packed's counts asserted);
  16. mmtg_forward_infer (the no-cache inference forward) at full width, f32,
@@ -113,14 +119,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
      rank fails the phase) on the cards there are (the backend by the rule
      of parallel/mesh.py: gloo when ranks share a card): on the meshes
      (2, 1), (1, 2) and (2, 2), generate_sharded in bf16 and in f32 over
-     three sentence frames (wall, launches a rank, all-reduces a step and
-     their time, TP ranks' tokens checked equal), an int8 cache and
+     three sentence frames (wall, launches a rank, the row-parallel products'
+     ordered folds a step and their time beside an all-reduce's, TP ranks'
+     tokens checked equal), an int8 cache and
      (DP-only) the whole-step kernel on two sentence frames,
      generate_stream_sharded = generate_sharded token for token (f32),
      f32 step logits of the sharded decode on forced tokens
-     within 1e-4 of the single-device step, the share of f32 rows equal to
-     single-device generate (reported), and per rank the decode kernels
-     and the GRU at the shard shapes against their plain versions; then
+     within 1e-4 of the single-device step, every row (bf16 over 220 tokens,
+     f32 over three frames) equal to single-device generate's (checked: the
+     shares must be 1.0), each row-parallel product's fold over the model
+     group bit-equal to one device's product, and per rank the decode
+     kernels, the GRU and the product's two modes at the shard shapes
+     against their plain versions; then
      `python -m mmtg_tpu_torch.serve` on a (2, 2) mesh under torchrun (f32,
      all 12 layers, buckets 4,8): a window of three one-shot and one streamed request over
      HTTP, /reload, one more request, each held against generate_sharded on
@@ -184,7 +194,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      each path's first differing step, "none" the pass; the op probe of every
      op the repair touched (the decode-attention kernel, the whole-step
      kernel, the batch-invariant product on the LM head and the prefill's
-     products, the prefix sum, the stable top-k, the sampler): a row's bits
+     products, the prefix sum, the stable top-k, the sampler, and every
+     encoder channel kind: the LSTM, RNN, 2-layer GRU and TRM stacks at full
+     width, in bf16 and in f32): a row's bits
      at each M equal its bits alone; on a mismatch the whole probe's list is printed and the phase
      fails. Then tools/parity_check on a synthetic full-size reference .pth
      (two batches of 4): the train, infer and decode surfaces through the
@@ -1019,6 +1031,73 @@ def _matmul_vs_plain(results, dtype, M, gen, case):
             f"library {library_ms:.4f} ms bound {results[key]['bound_ms']:.4f} ms")
 
 
+# the row-parallel products' shards on two ranks (tp = 2): (K, N) of the full
+# weight; each rank holds [K / 2, N]
+TP_SHARDS = {"attn_proj": (D, D), "mlp_proj": (4 * D, D)}
+TP_MODES = ("partial_out", "acc_in")  # rank 0's, the last rank's
+
+
+def _matmul_tp_vs_plain(results, dtype, M, gen, case, mode, timed=True):
+    """One mode of the batch-invariant product on a row-parallel shard
+    (:data:`TP_SHARDS`, tp = 2, the full weight's plan: ops/matmul.
+    shard_plan): ``partial_out`` (rank 0: the f32 fold, unrounded) or
+    ``acc_in`` (rank 1: the fold continued from rank 0's partial, rounded)
+    against its plain version (the f32 partial within 1e-5 of its largest
+    entry; the rounded product within MATMUL_TOL), a row alone the same
+    bits, the two ranks' chain the bits of the whole weight's product; with
+    ``timed``, device times (median of 7) of the kernel, the plain version
+    and ``F.linear`` on the shard, and the bound. Stored under ("matmul",
+    dtype, "<case>_tp2_<mode>", "M<M>")."""
+    import torch
+
+    from mmtg_tpu_torch.ops import matmul as mm
+
+    dname = str(dtype).split(".")[1]
+    K, N = TP_SHARDS[case]
+    k = K // 2
+    x = torch.randn(M, K, generator=gen, device=DEVICE).to(dtype)
+    w = (torch.randn(K, N, generator=gen, device=DEVICE) * 0.02).to(dtype)
+    x0, x1, w0, w1 = x[:, :k].contiguous(), x[:, k:].contiguous(), w[:k], w[k:]
+    acc = mm.matmul(x0, w0, partial_out=True, plan_shape=(K, N))
+    if mode == "partial_out":
+        xs, ws, kw = x0, w0, dict(partial_out=True, plan_shape=(K, N))
+    else:
+        xs, ws, kw = x1, w1, dict(acc_in=acc, plan_shape=(K, N))
+    run = lambda a, ww, **o: mm.matmul(a, ww, **{**kw, **o})  # noqa: E731
+    y = run(xs, ws)
+    ref = mm.matmul_plain(xs, ws, **kw)
+    what = f"matmul {case} tp2 {mode} {dname} M={M}"
+    check(y.dtype == (torch.float32 if mode == "partial_out" else dtype)
+          and y.shape == ref.shape, f"{what}: shape / dtype")
+    e = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 1e-5 if mode == "partial_out" else MATMUL_TOL[dname]
+    check(e <= tol * scale, f"{what}: max-abs {e:.3g} > {tol} x {scale:.3g}")
+    r = M - 1
+    one = run(xs[r:r + 1], ws, **({"acc_in": acc[r:r + 1]} if mode == "acc_in" else {}))
+    check(torch.equal(one[0], y[r]), f"{what}: the last row alone differs")
+    if mode == "acc_in":  # the two ranks' chain against one device's product
+        check(torch.equal(y, mm.matmul(x, w)),
+              f"{what}: the chain of two K halves is not the whole product's bits")
+    torch.cuda.synchronize()
+    key = ("matmul", dname, f"{case}_tp2_{mode}", f"M{M}")
+    line = (f"matmul[{case} tp2 {mode} {dname} M={M} [{M},{k}]@[{k},{N}]"
+            f"{_matmul_plan(mm, K, N, dtype)} of the full weight] err {e:.3g} (largest "
+            f"{scale:.3g}){', chain = whole' if mode == 'acc_in' else ''}")
+    results[key] = dict(max_abs_err=e)
+    if not timed:
+        return line
+    ms = device_ms(lambda: run(xs, ws), reps=7, warmup=2)
+    plain_ms = device_ms(lambda: mm.matmul_plain(xs, ws, **kw), reps=7, warmup=2)
+    library_ms = device_ms(lambda: torch.nn.functional.linear(xs, ws.T), reps=7, warmup=2)
+    nbytes = (xs.numel() + ws.numel()) * xs.element_size() + y.numel() * y.element_size() \
+        + (acc.numel() * 4 if mode == "acc_in" else 0)
+    results[key].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        **bound(nbytes, 2.0 * M * k * N, dname))
+    return (f"{line} kernel {ms:.4f} ms plain {plain_ms:.4f} ms F.linear "
+            f"{library_ms:.4f} ms bound {results[key]['bound_ms']:.4f} ms")
+
+
 def _cumsum_vs_plain(results, dtype, R, V, gen):
     """The batch-invariant prefix sum (ops/cumsum, the kernel) over ``R``
     rows of ``V`` sorted probabilities vs its plain version (``torch.cumsum``
@@ -1191,6 +1270,18 @@ def phase_kernels(out):
         inv.append(_matmul_vs_plain(results, torch.bfloat16, PREFILL_ROWS, gen_inv, case))
     for case in ("mlp_fc", "lm_head"):  # f32 on CUDA cores, both weight layouts
         inv.append(_matmul_vs_plain(results, torch.float32, 64, gen_inv, case))
+    # the tensor-parallel modes at the row-parallel shards of tp = 2 (their
+    # own generator: the cases above keep their inputs)
+    gen_tp = torch.Generator(device=DEVICE).manual_seed(4)
+    for M in INVARIANT_ROWS:
+        for case in TP_SHARDS:
+            for mode in TP_MODES:
+                inv.append(_matmul_tp_vs_plain(results, torch.bfloat16, M, gen_tp, case,
+                                               mode))
+    for case in TP_SHARDS:  # f32: checked, not timed
+        for mode in TP_MODES:
+            inv.append(_matmul_tp_vs_plain(results, torch.float32, 64, gen_tp, case, mode,
+                                           timed=False))
     inv.append(_cumsum_vs_plain(results, torch.float32, 64, 10, gen_inv))
     inv.append(_layer_norm_vs_plain(results, torch.float32, 64, gen_inv))
     inv.append(_cumsum_vs_plain(results, torch.bfloat16, 64, 13317, gen_inv))  # top-p alone
@@ -1581,28 +1672,42 @@ def _only(launches, expected, what):
     check(launches == want, f"{what}: launch counts {launches} != {want}")
 
 
-def _invariant_launches(L, length, calls=1, dcfg=None, fused=False, gru=2,
-                        sampling=True):
+def _channel_launches(kind="GRU", layers=1, steps=GRU_SHAPE["T"]):
+    """(matmul, layer_norm) launches of one experience channel on the
+    inference path: a single-layer GRU's input projection (its recurrence is
+    the fused GRU kernel); a recurrent stack's input projection and one
+    ``h @ w_hh`` a step, a layer; the TRM block's five dense products, its
+    scores and ``probs @ v`` and its two LayerNorms."""
+    if kind == "TRM":
+        return 7, 2
+    if kind == "GRU" and layers == 1:
+        return 1, 0
+    return layers * (1 + steps), 0
+
+
+def _invariant_launches(L, length, calls=1, dcfg=None, fused=False,
+                        channel=("GRU", 1), sampling=True):
     """The batch-invariant kernels' launches in ``calls`` generate calls of
     ``length`` tokens and ``L`` layers (``matmul``: the encoder's products —
-    the topic product, an input projection for each of its ``gru``
-    single-layer GRU channels (the fused GRU's; other channel types run
-    torch), the two alpha attentions' five products each, the beta
-    attention's three — the prefill's projector (2), six products a layer
-    and its LM head, then a step's projector (2) and LM head and, on the
-    per-layer path (``fused`` False), its four products a layer;
-    ``row_cumsum``: the nucleus's prefix sum a sampled, not frame-forced,
-    step (none without ``sampling``: a teacher-forced call); ``layer_norm``:
-    the encoder's three, the prefill's two a layer and its final one, a
-    step's final one and, per layer, its two a layer)."""
+    the topic product, the image and text channels' (both of ``channel`` =
+    (kind, layers): :func:`_channel_launches`), the two alpha attentions'
+    five products each, the beta attention's three — the prefill's projector
+    (2), six products a layer and its LM head, then a step's projector (2)
+    and LM head and, on the per-layer path (``fused`` False), its four
+    products a layer; ``row_cumsum``: the nucleus's prefix sum a sampled,
+    not frame-forced, step (none without ``sampling``: a teacher-forced
+    call); ``layer_norm``: the encoder's three and its channels', the
+    prefill's two a layer and its final one, a step's final one and, per
+    layer, its two a layer)."""
     from mmtg_tpu_torch.ops.sampling import frame_forced_token
 
     frame = 22 if dcfg is None else dcfg.sent_frame_length
     sampled = sum(not frame_forced_token(i, frame)[0] for i in range(length)) \
         if sampling else 0
-    encoder = 1 + gru + 2 * 5 + 3
+    ch_mm, ch_ln = _channel_launches(*channel)
+    encoder = 1 + 2 * ch_mm + 2 * 5 + 3
     products = encoder + 2 + 6 * L + 1 + length * (3 + (0 if fused else 4 * L))
-    norms = 3 + 2 * L + 1 + length * (1 if fused else 2 * L + 1)
+    norms = 3 + 2 * ch_ln + 2 * L + 1 + length * (1 if fused else 2 * L + 1)
     return {"matmul": calls * products, "row_cumsum": calls * sampled,
             "layer_norm": calls * norms}
 
@@ -1766,6 +1871,7 @@ def phase_batch_invariance(out, gpu, paths, tmp):
     against the port's plain path on the CPU within PARITY_ATOL, bf16 beside."""
     import torch
 
+    from mmtg_tpu_torch.params import tree_to
     from mmtg_tpu_torch.tools import batch_invariance as bi
     from mmtg_tpu_torch.tools import parity_check
 
@@ -1793,6 +1899,15 @@ def phase_batch_invariance(out, gpu, paths, tmp):
     first = {path: r["first_diff"] for path, r in res.items()}
     t0 = time.perf_counter()
     ops = bi.op_probe(params, mcfg, dcfg, INVARIANCE_BATCHES, library=False)
+    # the encoder's ops (every channel kind) in f32 too, where any change of
+    # summation order shows
+    ops_f32 = bi.op_probe(tree_to(params, dtype=torch.float32), mcfg, dcfg,
+                          INVARIANCE_BATCHES, torch.float32, library=False,
+                          prefix="encoder")
+    ops.update({f"{k} (f32)": v for k, v in ops_f32.items()})
+    channel_ops = [bi.channel_op(name) for name in bi.CHANNELS]
+    check(all(k in ops and f"{k} (f32)" in ops for k in channel_ops),
+          f"phase 25: the probe lacks a channel kind: {channel_ops} in {sorted(ops)}")
     bad_ops = {k: v["differs"] for k, v in ops.items() if v["differs"]}
     if any(v is not None for v in first.values()) or bad_ops:
         full = bi.op_probe(params, mcfg, dcfg, INVARIANCE_BATCHES)
@@ -1832,7 +1947,8 @@ def phase_batch_invariance(out, gpu, paths, tmp):
           f"{','.join(map(str, INVARIANCE_BATCHES))}, rows 0, B//2 and B-1, on {gpu}): ok; "
           f"first differing step " + ", ".join(f"{k} {'none' if v is None else v}"
                                                for k, v in first.items())
-          + f" ({decode_s:.1f} s); op probe of the port's {len(ops)} ops: none differs "
+          + f" ({decode_s:.1f} s); op probe of the port's {len(ops)} ops (the encoder's "
+          f"also in f32; the channels {', '.join(channel_ops)}): none differs "
           f"({probe_s:.1f} s); launches { {k: v for k, v in launches.items() if v} }")
     print(f"phase 25 parity_check (synthetic full-size .pth, 2 batches of 4, yardstick "
           f"the port's plain path on the CPU in f32, on {gpu}): ok; f32 {surf(rep['float32'])}"
@@ -2768,6 +2884,7 @@ def phase_packed_cli(out, paths, tmp):
 
 CHANNEL_KINDS = ("LSTM", "RNN", "TRM")
 CHANNEL_TRAIN_STEPS = 2
+CHANNEL_ALONE_ROW = 37  # the B=64 row phase 15 also decodes alone
 ENGLISH_CORPUS = [
     "city lights are calling out my name tonight",
     "we dance until the morning sun comes up",
@@ -2800,15 +2917,19 @@ def _delta(before, what, expected):
 
 def phase_channels(out, gpu):
     """The LSTM, RNN and TRM encoder channels at full width: generate at
-    B=64 (bf16, int8 cache; no fused_gru launch: it is for GRU channels),
-    teacher-forced f32 logits through the kernels vs the plain versions, and
-    bf16 train steps at B=64 (dropout and remat on)."""
+    B=64 with row seeds (bf16, int8 cache; no fused_gru launch: it is for GRU
+    channels; every channel product and LayerNorm through the batch-invariant
+    kernels), one of its rows decoded alone with its seed (the same
+    LENGTH tokens: batch invariance), teacher-forced f32 logits through the
+    kernels vs the plain versions, and bf16 train steps at B=64 (dropout and
+    remat on)."""
     import dataclasses
 
     import torch
 
     from mmtg_tpu_torch.configs import GenerateConfig
     from mmtg_tpu_torch.decoding import generate, teacher_forced_decode_logits
+    from mmtg_tpu_torch.ops import prng
     from mmtg_tpu_torch.params import tree_to
 
     t_phase = time.perf_counter()
@@ -2827,22 +2948,36 @@ def phase_channels(out, gpu):
         _, _, params, const, make_batch = _full_width_inputs(torch.float32, 40 + i,
                                                              mcfg, dcfg)
         p16, c16 = tree_to(params, DEVICE, torch.bfloat16), _to_dtype(const, torch.bfloat16)
-        batch = make_batch(64)
+        batch32 = make_batch(64)
+        batch = _to_dtype(batch32, torch.bfloat16)
+        seeds = torch.arange(64, dtype=torch.int64, device=DEVICE) * 13 + 5
+        key = prng.PRNGKey(1, device=DEVICE)
+        # the weights pinned to what B=64 resolves to: 'auto' would give the
+        # row alone int8 weights (as the service pins dtypes for its menu)
+        gcfg = GenerateConfig(cache_dtype="int8", weight_dtype="model")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = generate(p16, c16, mcfg, dcfg, GenerateConfig(cache_dtype="int8"),
-                        _to_dtype(batch, torch.bfloat16),
-                        torch.Generator(device=DEVICE).manual_seed(1))
+        toks = generate(p16, c16, mcfg, dcfg, gcfg, batch, key, row_seeds=seeds)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         before, got = _delta(before, f"{kind} generate",
                              {"decode_attention_int8_append": steps,
-                              **_invariant_launches(L, LENGTH, dcfg=dcfg, gru=0)})
+                              **_invariant_launches(L, LENGTH, dcfg=dcfg,
+                                                    channel=(kind, 1))})
         _check_tokens(toks, mcfg, dcfg, f"{kind} generate")
+        # batch invariance: one row alone, with its seed, gives its tokens
+        row = CHANNEL_ALONE_ROW
+        alone = generate(p16, c16, mcfg, dcfg, gcfg,
+                         {k: v[row:row + 1] for k, v in batch.items()}, key,
+                         row_seeds=seeds[row:row + 1])
+        alone_equal = bool(torch.equal(alone[0], toks[row]))
+        check(alone_equal, f"{kind} generate: row {row} decoded alone differs from its row "
+              f"at B=64 (first differing token "
+              f"{int((alone[0] != toks[row]).nonzero()[0, 0]) if not alone_equal else -1})")
+        before = _counts()
         del p16, c16
 
-        small = {k: v[:8] for k, v in batch.items()}
-        gcfg = GenerateConfig(cache_dtype="int8")
+        small = {k: v[:8] for k, v in batch32.items()}
         a = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, small,
                                          tokens, use_kernels=True)
         b = teacher_forced_decode_logits(params, const, mcfg, dcfg, gcfg, small,
@@ -2855,8 +2990,8 @@ def phase_channels(out, gpu):
         # the prefill takes START, then one cached step a later token
         before, _ = _delta(before, f"{kind} teacher-forced",
                            {"decode_attention_int8_append": L * (TF_STEPS - 1),
-                            **_invariant_launches(L, TF_STEPS - 1, dcfg=dcfg, gru=0,
-                                                  sampling=False)})
+                            **_invariant_launches(L, TF_STEPS - 1, dcfg=dcfg,
+                                                  channel=(kind, 1), sampling=False)})
         del a, b
 
         state, step = _train_state(params, mcfg, dcfg)
@@ -2870,11 +3005,15 @@ def phase_channels(out, gpu):
               f"{kind} train")
         before = _counts()
         res[kind] = dict(generate_wall_s=gen_s, generate_tok_per_s=64 * LENGTH / gen_s,
-                         generate_launches=got, teacher_forced_max_abs=tf_err,
+                         generate_launches=got, row_alone_equal=alone_equal,
+                         teacher_forced_max_abs=tf_err,
                          train_step_ms=r["step_ms"], train_losses=r["losses"],
                          train_launches=r["launches"])
         lines.append(f"{kind}: generate B=64 {gen_s:.3f} s ({64 * LENGTH / gen_s:.1f} "
-                     f"tok/s, {steps} int8 appends, 0 fused_gru), teacher-forced "
+                     f"tok/s, {steps} int8 appends, 0 fused_gru, {got['matmul']} matmul, "
+                     f"{got['layer_norm']} layer_norm), row {CHANNEL_ALONE_ROW} alone = its "
+                     f"row at B=64 "
+                     f"({LENGTH} tokens), teacher-forced "
                      f"{tf_err:.3g}, train step {r['step_ms']:.1f} ms loss "
                      f"{r['losses'][-1]:.4f}")
         del state, step, params, const
@@ -2882,7 +3021,8 @@ def phase_channels(out, gpu):
     wall = time.perf_counter() - t_phase
     out["channels"] = dict(wall_s=wall, **res)
     print(f"phase 15 encoder channels LSTM / RNN / TRM (full width, {L} layers; "
-          f"generate bf16 B=64 int8 cache, teacher-forced f32 B=8 kernels vs plain <= "
+          f"generate bf16 B=64 int8 cache with row seeds, a row alone the same tokens, "
+          f"teacher-forced f32 B=8 kernels vs plain <= "
           f"{TEACHER_FORCED_TOL['int8']}, {CHANNEL_TRAIN_STEPS} bf16 train steps B=64): "
           f"ok; wall {wall:.1f} s on {gpu}; " + "; ".join(lines))
 
@@ -3906,10 +4046,13 @@ def _serve_window(samples, seeds, bucket, dtype):
 
 def mesh_job(spec_path):
     """One rank of phase 19, started by torchrun: every run of _mesh_runs on
-    each mesh of the job, f32 against the single-device engine, streamed
-    against one-shot, the all-reduce's time, the decode kernels and the GRU
-    at the shard shapes against their plain versions; with a serve spec,
-    the windows the meshed service will decode. Writes rank<r>.json."""
+    each mesh of the job, bf16 and f32 against the single-device engine
+    (rank 0), streamed against one-shot, the ordered fold of a row-parallel
+    product (models/gpt2.tp_sum) against one device's product and its time
+    beside an all-reduce's, the decode kernels, the GRU and the product's
+    two tensor-parallel modes at the shard shapes against their plain
+    versions; with a serve spec, the windows the meshed service will decode.
+    Writes rank<r>.json."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3920,6 +4063,7 @@ def mesh_job(spec_path):
     from mmtg_tpu_torch.models import gpt2
     from mmtg_tpu_torch.ops import decode_attention as da
     from mmtg_tpu_torch.ops import fused_gru as fg
+    from mmtg_tpu_torch.ops import matmul as mm
     from mmtg_tpu_torch.ops import prng
     from mmtg_tpu_torch.parallel import mesh as pmesh
 
@@ -3940,14 +4084,16 @@ def mesh_job(spec_path):
         inputs[dname] = (params, const, make_batch(MESH_B))
     key = prng.PRNGKey(3, device=DEVICE)
     seeds = torch.arange(MESH_B, dtype=torch.int32, device=DEVICE) * 7 + 1
-    ref = None
-    if info.rank == 0:  # the single-device f32 engine on the global batch
-        params, const, batch = inputs["float32"]
-        # the cache the meshed 'auto' resolves to
-        ref = decoding.generate(params, const, mcfg, dcfg,
-                                GenerateConfig(cache_dtype="model", weight_dtype="auto",
-                                               length=F32_LENGTH),
-                                batch, key, row_seeds=seeds)
+    ref = {}
+    if info.rank == 0:  # the single-device engine on the global batch
+        # at the cache the meshed 'auto' resolves to: f32, and bf16 at the
+        # length of the 'bf16 auto' runs
+        for dname, length in (("float32", F32_LENGTH), ("bfloat16", LENGTH)):
+            params, const, batch = inputs[dname]
+            ref[dname] = decoding.generate(
+                params, const, mcfg, dcfg, GenerateConfig(
+                    cache_dtype="model", weight_dtype="auto", length=length),
+                batch, key, row_seeds=seeds)
     with torch.no_grad():
         for j, (dp, tp) in enumerate(spec["meshes"]):
             mesh = pmesh.make_mesh((dp, tp), info.device)
@@ -3979,8 +4125,11 @@ def mesh_job(spec_path):
                               gcfg.length)
                 m["runs"][what] = dict(wall_s=wall, launches=launches,
                                        length=gcfg.length,
-                                       all_reduces_per_step=(gpt2.tp_sum.calls - sums)
+                                       tp_sums_per_step=(gpt2.tp_sum.calls - sums)
                                        / gcfg.length)
+                if what == "bf16 auto" and ref:
+                    m["bf16_rows_equal_single_device"] = float(
+                        (toks == ref["bfloat16"]).all(dim=1).float().mean())
             # f32: the sharded engine, streamed vs one-shot, vs one device
             params, const, batch = inputs["float32"]
             gcfg = GenerateConfig(cache_dtype="auto", weight_dtype="auto",
@@ -3998,9 +4147,9 @@ def mesh_job(spec_path):
                   f"phase 19 {dp}x{tp}: generate_stream_sharded differs from "
                   "generate_sharded")
             m["stream_blocks"] = len(blocks)
-            if ref is not None:
+            if ref:
                 m["f32_rows_equal_single_device"] = float(
-                    (toks == ref).all(dim=1).float().mean())
+                    (toks == ref["float32"]).all(dim=1).float().mean())
             # the step's f32 logits on the same forced tokens: sharded vs one device
             local = {k: v[rows] for k, v in batch.items()}
             forced = toks[rows, :TF_STEPS]
@@ -4016,23 +4165,53 @@ def mesh_job(spec_path):
             check(err <= MESH_LOGIT_TOL, f"phase 19 {dp}x{tp}: f32 sharded step logits "
                   f"{err:.3g} from the single-device step's > {MESH_LOGIT_TOL}")
             m["f32_logits_max_abs"] = err
-            if tp > 1:  # one all-reduce of the step's [B/dp, 768] partial sum
+            if tp > 1:
+                # the ordered fold of each row-parallel product over the
+                # model group (this rank's K slice) against one device's
+                # product of the whole weight, bit for bit; the fold of the
+                # step's attn_proj [B/dp, 768 / tp] @ [768 / tp, 768] timed
+                # beside an all-reduce of its [B/dp, 768] output
+                gen_tp = torch.Generator(device=DEVICE).manual_seed(190)  # alike on all ranks
+                i = dist.get_rank(model_group)
+                m["fold_equal_single_device"] = {}
                 for dname in ("bfloat16", "float32"):
-                    x = torch.randn(MESH_B // dp, 768, device=DEVICE).to(getattr(torch, dname))
-                    for _ in range(5):
-                        dist.all_reduce(x, group=model_group)
-                    torch.cuda.synchronize()
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    t0 = time.perf_counter()
-                    start.record()
-                    for _ in range(AR_REPS):
-                        dist.all_reduce(x, group=model_group)
-                    end.record()
-                    end.synchronize()
-                    m[f"all_reduce_ms_{dname}"] = dict(
-                        device=start.elapsed_time(end) / AR_REPS,
-                        host=(time.perf_counter() - t0) * 1e3 / AR_REPS)
+                    dtype = getattr(torch, dname)
+                    for case, (K, N) in TP_SHARDS.items():
+                        x = torch.randn(MESH_B // dp, K, generator=gen_tp,
+                                        device=DEVICE).to(dtype)
+                        w = (torch.randn(K, N, generator=gen_tp, device=DEVICE)
+                             * 0.02).to(dtype)
+                        k = K // tp
+                        folded = gpt2.tp_sum(x[:, i * k:(i + 1) * k].contiguous(),
+                                             w[i * k:(i + 1) * k], model_group, mm.matmul)
+                        same = bool(torch.equal(folded, mm.matmul(x, w)))
+                        m["fold_equal_single_device"][f"{case} {dname}"] = same
+                        check(same, f"phase 19 {dp}x{tp}: the fold of {case} ({dname}) "
+                              "over the model group differs from one device's product")
+                    x = torch.randn(MESH_B // dp, D, generator=gen_tp, device=DEVICE).to(dtype)
+                    w = (torch.randn(D, D, generator=gen_tp, device=DEVICE) * 0.02).to(dtype)
+                    xs, ws = x[:, i * (D // tp):(i + 1) * (D // tp)].contiguous(), \
+                        w[i * (D // tp):(i + 1) * (D // tp)]
+                    y = mm.matmul(x, w)
+                    for name, fn in (("fold", lambda: gpt2.tp_sum(xs, ws, model_group,
+                                                                  mm.matmul)),
+                                     ("all_reduce", lambda: dist.all_reduce(
+                                         y, group=model_group))):
+                        for _ in range(5):
+                            fn()
+                        torch.cuda.synchronize()
+                        dist.barrier()
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        t0 = time.perf_counter()
+                        start.record()
+                        for _ in range(AR_REPS):
+                            fn()
+                        end.record()
+                        end.synchronize()
+                        m[f"{name}_ms_{dname}"] = dict(
+                            device=start.elapsed_time(end) / AR_REPS,
+                            host=(time.perf_counter() - t0) * 1e3 / AR_REPS)
             # the kernels at this rank's shard shapes vs their plain versions
             gen = torch.Generator(device=DEVICE).manual_seed(19)
             results, lines = {}, []
@@ -4044,6 +4223,13 @@ def mesh_job(spec_path):
                                                   D=768 // tp, tag=f"H{12 // tp}"))
             for dtype in (torch.bfloat16, torch.float32):
                 lines.append(_gru_vs_plain(results, fg, dtype, MESH_B // dp, gen))
+            if tp > 1:  # the product's two modes at this mesh's rows
+                for dtype in (torch.bfloat16, torch.float32):
+                    for case in TP_SHARDS:
+                        for mode in TP_MODES:
+                            lines.append(_matmul_tp_vs_plain(
+                                results, dtype, MESH_B // dp, gen, case, mode,
+                                timed=dtype == torch.bfloat16))
             m["kernels"] = {"|".join(k): v for k, v in results.items()}
             m["kernel_lines"] = lines
             res["meshes"][f"{dp}x{tp}"] = m
@@ -4274,23 +4460,32 @@ def phase_mesh(out, gpu, paths, tmp):
             m["f32_logits_max_abs_ranks"] = [pr["f32_logits_max_abs"] for pr in per_rank]
             m["kernel_lines_ranks"] = [pr["kernel_lines"] for pr in per_rank]
             meshes[name] = m
-            ar = m.get("all_reduce_ms_bfloat16")
+            # the promise: every row the single-device engine's tokens
+            for dname in ("f32", "bf16"):
+                share = m.get(f"{dname}_rows_equal_single_device")
+                check(share == 1.0, f"phase 19 {name}: {dname} rows equal to single-device "
+                      f"generate: {share} (want 1.0)")
+            fold, ar = m.get("fold_ms_bfloat16"), m.get("all_reduce_ms_bfloat16")
             steps = m["runs"]["bf16 auto"]
             lines.append(
                 f"{name} ({m['backend']}): generate_sharded B={MESH_B} {LENGTH} tokens, "
                 f"{CUT_DEPTH} layers: "
                 f"bf16 {steps['wall_s']:.2f} s, f32 ({F32_LENGTH} tokens) "
                 f"{m['runs']['f32 auto']['wall_s']:.2f} s; "
-                f"{steps['all_reduces_per_step']:g} all-reduces a step"
-                + (f" at {ar['device']:.3f} ms each on the device ({ar['host']:.3f} ms host) "
-                   f"= {ar['device'] * steps['all_reduces_per_step']:.1f} ms a step"
-                   if ar else "")
+                f"{steps['tp_sums_per_step']:g} ordered folds a step"
+                + (f" at {fold['device']:.3f} ms each on the device ({fold['host']:.3f} ms "
+                   f"host; an all-reduce of the output {ar['device']:.3f} / {ar['host']:.3f} "
+                   f"ms) = {fold['device'] * steps['tp_sums_per_step']:.1f} ms a step; the "
+                   f"fold = one device's product bit for bit "
+                   f"({', '.join(k for k, v in m['fold_equal_single_device'].items() if v)})"
+                   if fold else "")
                 + "; launches a rank " + ", ".join(
                     f"{what}: {dict((k, v) for k, v in r['launches'].items() if v)}"
                     for what, r in m["runs"].items() if "launches" in r)
                 + f"; TP ranks agree; f32 step logits max-abs "
-                f"{max(m['f32_logits_max_abs_ranks']):.3g} (<= {MESH_LOGIT_TOL}); f32 rows "
-                f"equal to single-device generate {m.get('f32_rows_equal_single_device', 0):.3f}; "
+                f"{max(m['f32_logits_max_abs_ranks']):.3g} (<= {MESH_LOGIT_TOL}); rows equal "
+                f"to single-device generate: f32 {m['f32_rows_equal_single_device']:.3f}, bf16 "
+                f"{m['bf16_rows_equal_single_device']:.3f}; "
                 f"streamed = one-shot ({m['stream_blocks']} blocks); kernels at the shard "
                 f"shapes = plain: " + " | ".join(m["kernel_lines"]))
     want = ranks[4][0]["serve_windows"]["window"]
@@ -4863,6 +5058,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-only", action="store_true",
                     help="phase 1 (the build), then phase 24 (the trace tools) "
                          "alone: no kernels line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phase 1 (the build), then phase 19 (sharded serving) "
+                         "alone: no kernels line")
     ap.add_argument("--mesh-job", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-train-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4910,12 +5108,14 @@ def _run(args, torch) -> int:
     gpu = gpu_line()
     out["gpu"] = gpu
     if (args.mesh_train_only or args.quality_only or args.serving_only
-            or args.trace_only):
+            or args.trace_only or args.mesh_only):
         tmp = tempfile.mkdtemp(prefix="mmtg_chip_smoke_")
         try:
             if args.mesh_train_only:
                 timed(20, phase_mesh_train, gpu, _cli_fixtures(tmp, model_configs()[1]),
                       tmp)
+            elif args.mesh_only:
+                timed(19, phase_mesh, gpu, _cli_fixtures(tmp, model_configs()[1]), tmp)
             elif args.quality_only:
                 timed(22, phase_quality, gpu, tmp)
             elif args.trace_only:

@@ -54,6 +54,17 @@
 // FMA chain over k in order; no tile of zero rows for a batch entry of one.
 // A batch axis z (grid.z, grid.y on the small path) for the attention's
 // per-head products, with its own strides; the plan never depends on it.
+//
+// Two modes of the tiled paths keep a tensor-parallel product's sums those
+// of one device. A row-parallel rank holds a K slice that covers a run of
+// the full plan's ranges (ops/matmul.shard_plan). `acc` (f32 [M, N]) is the
+// fold its ranges start from: every output is acc + p_a + p_{a+1} + ...,
+// left to right, in both bf16 forms (the cluster form adds acc before the
+// first range's partial, not after the fold), and the f32 path's FMA chain
+// over k starts from it. `partial` writes the fold in f32 to out, before the
+// rounding and without the bias. Rank 0 runs `partial`, each next rank
+// `acc` + `partial`, the last `acc` alone and rounds once:
+// ((p0 + p1) + p2) + p3 on one device or on two.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,7 +100,9 @@ struct Args {
   const void* x;
   const void* w;
   const void* bias;
-  void* out;
+  void* out;        // T, or f32 with `partial`
+  const float* acc; // f32 [M, N] the fold starts from, or null
+  int partial;      // 1: out is the f32 fold, unrounded, no bias
   int Z, M, N, K;
   long long sx, sw, so;  // batch strides, in elements
   int spr;               // K stages a range
@@ -346,6 +359,7 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
   const T* x = static_cast<const T*>(a.x) + z * a.sx;
   const T* w = static_cast<const T*>(a.w) + z * a.sw;
   T* out = static_cast<T*>(a.out) + z * a.so;
+  float* part_out = static_cast<float*>(a.out) + z * a.so;  // with a.partial
   const T* bias = static_cast<const T*>(a.bias);
   const int nk = (a.K + BK - 1) / BK;
   const int pieces = min(PIECES, (a.M - m0 + 7) / 8);
@@ -363,6 +377,20 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
   for (int u = 0; u < pre; ++u) load_next();
   float acc[PIECES][4];  // one-block form: the ranges' partial sums so far
   float c[PIECES][4];
+  // the one-block form's fold starts from `a.acc` where there is one
+  const bool from_acc = a.acc != nullptr && C == 1;
+  if (from_acc) {
+    const int n = n0 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int q = 0; q < PIECES; ++q) {
+      const int b = m0 + q * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int bb = b + (i & 1), nn = n + (i >> 1) * 8;
+        acc[q][i] = bb < a.M && nn < a.N ? a.acc[static_cast<size_t>(bb) * a.N + nn] : 0.0f;
+      }
+    }
+  }
   int u = 0, slot = 0;
   for (int r = r0; r < r1; ++r) {
 #pragma unroll
@@ -386,7 +414,8 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
 #pragma unroll
       for (int q = 0; q < PIECES; ++q)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[q][i] = r == 0 ? c[q][i] : acc[q][i] + c[q][i];
+        for (int i = 0; i < 4; ++i)
+          acc[q][i] = r == 0 && !from_acc ? c[q][i] : acc[q][i] + c[q][i];
     }
   }
   if (C == 1) {  // the one-block form rounds its sum
@@ -398,6 +427,10 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
       for (int i = 0; i < 4; ++i) {
         const int bb = b + (i & 1), nn = n + (i >> 1) * 8;
         if (bb < a.M && nn < a.N) {
+          if (a.partial) {
+            part_out[static_cast<size_t>(bb) * a.N + nn] = acc[q][i];
+            continue;
+          }
           float y = round_bf16(acc[q][i]);
           if (bias != nullptr) y = round_bf16(y + __bfloat162float(bias[nn]));
           out[static_cast<size_t>(bb) * a.N + nn] = __float2bfloat16_rn(y);
@@ -441,7 +474,15 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
     cluster_wait();  // every range's share has landed
     const int lo = crank * per, hi = min(groups, lo + per);
     for (int g = lo + threadIdx.x; g < hi; g += NT) {
+      const int col = n0 + (g % G) * 4, row = m0 + g / G;
       float4 t = recv[g - lo];
+      if (a.acc != nullptr) {  // the fold so far, before range 0's partial
+        const float* ar = a.acc + static_cast<size_t>(row) * a.N;
+        t.x = (col < a.N ? ar[col] : 0.0f) + t.x;
+        t.y = (col + 1 < a.N ? ar[col + 1] : 0.0f) + t.y;
+        t.z = (col + 2 < a.N ? ar[col + 2] : 0.0f) + t.z;
+        t.w = (col + 3 < a.N ? ar[col + 3] : 0.0f) + t.w;
+      }
 #pragma unroll
       for (int q = 1; q < kMaxRanges; ++q) {  // the ranges in index order
         if (q < a.ranges) {
@@ -453,11 +494,15 @@ __global__ void __launch_bounds__(2 * BN) matmul_bf16_kernel(const Args a) {
         }
       }
       const float tv[4] = {t.x, t.y, t.z, t.w};
-      const int col = n0 + (g % G) * 4;
-      T* o = out + static_cast<size_t>(m0 + g / G) * a.N;
+      T* o = out + static_cast<size_t>(row) * a.N;
+      float* po = part_out + static_cast<size_t>(row) * a.N;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (col + i < a.N) {
+          if (a.partial) {
+            po[col + i] = tv[i];
+            continue;
+          }
           float y = round_bf16(tv[i]);
           if (bias != nullptr) y = round_bf16(y + __bfloat162float(bias[col + i]));
           o[col + i] = __float2bfloat16_rn(y);
@@ -484,11 +529,15 @@ __global__ void __launch_bounds__(256) matmul_f32_kernel(const Args a) {
   // a thread whose four rows all lie past M stages its share of the tiles
   // and waits at the barriers, but sums nothing (a row's sums do not change)
   const bool live = m0 + tm * 4 < a.M;
-  float acc[4][4];
+  float acc[4][4];  // each chain starts from `a.acc` where there is one
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      const int b = m0 + tm * 4 + i, n = n0 + tn * 4 + j;
+      acc[i][j] = a.acc != nullptr && b < a.M && n < a.N
+                      ? a.acc[static_cast<size_t>(b) * a.N + n] : 0.0f;
+    }
 #pragma unroll
   for (int s = 0; s < kStagesF32 - 1; ++s) {
     if (s < nk)
@@ -534,8 +583,9 @@ __global__ void __launch_bounds__(256) matmul_f32_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tn * 4 + j;
-      if (b < a.M && n < a.N)
-        out[static_cast<size_t>(b) * a.N + n] = acc[i][j] + (bias != nullptr ? bias[n] : 0.0f);
+      if (b < a.M && n < a.N)  // (a partial has no bias: the same f32 value)
+        out[static_cast<size_t>(b) * a.N + n] =
+            acc[i][j] + (bias != nullptr && !a.partial ? bias[n] : 0.0f);
     }
   }
 }
@@ -728,8 +778,9 @@ int launch_small(const Args& a, cudaStream_t stream) {
 }
 
 int launch(const Args& a, bool trans, int dtype, int path, int bn, int form, cudaStream_t s) {
-  if (path == 1) {  // small
-    if (a.K > kSmallK) return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1) {  // small: no acc, no partial
+    if (a.K > kSmallK || a.acc != nullptr || a.partial)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 1)
       return trans ? launch_small<__nv_bfloat16, true>(a, s) : launch_small<__nv_bfloat16, false>(a, s);
     return trans ? launch_small<float, true>(a, s) : launch_small<float, false>(a, s);
@@ -763,13 +814,19 @@ int launch(const Args& a, bool trans, int dtype, int path, int bn, int form, cud
 // 64- / 128-row tiles, 0 the launch's pick (all give the same bits). On the
 // tiled path rows of K values (and of N values for trans = 0) are a multiple
 // of 16 bytes and every matrix starts on a 16-byte
-// boundary; the small path reads single values. Returns cudaGetLastError()
-// after the launch (0 on success; cudaErrorInvalidValue for a plan the kernel
-// does not take). The caller validates shapes and alignment.
-extern "C" int mmtg_matmul(const void* x, const void* w, const void* bias, void* out, int Z,
-                           int M, int N, int K, long long sx, long long sw, long long so,
-                           int trans, int dtype, int path, int bn, int spr, int ranges,
-                           int slots, int form, void* stream) {
-  const Args a{x, w, bias, out, Z, M, N, K, sx, sw, so, spr, ranges, slots, 1};
+// boundary; the small path reads single values. The tiled paths' modes (Z =
+// 1): acc, f32 [M, N] or null, the fold to start from; partial = 1 writes
+// the f32 fold to out (f32 [M, N]), unrounded and without the bias. Returns
+// cudaGetLastError() after the launch (0 on success; cudaErrorInvalidValue
+// for a plan the kernel does not take). The caller validates shapes and
+// alignment.
+extern "C" int mmtg_matmul(const void* x, const void* w, const void* bias, void* out,
+                           const void* acc, int partial, int Z, int M, int N, int K,
+                           long long sx, long long sw, long long so, int trans, int dtype,
+                           int path, int bn, int spr, int ranges, int slots, int form,
+                           void* stream) {
+  if ((acc != nullptr || partial) && Z != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, w, bias, out, static_cast<const float*>(acc), partial, Z, M, N, K,
+               sx, sw, so, spr, ranges, slots, 1};
   return launch(a, trans != 0, dtype, path, bn, form, static_cast<cudaStream_t>(stream));
 }

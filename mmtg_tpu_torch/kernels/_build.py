@@ -140,7 +140,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     )
     lib.mmtg_decode_block_fused.restype = i
     ll = ctypes.c_longlong
-    lib.mmtg_matmul.argtypes = [p] * 4 + [i] * 4 + [ll] * 3 + [i] * 8 + [p]
+    lib.mmtg_matmul.argtypes = [p] * 5 + [i] * 5 + [ll] * 3 + [i] * 8 + [p]
     lib.mmtg_matmul.restype = i
     lib.mmtg_row_cumsum.argtypes = [p, p, i, i, i, p]
     lib.mmtg_row_cumsum.restype = i

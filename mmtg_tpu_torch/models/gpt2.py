@@ -19,7 +19,9 @@ matching rows of the two output projections,
 partial products are summed over the group before their replicated bias) in
 training, the prefill and the decode step; in training the sums are Megatron's
 two conjugate operators (:func:`copy_to_tp`, :func:`reduce_from_tp`), so the
-backward sums the input gradients of the column-parallel products. GPipe
+backward sums the input gradients of the column-parallel products; in the
+prefill and the decode step an ordered fold in one device's order
+(:func:`tp_sum`, :func:`tp_products`), so a mesh gives one card's tokens. GPipe
 pipeline parallelism of the train path (``pp``,
 :mod:`mmtg_tpu_torch.parallel.pipeline`). The one-token decode
 step (:func:`gpt2_decode_step`) attends, for CUDA tensors, through the
@@ -59,7 +61,7 @@ from mmtg_tpu_torch.ops.layer_norm import add_layer_norm_plain, add_layer_norm_r
 from mmtg_tpu_torch.ops.layer_norm import layer_norm_plain as layer_norm
 from mmtg_tpu_torch.ops.layer_norm import layer_norm_rows
 from mmtg_tpu_torch.ops.matmul import batched_matmul, matmul, matmul_plain
-from mmtg_tpu_torch.parallel.mesh import all_reduce_
+from mmtg_tpu_torch.parallel.mesh import all_reduce_, broadcast_, recv, send
 from mmtg_tpu_torch.ops.train_attention import (
     attention_keep,
     attention_replay,
@@ -166,17 +168,53 @@ def _dropout(x, rate: float, seed):
     return torch.where(bits >= thr, x / keep_p, torch.zeros_like(x))
 
 
-def tp_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The row-parallel partial product ``x`` summed over the ``model``
-    group (``all_reduce`` in place; ``group=None``: no tensor parallelism).
-    ``tp_sum.calls`` counts the reductions."""
-    if group is not None:
-        tp_sum.calls += 1
-        dist.all_reduce(x, group=group)
-    return x
+def tp_sum(x: torch.Tensor, w: torch.Tensor, group, mm=matmul_plain,
+           bias=None) -> torch.Tensor:
+    """The row-parallel product ``x @ w (+ bias)`` of this rank's K slice
+    (``x [..., K/tp]``, ``w [K/tp, N]``) summed over the ``model`` group in
+    the one device's order, on every rank (``group=None``: ``mm(x, w,
+    bias)``). An ordered fold, not an ``all_reduce``: rank 0 computes its
+    ranges' f32 partial (``mm``'s ``partial_out``), each next rank receives
+    its predecessor's and continues the fold from it (``acc_in``), the last
+    rank rounds once (and adds ``bias``) and broadcasts the product, so the
+    sums are those of ``mm`` on the whole weight (:func:`mmtg_tpu_torch.ops.
+    matmul.shard_plan`) whatever tp. ``tp_sum.calls`` counts the products."""
+    if group is None:
+        return mm(x, w, bias)
+    tp_sum.calls += 1
+    ranks = dist.get_process_group_ranks(group)
+    i = dist.get_rank(group)
+    shape = (*x.shape[:-1], w.shape[-1])
+    acc = (None if i == 0 else
+           recv(shape, torch.float32, x.device, ranks[i - 1], group))
+    last = i == len(ranks) - 1
+    y = mm(x, w, bias if last else None, acc_in=acc, partial_out=not last,
+           plan_shape=(w.shape[-2] * len(ranks), w.shape[-1]))
+    if not last:
+        send(y, ranks[i + 1], group)
+        y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    return broadcast_(y, ranks[-1], group)
 
 
 tp_sum.calls = 0
+
+
+def tp_products(mm, group):
+    """(column-parallel, row-parallel) forms of the product ``mm(x, w,
+    bias)`` on this rank's shard: the column shards run the full weight's
+    plan (``plan_shape``), the row shards fold through :func:`tp_sum`.
+    ``group=None``: ``(mm, mm)``."""
+    if group is None:
+        return mm, mm
+    tp = dist.get_world_size(group)
+
+    def column(x, w, bias=None):
+        return mm(x, w, bias, plan_shape=(w.shape[-2], w.shape[-1] * tp))
+
+    def row(x, w, bias=None):
+        return tp_sum(x, w, group, mm, bias)
+
+    return column, row
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -469,6 +507,7 @@ def gpt2_forward(
     # row's bits do not depend on the batch, where cuBLAS and PyTorch's
     # reductions lay a row out by the shape)
     prefill_mm = matmul if use_kernels else matmul_plain
+    col_mm, row_mm = tp_products(prefill_mm, tp_group if return_kv else None)
     prefill_bmm = batched_matmul if use_kernels else torch.matmul
     ln = layer_norm_rows if use_kernels else layer_norm
     B, T, D = inputs_embeds.shape
@@ -553,7 +592,7 @@ def gpt2_forward(
         w_proj = lp["attn_proj_w"]
         b = h.shape[0]
         if return_kv:
-            q, k, v = prefill_mm(a, lp["attn_w"], lp["attn_b"]).split(D_kv, dim=-1)
+            q, k, v = col_mm(a, lp["attn_w"], lp["attn_b"]).split(D_kv, dim=-1)
             qh, kh, vh = (t.view(b, T, n_head, hd).transpose(1, 2)
                           for t in (q, k, v))
             # f32-accumulated score dot, then the model dtype (as the JAX
@@ -561,7 +600,7 @@ def gpt2_forward(
             scores = prefill_bmm(qh.float(), kh.float().transpose(-1, -2))
             probs = torch.softmax(scores.to(h.dtype) * scale + bias, dim=-1)
             ctx = prefill_bmm(probs, vh).transpose(1, 2).reshape(b, T, D_kv)
-            attn_out = tp_sum(prefill_mm(ctx, w_proj), tp_group)
+            attn_out = row_mm(ctx, w_proj)
         else:
             # the projection bias is added inside the attention function
             w_qkv, b_qkv = lp["attn_w"], lp["attn_b"]
@@ -577,12 +616,11 @@ def gpt2_forward(
         if not return_kv:
             m = copy_to_tp(m, tp_group)
         if return_kv:
-            m = gelu_new(prefill_mm(m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
-            m = prefill_mm(m, lp["mlp_proj_w"])
+            m = gelu_new(col_mm(m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
+            m = row_mm(m, lp["mlp_proj_w"])
         else:
             m = gelu_new(tape.product("mlp_fc1", m, lp["mlp_fc_w"], lp["mlp_fc_b"]))
-            m = m @ lp["mlp_proj_w"]
-        m = tp_sum(m, tp_group) if return_kv else reduce_from_tp(m, tp_group)
+            m = reduce_from_tp(m @ lp["mlp_proj_w"], tp_group)
         return h + _dropout(m + lp["mlp_proj_b"], cfg.resid_pdrop, k_resid2), k, v
 
     no_resid = (None, None)
@@ -689,9 +727,11 @@ def prefill_cache(
 def _mm(x, p, l, key, mm=matmul_plain, bias=None):
     """``mm(x, W) (+ bias)`` for layer ``l`` (``mm``: ``torch.matmul`` or the
     batch-invariant kernel, which adds the bias in its epilogue with the same
-    two roundings); weight-only int8 (``key_q`` / ``key_s`` from
+    two roundings, or their tensor-parallel forms, :func:`tp_products`);
+    weight-only int8 (``key_q`` / ``key_s`` from
     :func:`quantize_decode_weights`) dequantizes in the matmul's epilogue,
-    in f32, then casts back to x's dtype, before the bias."""
+    in f32, then casts back to x's dtype, before the bias (under TP after the
+    fold, as on one device)."""
     if key + "_q" in p:
         y = (mm(x, p[key + "_q"][l].to(x.dtype)) * p[key + "_s"][l]).to(x.dtype)
         return y if bias is None else y + bias
@@ -774,7 +814,7 @@ def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
     follows it (ops/layer_norm.add_layer_norm_rows: one launch for the two
     adds and the norm); the last layer's MLP residual is returned pending →
     ``(h, (y, bias))`` for the final LayerNorm."""
-    mm = matmul if use_kernels else matmul_plain
+    col_mm, row_mm = tp_products(matmul if use_kernels else matmul_plain, tp_group)
     D_kv = p["attn_w"].shape[-1] // 3
     scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
     if not use_kernels:
@@ -794,15 +834,15 @@ def _decode_layers(p, cfg, cache, h, position, key_mask, use_kernels, kind,
     pending = None  # the previous layer's MLP residual (y, bias)
     for l in range(cfg.n_layer):
         h, a = _residual_ln(h, pending, p["ln1_g"][l], p["ln1_b"][l], cfg, use_kernels)
-        q, k, v = _mm(a, p, l, "attn_w", mm, p["attn_b"][l]).split(D_kv, dim=-1)
+        q, k, v = _mm(a, p, l, "attn_w", col_mm, p["attn_b"][l]).split(D_kv, dim=-1)
         ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
                      key_mask=key_mask, position=position, layer=l,
                      n_head=n_head)
-        y = tp_sum(_mm(ctx, p, l, "attn_proj_w", mm), tp_group)
+        y = _mm(ctx, p, l, "attn_proj_w", row_mm)
         h, m = _residual_ln(h, (y, p["attn_proj_b"][l]), p["ln2_g"][l], p["ln2_b"][l],
                             cfg, use_kernels)
-        m = gelu_new(_mm(m, p, l, "mlp_fc_w", mm, p["mlp_fc_b"][l]))
-        pending = (tp_sum(_mm(m, p, l, "mlp_proj_w", mm), tp_group), p["mlp_proj_b"][l])
+        m = gelu_new(_mm(m, p, l, "mlp_fc_w", col_mm, p["mlp_fc_b"][l]))
+        pending = (_mm(m, p, l, "mlp_proj_w", row_mm), p["mlp_proj_b"][l])
     return h, pending
 
 

@@ -22,6 +22,16 @@ the launch picks by M. f32 keeps one range on CUDA cores (the parity path).
 Products with K of at most ``SMALL_K`` (the attention's per-head ``probs @
 v``, the beta mix's K = 3) take the small path: one FMA chain over k in
 order per output.
+
+Tensor parallelism keeps the one device's sums (:func:`shard_plan`). A
+column-parallel shard ``[K, N / tp]`` runs the plan of the full ``[K, N]``
+weight (``plan_shape``), so each column's tree does not depend on tp. A
+row-parallel shard ``[K / tp, N]`` runs the ranges of the full plan that
+its rows cover, in two modes of the kernel: ``partial_out`` returns the f32
+fold before any rounding, and ``acc_in`` starts the fold from such a
+partial, so rank r continues rank r - 1's fold and the last rank rounds once
+(``models/gpt2.tp_sum``): ``((p0 + p1) + p2) + p3`` whether one card or
+several compute it.
 """
 
 from __future__ import annotations
@@ -42,6 +52,9 @@ MAX_RANGES = 16    # K ranges at most: the blocks of one cluster
 MAX_SLOTS = 4      # stages in flight at most
 TILE_WIDTHS = (64, 32)  # bf16 column tiles, tried in this order
 _STAGE = {torch.bfloat16: 64, torch.float32: 32}
+# the SMs whose plans a CPU tensor-parallel mesh is checked against (an H100
+# SXM's): the plain products follow no plan
+REFERENCE_SM_COUNT = 132
 
 
 class Plan(NamedTuple):
@@ -102,11 +115,74 @@ def plan(K: int, N: int, dtype: torch.dtype, sm_count: int) -> Plan:
     return Plan("tiled", bn, bk, _ranges(K, bk, spr), min(spr, MAX_SLOTS))
 
 
-def plan_of(x: torch.Tensor, w: torch.Tensor, sm_count: int) -> Plan:
+def plan_of(x: torch.Tensor, w: torch.Tensor, sm_count: int, plan_shape=None) -> Plan:
     """The plan the wrapper runs for ``x @ w``: read from w's shape and x's
-    type alone (x's rows and batch never reach :func:`plan`)."""
+    type alone (x's rows and batch never reach :func:`plan`); with
+    ``plan_shape`` = (K, N) of the full weight, the plan of w as its shard
+    (:func:`shard_plan`)."""
     K, N = w.shape[-2:]
-    return plan(K, N, x.dtype, sm_count)
+    if plan_shape is None or tuple(plan_shape) == (K, N):
+        return plan(K, N, x.dtype, sm_count)
+    return shard_plan(K, N, x.dtype, sm_count, tuple(plan_shape))
+
+
+@functools.lru_cache(maxsize=None)
+def shard_plan(K: int, N: int, dtype: torch.dtype, sm_count: int,
+               full: Tuple[int, int]) -> Plan:
+    """The plan of a tensor-parallel shard ``[K, N]`` of a ``full`` ``(K_f,
+    N_f)`` weight, such that every output's sum is the full product's.
+
+    * A column shard (``K == K_f``) keeps the full plan's K ranges; only its
+      column tile follows the shard (the first of :data:`TILE_WIDTHS` whose
+      tiles x ranges fill the card, as :func:`plan` picks).
+    * A row shard (``N == N_f``, ``K_f`` a multiple of K) runs, at each
+      rank, the ranges of the full plan its K slice covers, in order: on the
+      bf16 tiled path the slices must start and end on range boundaries
+      (:func:`row_shards_align`; ``ValueError`` otherwise); the f32 path's
+      one FMA chain over k simply continues from ``acc_in`` at any k.
+    """
+    Kf, Nf = full
+    pf = plan(Kf, Nf, dtype, sm_count)
+    if K == Kf:
+        if pf.path == "small" or dtype == torch.float32 or N == Nf:
+            return pf
+        r = len(pf.ranges)
+        best = None
+        for bn in TILE_WIDTHS:
+            blocks = -(-N // bn) * r
+            if best is None or blocks > best[0]:
+                best = (blocks, bn)
+            if blocks >= sm_count:
+                break
+        return pf._replace(bn=best[1])
+    if N != Nf or Kf % K:
+        raise ValueError(f"shard_plan: [{K}, {N}] is neither a column nor a row "
+                         f"shard of [{Kf}, {Nf}]")
+    if not row_shards_align(Kf, Nf, dtype, sm_count, Kf // K):
+        raise ValueError(
+            f"shard_plan: the plan of [{Kf}, {Nf}] ({len(pf.ranges)} K ranges of "
+            f"{pf.spr * pf.bk}) does not cut at the row shards' boundaries "
+            f"(every {K} values): the shards cannot keep the one device's order")
+    if pf.path == "tiled" and dtype != torch.float32:
+        return pf._replace(ranges=_ranges(K, pf.bk, pf.spr))
+    return pf._replace(ranges=((0, K),))
+
+
+def row_shards_align(K: int, N: int, dtype: torch.dtype, sm_count: int, tp: int) -> bool:
+    """Whether ``tp`` row shards of a ``[K, N]`` weight can fold the full
+    product's sums in order: the f32 path (one FMA chain over k) at any cut,
+    the bf16 tiled path where every shard boundary is a boundary of the full
+    plan's K ranges; the small path (K <= :data:`SMALL_K`) never splits."""
+    if K % tp:
+        return False
+    if tp == 1:
+        return True
+    pl = plan(K, N, dtype, sm_count)
+    if pl.path == "small":
+        return False
+    if dtype == torch.float32:
+        return True
+    return (K // tp) % (pl.spr * pl.bk) == 0
 
 
 def _ranges(K: int, bk: int, spr: int) -> Tuple[Tuple[int, int], ...]:
@@ -125,11 +201,41 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def matmul_plain(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
+def matmul_plain(x: torch.Tensor, w: torch.Tensor, bias=None, acc_in=None,
+                 partial_out: bool = False, plan_shape=None) -> torch.Tensor:
     """``x @ w (+ bias)``: the product rounded to x's type, then the sum with
-    the bias rounded once more."""
-    y = x @ w
+    the bias rounded once more. With ``acc_in`` (f32, ``[..., N]``) the f32
+    product is added to it before the rounding; with ``partial_out`` the f32
+    sum is returned, unrounded and without a bias (the kernel's two modes,
+    :func:`matmul`). ``plan_shape`` is the kernel's: the plain sums follow no
+    plan."""
+    _check_modes(x, w, bias, acc_in, partial_out)
+    if acc_in is None and not partial_out:
+        y = x @ w
+        return y if bias is None else y + bias
+    y = x.float() @ w.float()
+    if acc_in is not None:
+        y = acc_in + y
+    if partial_out:
+        return y
+    y = y.to(x.dtype)
     return y if bias is None else y + bias
+
+
+def _check_modes(x, w, bias, acc_in, partial_out):
+    """A partial has no bias (the last rank adds it); ``acc_in`` is f32 of
+    the output's shape; neither mode takes the batched form."""
+    if acc_in is None and not partial_out:
+        return
+    if w.dim() != 2:
+        raise ValueError("matmul: acc_in / partial_out take w [K, N], not a batch")
+    if partial_out and bias is not None:
+        raise ValueError("matmul: partial_out returns the f32 fold: no bias")
+    want = (*x.shape[:-1], w.shape[-1])
+    if acc_in is not None and (acc_in.dtype != torch.float32
+                               or tuple(acc_in.shape) != want):
+        raise ValueError(f"matmul: acc_in {tuple(acc_in.shape)} {acc_in.dtype}: f32 "
+                         f"{want} (the output's shape)")
 
 
 def _weight_layout(w: torch.Tensor, vec: int):
@@ -146,12 +252,14 @@ def _weight_layout(w: torch.Tensor, vec: int):
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, bias, pl: Plan = None,
-            form: int = 0) -> torch.Tensor:
+            form: int = 0, acc_in=None, partial_out: bool = False,
+            plan_shape=None) -> torch.Tensor:
     """Validate, plan and launch ``mmtg_matmul``. ``pl``: a plan to run
-    instead of :func:`plan`'s; ``form``: 1 the cluster form, 2 / 3 the
-    one-block form with 64- / 128-row tiles (3: 64-column tiles only), 0 the
-    launch's pick (the same bits; ``tools/matmul_plans`` times candidates and
-    forms)."""
+    instead of :func:`plan`'s (or :func:`shard_plan`'s for ``plan_shape``);
+    ``form``: 1 the cluster form, 2 / 3 the one-block form with 64- / 128-row
+    tiles (3: 64-column tiles only), 0 the launch's pick (the same bits;
+    ``tools/matmul_plans`` times candidates and forms); ``acc_in`` /
+    ``partial_out``: :func:`matmul`'s modes."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"matmul: dtype {x.dtype} not f32/bf16")
     if w.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):
@@ -169,10 +277,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias, pl: Plan = None,
     K, N = w.shape[-2:]
     if bias is not None and bias.shape != (N,):
         raise ValueError(f"matmul: bias {tuple(bias.shape)} for N={N}")
-    for t in (w,) + (() if bias is None else (bias,)):
+    _check_modes(x, w, bias, acc_in, partial_out)
+    for t in (w,) + tuple(t for t in (bias, acc_in) if t is not None):
         if t.device != x.device:
             raise ValueError("matmul: all tensors must be on one CUDA device")
-    pl = pl or plan_of(x, w, _sm_count(x.device))
+    pl = pl or plan_of(x, w, _sm_count(x.device), plan_shape)
+    if pl.path == "small" and (acc_in is not None or partial_out):
+        raise ValueError(f"matmul: K = {K} takes the small path, which has no "
+                         "acc_in / partial_out")
     lead = x.shape[:-1]
     if pl.path == "small":  # single values: no padding, no alignment
         x = x.contiguous()
@@ -190,32 +302,43 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias, pl: Plan = None,
             x = x.clone()
         if wk.data_ptr() % 16:
             wk = wk.clone()
-    out = torch.empty(*lead, N, dtype=x.dtype, device=x.device)
+    out = torch.empty(*lead, N, dtype=torch.float32 if partial_out else x.dtype,
+                      device=x.device)
     Z = x.shape[0] if batched else 1
     M = x.numel() // (Z * K)
     b = None if bias is None else bias.contiguous()
+    acc = None if acc_in is None else acc_in.contiguous()
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.mmtg_matmul(
             x.data_ptr(), wk.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), Z, M, N, K, M * K, K * N, M * N, int(trans),
+            out.data_ptr(), None if acc is None else acc.data_ptr(), int(partial_out),
+            Z, M, N, K, M * K, K * N, M * N, int(trans),
             _DTYPE_CODE[x.dtype], _PATH_CODE[pl.path], pl.bn, pl.spr, len(pl.ranges),
             pl.slots, form, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mmtg_matmul")
     return out
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, bias=None, acc_in=None,
+           partial_out: bool = False, plan_shape=None) -> torch.Tensor:
     """``x [..., K] @ w [K, N] (+ bias [N])`` → ``[..., N]`` in x's type, or
     batched (the attention's per-head products): ``x [Z, M, K] @ w [Z, K,
     N]``. ``w`` may be a transposed view (the tied LM head's ``wte.T``, the
     keys ``k.transpose(-1, -2)``): it is read in place where it is the
-    transpose of a contiguous matrix."""
+    transpose of a contiguous matrix.
+
+    The tensor-parallel modes (w ``[K, N]``, the tiled path): ``acc_in`` (f32
+    ``[..., N]``) is the fold the K ranges' partials are added to, before
+    the first; ``partial_out`` returns that fold in f32, before the rounding
+    and without a bias. ``plan_shape`` = (K, N) of the full weight whose
+    shard w is (:func:`shard_plan`)."""
     if x.device.type == "cpu":
-        return matmul_plain(x, w, bias)
+        return matmul_plain(x, w, bias, acc_in, partial_out)
     if x.device.type != "cuda":
         raise ValueError(f"matmul: unsupported device {x.device}")
-    out = _launch(x, w, bias)
+    out = _launch(x, w, bias, acc_in=acc_in, partial_out=partial_out,
+                  plan_shape=plan_shape)
     matmul.launches += 1
     return out
 

@@ -235,9 +235,40 @@ def decode_shard(params: Dict, n_head: int, head_dim: int, tp: int,
 
 
 def shard_decode_params(params: Dict, mesh, n_head: int, head_dim: int) -> Dict:
-    """This rank's TP shard of the full MMTG tree (its ``model`` index)."""
-    return decode_shard(params, n_head, head_dim, mesh_sizes(mesh)[1],
-                        mesh_coords(mesh)[1])
+    """This rank's TP shard of the full MMTG tree (its ``model`` index).
+    Raises ``ValueError`` where the row-parallel products could not fold in
+    the one device's order (:func:`check_row_shards`)."""
+    tp = mesh_sizes(mesh)[1]
+    check_row_shards(params, tp)
+    return decode_shard(params, n_head, head_dim, tp, mesh_coords(mesh)[1])
+
+
+def check_row_shards(params: Dict, tp: int) -> None:
+    """``ValueError`` unless ``tp`` row shards of each row-parallel weight
+    (``attn_proj_w``, ``mlp_proj_w``) cut at boundaries of the full
+    product's K ranges (``ops/matmul.row_shards_align``), so that the
+    decode's ordered fold (``models/gpt2.tp_sum``) gives the one device's
+    sums. The plan depends on the card's SM count; CPU tensors, which run
+    the plain products, are checked against an H100 SXM's
+    (``ops/matmul.REFERENCE_SM_COUNT``), so a CPU mesh refuses what that card
+    would."""
+    from mmtg_tpu_torch.ops import matmul as mm
+
+    if tp == 1:
+        return
+    h = params["gpt2"]["h"]
+    for key in ("attn_proj_w", "mlp_proj_w"):
+        w = h[key]
+        sm = mm._sm_count(w.device) if w.is_cuda else mm.REFERENCE_SM_COUNT
+        K, N = w.shape[-2:]
+        if not mm.row_shards_align(K, N, w.dtype, sm, tp):
+            pl = mm.plan(K, N, w.dtype, sm)
+            raise ValueError(
+                f"tensor parallelism over {tp} ranks: {key} [{K}, {N}] in {w.dtype} "
+                f"is summed in {len(pl.ranges)} K ranges of {pl.spr * pl.bk} values on "
+                f"a card of {sm} SMs, and its row shards of {K // tp if K % tp == 0 else K / tp} "
+                "do not cut at their boundaries: the mesh cannot give the one "
+                "device's tokens (pick a model width that divides)")
 
 
 def local_rows(n: int, mesh) -> slice:

@@ -14,7 +14,10 @@ the port's service. Two checks:
   its default bucket menu (bf16 weights and an int8 cache) on the per-layer
   step and the whole-step kernel, and the per-layer step with a cache of the
   model dtype.
-* :func:`op_probe`: each op of the encoder, the prefill, one decode step and
+* :func:`op_probe`: each op of the encoder (every channel kind: the default
+  single-layer GRU's fused kernel, and the LSTM, RNN, 2-layer GRU and TRM
+  stacks at full width from seeded weights of their own), the prefill, one
+  decode step and
   the sampler given the bit-identical input for one row at each row count M,
   (the first, the middle and the last row) beside random rows; it returns,
   per op, the row counts at which that row's output differs bit for bit from
@@ -53,6 +56,26 @@ PATHS = {
 }
 BATCHES = (1, 8, 16, 32, 64)
 LIBRARY = " [library]"  # an op the port no longer calls, probed for the record
+# the encoder channels beside the default single-layer GRU: (kind, layers)
+CHANNELS = {"LSTM": ("LSTM", 1), "RNN": ("RNN", 1), "GRU2": ("GRU", 2),
+            "TRM": ("TRM", 1)}
+
+
+def channel_op(name: str) -> str:
+    """The op probe's name of the :data:`CHANNELS` ``name`` stack."""
+    kind, layers = CHANNELS[name]
+    return f"encoder.{name.lower()} ({kind}, {layers} layer{'s' * (layers > 1)})"
+
+
+def channel_config(mcfg, name: str):
+    """``mcfg`` with both experience channels (image and text) of
+    :data:`CHANNELS` ``name``."""
+    import dataclasses
+
+    kind, layers = CHANNELS[name]
+    return dataclasses.replace(
+        mcfg, image=dataclasses.replace(mcfg.image, type=kind, num_layers=layers),
+        text=dataclasses.replace(mcfg.text, type=kind, num_layers=layers))
 
 
 def random_rows(n: int, mcfg, dcfg, gen: torch.Generator, dtype, device) -> Dict:
@@ -91,8 +114,9 @@ def decode_check(params, const, mcfg, dcfg, gcfg, sample: Dict,
                  seed: int = 0) -> Dict:
     """``sample`` (one row) decoded with row seed :data:`SEED` alone, then at
     each B of ``batches`` at rows 0, B // 2 and B - 1 of each neighbour set
-    (whose rows get seeds of their own). Returns ``{"first_diff": the earliest step
-    any placement differs at, or None, "runs": [...]}``."""
+    (whose rows get seeds of their own), on the model ``mcfg`` / ``params``
+    (any channel kinds: :func:`channel_config`). Returns ``{"first_diff": the
+    earliest step any placement differs at, or None, "runs": [...]}``."""
     from mmtg_tpu_torch import decoding
     from mmtg_tpu_torch.ops import prng
 
@@ -143,9 +167,15 @@ def decode_paths(params, const, mcfg, dcfg, sample, neighbour_sets,
 
 
 def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
+    import torch.nn.functional as F
+
+    from mmtg_tpu_torch.configs import ChannelConfig
     from mmtg_tpu_torch.models import gpt2
     from mmtg_tpu_torch.models.attention import alpha_attention, beta_attention
+    from mmtg_tpu_torch.models.encoder import _trm_forward
     from mmtg_tpu_torch.models.mmtg import encode_experiences, project_to_gpt2
+    from mmtg_tpu_torch.ops.rnn import rnn_forward
+    from mmtg_tpu_torch.params import _Init, tree_to
     from mmtg_tpu_torch.ops import decode_attention as da
     from mmtg_tpu_torch.ops import prng
     from mmtg_tpu_torch.ops.cumsum import row_cumsum
@@ -166,7 +196,8 @@ def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
     pos = T - 21  # the last decode step's position
     eps = cfg.layer_norm_epsilon
     enc = params["encoder"]
-    gru = enc["image"]["layers"][0] if "layers" in enc["image"] else None
+    gru = (enc["image"]["layers"][0]
+           if mcfg.image.type == "GRU" and mcfg.image.num_layers == 1 else None)
 
     def cache_rows(kind, layers):
         # per row: [L, T, row] cache rows and [L, T] scales (int8) or [L, T, D]
@@ -255,6 +286,23 @@ def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
                 per_row_keys=True)
         return {"logits": (V,), "seen": (V,)}, run
 
+    def channel_ops(name):
+        # a channel stack of its own seeded weights at the repo's widths:
+        # what the port runs (the kernels) and the library calls it replaced
+        kind, layers = CHANNELS[name]
+        tree = tree_to(_Init(7).channel(ChannelConfig(input_dim=E, hidden_dim=Hs, type=kind,
+                                                      num_layers=layers)), device, dtype)
+        label = channel_op(name)
+        if kind == "TRM":
+            def run(use):
+                return lambda x: _trm_forward(tree, x["x"].to(dtype), use_kernels=use)
+        else:
+            def run(use):
+                return lambda x: rnn_forward(tree, x["x"].to(dtype), kind,
+                                             mm=matmul if use else matmul_plain)[0]
+        return {label + LIBRARY: ({"T:x": (S, E)}, run(False)),
+                label: ({"T:x": (S, E)}, run(True))}
+
     def lib(key, l=0, bias=None):  # torch.matmul (cuBLAS on the card)
         b = None if bias is None else p[bias][l]
         return lambda x: matmul_plain(x["x"].to(dtype), p[key][l], b)
@@ -292,6 +340,13 @@ def _ops(params, mcfg, dcfg, dtype, device) -> Dict[str, tuple]:
             lambda x: beta_attention(params["beta"], x["t"].to(dtype), x["i"].to(dtype),
                                      x["r"].to(dtype), True)),
         "encoder (whole)": ({"topic": (E,), "img": (S, E), "txt": (S, E)}, encoder_op),
+        **{k: v for name in CHANNELS for k, v in channel_ops(name).items()},
+        # the TRM block's elementwise and row ops at its widths (4 heads, the
+        # T x T scores' rows of 5; the MLP's 4 x 512)
+        "encoder.trm softmax": ({"x": (4, S, S)}, lambda x: torch.softmax(
+            x["x"].to(dtype), dim=-1)),
+        "encoder.trm gelu": ({"x": (S, 4 * Hs)}, lambda x: F.gelu(
+            x["x"].to(dtype), approximate="tanh")),
         # ---- the prefill (once a call; rows of P + 1 positions) -------------
         "projector (prefill rows) [library]": ({"x": (P + 1, E)}, lambda x: project_to_gpt2(
             params, x["x"].to(dtype))),
@@ -389,16 +444,18 @@ def _row_of(y, shapes: Dict, row: int):
 
 
 def op_probe(params, mcfg, dcfg, Ms: Sequence[int] = BATCHES,
-             dtype=torch.bfloat16, seed: int = 0, library: bool = True) -> Dict:
-    """Each op of :func:`_ops` (without ``library`` the port's alone) on one
-    fixed row at each M of ``Ms`` (at rows 0, M // 2 and M - 1 among random
-    rows). Returns ``{op: {"differs": [M, ...], "max_abs": largest
-    difference from the row alone}}``."""
+             dtype=torch.bfloat16, seed: int = 0, library: bool = True,
+             prefix: str = "") -> Dict:
+    """Each op of :func:`_ops` (without ``library`` the port's alone; with
+    ``prefix`` those whose name starts with it) on one fixed row at each M of
+    ``Ms`` (at rows 0, M // 2 and M - 1 among random rows). Returns ``{op:
+    {"differs": [M, ...], "max_abs": largest difference from the row
+    alone}}``."""
     device = params["gpt2"]["wte"].device
     found = {}
     with torch.no_grad():
         for name, (shapes, fn) in _ops(params, mcfg, dcfg, dtype, device).items():
-            if not library and name.endswith(LIBRARY):
+            if (not library and name.endswith(LIBRARY)) or not name.startswith(prefix):
                 continue
             gen = torch.Generator(device=device).manual_seed(seed)
             fixed = {n: torch.randn(s, generator=gen, device=device)
@@ -442,7 +499,8 @@ def full_size_model(seed: int = 0, dtype=torch.bfloat16, device="cuda", mcfg=Non
 
 def run(args, mcfg=None, dcfg=None, model=None) -> Dict:
     """The two checks at ``args``' sizes; ``model``: (mcfg, dcfg, params,
-    const) already built."""
+    const) already built (``mcfg`` may name any channels:
+    :func:`channel_config`)."""
     dtype = getattr(torch, args.dtype)
     if model is None:
         model = full_size_model(args.seed, dtype, args.device, mcfg, dcfg)

@@ -983,6 +983,87 @@ def test_matmul_split_forms_give_the_same_bits(cuda, K, N, M):
         assert torch.equal(y, auto), form
 
 
+# the tensor-parallel modes: a row-parallel product as tp ranks compute it
+# (rank 0 `partial_out`, the next ranks `acc_in` + `partial_out`, the last
+# `acc_in` and the rounding) on the row shards of attn_proj and mlp_proj at
+# D = 768, in every form of the bf16 tiled path (0 the launch's pick, 1 the
+# cluster form, 2 / 3 the one-block form with 64- / 128-row tiles) and on
+# the f32 path
+_TP_ROWS = {"attn_proj": (768, 768), "mlp_proj": (3072, 768)}
+_TP_FORMS = [(torch.bfloat16, f) for f in (0, 1, 2, 3)] + [(torch.float32, 0)]
+
+
+def _tp_inputs(gen, dtype, M, K, N):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=gen, device="cuda") * 0.02).to(dtype)
+    b = (torch.randn(N, generator=gen, device="cuda") * 0.1).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype,form", _TP_FORMS, ids=lambda v: str(v).split(".")[-1])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("case", sorted(_TP_ROWS))
+@pytest.mark.parametrize("M", [1, 64, 512])
+def test_matmul_tp_chain_gives_the_whole_products_bits(cuda, dtype, form, tp, case, M):
+    K, N = _TP_ROWS[case]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if not mm.row_shards_align(K, N, dtype, sm, tp):
+        pytest.skip(f"{sm} SMs: the plan does not cut at {tp} row shards")
+    x, w, b = _tp_inputs(cuda, dtype, M, K, N)
+    whole = mm._launch(x, w, b, None, form)
+    k = K // tp
+    pl = mm.shard_plan(k, N, dtype, sm, (K, N))
+    acc = None
+    for r in range(tp):
+        last = r == tp - 1
+        acc = mm._launch(x[:, r * k:(r + 1) * k].contiguous(), w[r * k:(r + 1) * k],
+                         b if last else None, pl, form, acc_in=acc, partial_out=not last)
+        assert acc.dtype == (dtype if last else torch.float32)
+    assert torch.equal(acc, whole)
+
+
+@pytest.mark.parametrize("dtype,form", _TP_FORMS, ids=lambda v: str(v).split(".")[-1])
+@pytest.mark.parametrize("case", sorted(_TP_ROWS))
+@pytest.mark.parametrize("M", [1, 64, 512])
+def test_matmul_tp_modes_match_plain(cuda, dtype, form, case, M):
+    """``partial_out``: the f32 fold within 1e-5 of the largest f32
+    product; ``acc_in``: the product added to it, rounded, within the
+    product's tolerance of the plain version; a row alone has its bits among
+    M in both modes."""
+    K, N = _TP_ROWS[case]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    x, w, b = _tp_inputs(cuda, dtype, M, K // 2, N)
+    acc = torch.randn(M, N, generator=cuda, device="cuda")
+    pl = mm.shard_plan(K // 2, N, dtype, sm, (K, N))
+    part = mm._launch(x, w, None, pl, form, partial_out=True)
+    ref = mm.matmul_plain(x, w, partial_out=True)
+    assert part.dtype == torch.float32
+    assert (part - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    y = mm._launch(x, w, b, pl, form, acc_in=acc)
+    want = mm.matmul_plain(x, w, b, acc_in=acc)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (y.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+    r = M // 2
+    assert torch.equal(mm._launch(x[r:r + 1], w, None, pl, form, partial_out=True)[0], part[r])
+    assert torch.equal(mm._launch(x[r:r + 1], w, b, pl, form, acc_in=acc[r:r + 1])[0], y[r])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 3, 4])
+@pytest.mark.parametrize("K,N", [(768, 2304), (768, 3072)], ids=["qkv", "mlp_fc"])
+def test_matmul_column_shards_give_the_whole_products_columns(cuda, dtype, tp, K, N):
+    """A column shard run with the full weight's plan (``plan_shape``) has
+    the bits of its columns of the whole product, at M = 1, 64, 512."""
+    for M in (1, 64, 512):
+        x, w, b = _tp_inputs(cuda, dtype, M, K, N)
+        whole = mm.matmul(x, w, b)
+        n = N // tp
+        for r in range(tp):
+            cols = slice(r * n, (r + 1) * n)
+            got = mm.matmul(x, w[:, cols].contiguous(), b[cols], plan_shape=(K, N))
+            assert torch.equal(got, whole[:, cols]), (M, r)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("residual", [False, True], ids=["plain_form", "residual_form"])
 @pytest.mark.parametrize("D", [768, 512, 48, 100])
