@@ -28,6 +28,13 @@ computes off the TPU). Without a counterpart here: the TPU layout work
 ``% 128`` lane gate of ``resolve_attn_impl``) and the B = 1 switch to XLA
 attention.
 
+Spans (:func:`mmtg_tpu_torch.utils.logging.span`): ``decode.call`` over a
+call (the streaming forms: over the set-up and over each block),
+``decode.setup`` over the encoder, the prefill and the decode weights'
+preparation, and one ``decode.step`` a step holding ``decode.sample``
+(sampled steps only: none on a frame-forced step), ``decode.embed`` and
+``decode.model``.
+
 :func:`generate_sharded` / :func:`generate_stream_sharded` decode over a
 ``(data, model)`` process mesh (:mod:`mmtg_tpu_torch.parallel.mesh`): every
 rank is called with the global batch, decodes its data shard's rows —
@@ -61,6 +68,7 @@ from mmtg_tpu_torch.models.mmtg import (
 from mmtg_tpu_torch.ops import prng
 from mmtg_tpu_torch.ops.sampling import frame_forced_token, sample_next_token
 from mmtg_tpu_torch.parallel import mesh as pmesh
+from mmtg_tpu_torch.utils.logging import span
 
 SPECIAL = SpecialTokens()
 _CACHE_DTYPES = ("model", "int8", "int4")
@@ -258,16 +266,17 @@ def _decode_setup(params, const, mcfg, dcfg, gcfg, batch, generator, row_seeds,
     keys = _step_keys(generator, row_seeds, B, gcfg.length, dev)
     per_row = row_seeds is not None
 
-    fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
-                                  batch["img_embs"], batch["r_embs"],
-                                  use_kernels=True)
-    start = torch.full((B,), SPECIAL.start_id, dtype=torch.int64, device=dev)
-    last_logits, cache, key_mask = _prefill(
-        params, table, mcfg, dcfg, gcfg, batch, fused, start, capacity,
-        attn_impl, tp_group)
-    gpt2_params = params["gpt2"]
-    if weight_dtype == "int8":
-        gpt2_params = quantize_decode_weights(gpt2_params, scale_group=tp_group)
+    with span("decode.setup"):
+        fused, _ = encode_experiences(params, mcfg, batch["topic_emb"],
+                                      batch["img_embs"], batch["r_embs"],
+                                      use_kernels=True)
+        start = torch.full((B,), SPECIAL.start_id, dtype=torch.int64, device=dev)
+        last_logits, cache, key_mask = _prefill(
+            params, table, mcfg, dcfg, gcfg, batch, fused, start, capacity,
+            attn_impl, tp_group)
+        gpt2_params = params["gpt2"]
+        if weight_dtype == "int8":
+            gpt2_params = quantize_decode_weights(gpt2_params, scale_group=tp_group)
 
     tokens = torch.zeros(B, gcfg.length + 1, dtype=torch.int32, device=dev)
     tokens[:, 0] = SPECIAL.start_id
@@ -278,25 +287,30 @@ def _decode_setup(params, const, mcfg, dcfg, gcfg, batch, generator, row_seeds,
     rows = torch.arange(B, device=dev)
 
     def step(i: int) -> None:
-        is_forced, forced_id = frame_forced_token(i, dcfg.sent_frame_length)
-        if is_forced:
-            tok = torch.full((B,), forced_id, dtype=torch.int64, device=dev)
-        else:
-            key = keys[..., i, :] if isinstance(keys, torch.Tensor) else keys
-            tok = sample_next_token(
-                key, state.last_logits, state.seen, state.tokens[:, i],
-                temperature=gcfg.temperature, top_k=gcfg.top_k,
-                top_p=gcfg.top_p, repetition_penalty=gcfg.repetition_penalty,
-                topk_impl=gcfg.topk_impl, per_row_keys=per_row,
-            ).to(torch.int64)
-        j = i + 1
-        state.tokens[:, j] = tok.to(torch.int32)
-        state.seen[rows, tok] += 1
-        x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
-        state.key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
-        state.last_logits = gpt2_decode_step(
-            gpt2_params, mcfg.gpt2, state.cache, x, P + j, tt, state.key_mask,
-            attn_impl=attn_impl, tp_group=tp_group)
+        with span("decode.step"):
+            is_forced, forced_id = frame_forced_token(i, dcfg.sent_frame_length)
+            if is_forced:
+                tok = torch.full((B,), forced_id, dtype=torch.int64, device=dev)
+            else:
+                key = keys[..., i, :] if isinstance(keys, torch.Tensor) else keys
+                with span("decode.sample"):
+                    tok = sample_next_token(
+                        key, state.last_logits, state.seen, state.tokens[:, i],
+                        temperature=gcfg.temperature, top_k=gcfg.top_k,
+                        top_p=gcfg.top_p,
+                        repetition_penalty=gcfg.repetition_penalty,
+                        topk_impl=gcfg.topk_impl, per_row_keys=per_row,
+                    ).to(torch.int64)
+            j = i + 1
+            with span("decode.embed"):
+                state.tokens[:, j] = tok.to(torch.int32)
+                state.seen[rows, tok] += 1
+                x, tt = _step_embed(params, table, dcfg, fused, gcfg, tok, j)
+                state.key_mask[:, P + j] = (tok != SPECIAL.pad_id).to(torch.int32)
+            with span("decode.model"):
+                state.last_logits = gpt2_decode_step(
+                    gpt2_params, mcfg.gpt2, state.cache, x, P + j, tt,
+                    state.key_mask, attn_impl=attn_impl, tp_group=tp_group)
 
     return state, step
 
@@ -329,10 +343,11 @@ def generate(
     Returns:
       ``[B, 1 + length]`` int32 token ids, position 0 = ``[#START#]``.
     """
-    state, step = _decode_setup(params, const, mcfg, dcfg, gcfg, batch,
-                                generator, row_seeds)
-    for i in range(gcfg.length):
-        step(i)
+    with span("decode.call"):
+        state, step = _decode_setup(params, const, mcfg, dcfg, gcfg, batch,
+                                    generator, row_seeds)
+        for i in range(gcfg.length):
+            step(i)
     return state.tokens
 
 
@@ -360,13 +375,13 @@ def generate_stream(
     nothing waits for the device before the caller reads it."""
     chunk = dcfg.sent_frame_length if chunk is None else chunk
     chunk = max(1, min(int(chunk), gcfg.length))
-    with torch.no_grad():
+    with torch.no_grad(), span("decode.call"):
         state, step = _decode_setup(params, const, mcfg, dcfg, gcfg, batch,
                                     generator, row_seeds)
     start = 0
     while start < gcfg.length:
         n = min(chunk, gcfg.length - start)
-        with torch.no_grad():  # not held across the yield
+        with torch.no_grad(), span("decode.call"):  # not held across the yield
             for i in range(start, start + n):
                 step(i)
             block = state.tokens[:, start + 1:start + n + 1].clone()
@@ -544,12 +559,13 @@ def generate_sharded(
     resolves to the model dtype. The whole-step kernel (``fused``) runs on
     DP-only meshes; under TP the per-layer kernels do.
     """
-    gcfg, state, step, data_group, model_group, tp = _sharded_setup(
-        params, const, mcfg, dcfg, gcfg, batch, generator, mesh, row_seeds)
-    for i in range(gcfg.length):
-        step(i)
-    _check_tp_agreement(state.tokens, model_group, tp)
-    return pmesh.all_gather_cat(state.tokens, data_group)
+    with span("decode.call"):
+        gcfg, state, step, data_group, model_group, tp = _sharded_setup(
+            params, const, mcfg, dcfg, gcfg, batch, generator, mesh, row_seeds)
+        for i in range(gcfg.length):
+            step(i)
+        _check_tp_agreement(state.tokens, model_group, tp)
+        return pmesh.all_gather_cat(state.tokens, data_group)
 
 
 def generate_stream_sharded(
@@ -581,13 +597,13 @@ def generate_stream_sharded(
             "DP-only mesh")
     chunk = dcfg.sent_frame_length if chunk is None else chunk
     chunk = max(1, min(int(chunk), gcfg.length))
-    with torch.no_grad():
+    with torch.no_grad(), span("decode.call"):
         gcfg, state, step, data_group, model_group, tp = _sharded_setup(
             params, const, mcfg, dcfg, gcfg, batch, generator, mesh, row_seeds)
     start = 0
     while start < gcfg.length:
         n = min(chunk, gcfg.length - start)
-        with torch.no_grad():  # not held across the yield
+        with torch.no_grad(), span("decode.call"):  # not held across the yield
             for i in range(start, start + n):
                 step(i)
             block = state.tokens[:, start + 1:start + n + 1].contiguous()

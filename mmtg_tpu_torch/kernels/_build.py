@@ -7,7 +7,9 @@ under the repository root (``build/`` is git-ignored), loaded with
 ``ctypes``. The hash covers the sources and the flags, so an edited source
 builds anew and an unchanged one is reused. Nothing is built at import:
 :func:`load` runs on the first kernel launch, and only on a machine with the
-CUDA toolkit.
+CUDA toolkit. The first :func:`load` is a ``kernels.load`` span and a
+compile inside it a ``kernels.build`` one
+(:func:`mmtg_tpu_torch.utils.logging.span`).
 
 Processes that start together (the ranks of a ``torchrun`` job) build once:
 :func:`build` holds an exclusive ``fcntl.flock`` on ``build/kernels/.lock``
@@ -31,6 +33,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from mmtg_tpu_torch.utils.logging import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -98,35 +102,36 @@ def build() -> str:
 
 
 def _compile(out: str) -> None:
-    nvcc = _nvcc()
-    tmp = f"{out}.tmp{os.getpid()}"
-    objs, procs = [], []
-    for src in sources():  # one compiler per source, all at once
-        obj = f"{tmp}.{os.path.basename(src)}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    log, failed = "", []
-    for src, proc in zip(sources(), procs):
-        stdout, stderr = proc.communicate()
-        log += f"== {os.path.basename(src)}\n{stdout}{stderr}"
-        if proc.returncode != 0:
-            failed.append(os.path.basename(src))
-    try:
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
-        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
-                              capture_output=True, text=True, check=False)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
-    finally:
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
-    with open(out + ".log", "w") as f:
-        f.write(log + link.stdout + link.stderr)
-    os.replace(tmp, out)  # atomic: a reader sees all or nothing
+    with span("kernels.build"):
+        nvcc = _nvcc()
+        tmp = f"{out}.tmp{os.getpid()}"
+        objs, procs = [], []
+        for src in sources():  # one compiler per source, all at once
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        log, failed = "", []
+        for src, proc in zip(sources(), procs):
+            stdout, stderr = proc.communicate()
+            log += f"== {os.path.basename(src)}\n{stdout}{stderr}"
+            if proc.returncode != 0:
+                failed.append(os.path.basename(src))
+        try:
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True, check=False)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+        with open(out + ".log", "w") as f:
+            f.write(log + link.stdout + link.stderr)
+        os.replace(tmp, out)  # atomic: a reader sees all or nothing
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -164,7 +169,8 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(build()))
+            with span("kernels.load"):
+                _lib = _bind(ctypes.CDLL(build()))
         return _lib
 
 

@@ -21,7 +21,13 @@ through a differentiable cast. The train state is UPDATED IN PLACE by a step
         --token_emb_path token_id2emb_dict.pkl --save_model --save_path ckpt
 
 ``--profile_dir DIR`` writes a ``torch.profiler`` Chrome trace of steps
-10-30 of the first epoch into DIR (:func:`mmtg_tpu_torch.utils.logging.maybe_profile`).
+10-30 of the first epoch into DIR (:func:`mmtg_tpu_torch.utils.logging.maybe_profile`),
+with the step's spans (:func:`mmtg_tpu_torch.utils.logging.span`):
+``train.step`` over a step, ``train.forward`` (the loss included) and
+``train.backward`` (the remat recompute included) over each accumulation
+chunk, ``train.optimizer`` over the clip and AdamW. On a mesh the global
+clip norm is summed across ranks with the gradients, so its reduction is
+counted in ``train.step`` and only the clip itself in ``train.optimizer``.
 ``--gpt2_ckpt`` reads ``pytorch_model.bin`` and ``model.safetensors``
 snapshots and reference ``.pth`` files.
 
@@ -87,6 +93,7 @@ from mmtg_tpu_torch.utils.logging import (
     format_time,
     maybe_profile,
     setup_logger,
+    span,
 )
 
 
@@ -141,28 +148,29 @@ class AdamW:
         moments nor the count (and so the schedule). ``norm``: the global
         gradient norm to clip by, when ``grads`` are a part of the whole
         (a mesh rank's shards), else computed from ``grads``."""
-        leaves, gs = tree_leaves(params), tree_leaves(grads)
-        mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
-        if norm is None:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
-        clip = torch.where(norm < self.clip_norm, torch.ones_like(norm),
-                           self.clip_norm / norm)
-        count = opt_state["count"]
-        lr = self.schedule(count)
-        t = (count + 1).to(torch.float32)
-        c1 = 1.0 - torch.pow(torch.tensor(self.b1, device=t.device), t)
-        c2 = 1.0 - torch.pow(torch.tensor(self.b2, device=t.device), t)
-        for p, g, mu, nu in zip(leaves, gs, mus, nus):
-            g = g.float() * clip
-            mu_new = self.b1 * mu + (1.0 - self.b1) * g
-            nu_new = self.b2 * nu + (1.0 - self.b2) * g.square()
-            upd = (mu_new / c1) / (torch.sqrt(nu_new / c2) + self.eps)
-            if self.weight_decay:
-                upd = upd + self.weight_decay * p
-            p.copy_(torch.where(keep, p - lr * upd, p))
-            mu.copy_(torch.where(keep, mu_new, mu))
-            nu.copy_(torch.where(keep, nu_new, nu))
-        count.add_(keep.to(count.dtype))
+        with span("train.optimizer"):
+            leaves, gs = tree_leaves(params), tree_leaves(grads)
+            mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+            if norm is None:
+                norm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+            clip = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                               self.clip_norm / norm)
+            count = opt_state["count"]
+            lr = self.schedule(count)
+            t = (count + 1).to(torch.float32)
+            c1 = 1.0 - torch.pow(torch.tensor(self.b1, device=t.device), t)
+            c2 = 1.0 - torch.pow(torch.tensor(self.b2, device=t.device), t)
+            for p, g, mu, nu in zip(leaves, gs, mus, nus):
+                g = g.float() * clip
+                mu_new = self.b1 * mu + (1.0 - self.b1) * g
+                nu_new = self.b2 * nu + (1.0 - self.b2) * g.square()
+                upd = (mu_new / c1) / (torch.sqrt(nu_new / c2) + self.eps)
+                if self.weight_decay:
+                    upd = upd + self.weight_decay * p
+                p.copy_(torch.where(keep, p - lr * upd, p))
+                mu.copy_(torch.where(keep, mu_new, mu))
+                nu.copy_(torch.where(keep, nu_new, nu))
+            count.add_(keep.to(count.dtype))
 
 
 def make_optimizer(tcfg: TrainConfig, warmup_steps: int, total_steps: int) -> AdamW:
@@ -322,10 +330,12 @@ def _numerators(params, const, mcfg, dcfg, tcfg, batch, stage, rng, **mesh_kw):
     for i in range(N):
         chunk = batch if N == 1 else {k: v[i * (B // N):(i + 1) * (B // N)]
                                       for k, v in batch.items()}
-        total, m = loss_and_metrics(params, const, mcfg, dcfg, tcfg, chunk,
-                                    stage, rng, False, **mesh_kw)
-        k = m["kept"].clamp_min(1.0)
-        gs = torch.autograd.grad(total * k, leaves, allow_unused=True)
+        with span("train.forward"):
+            total, m = loss_and_metrics(params, const, mcfg, dcfg, tcfg, chunk,
+                                        stage, rng, False, **mesh_kw)
+            k = m["kept"].clamp_min(1.0)
+        with span("train.backward"):
+            gs = torch.autograd.grad(total * k, leaves, allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
         m_num = torch.stack([m["loss"] * k, m["kl"] * k, m["total"] * k,
                              m["kept"]]).float()
@@ -432,40 +442,42 @@ def make_train_step(mcfg, dcfg, tcfg, tx: AdamW, pp=None, zero1: bool = False,
                    data_size=layout.dp)
 
     def train_step(state: TrainState, const: Dict, batch: Dict, stage: int):
-        base = int(torch.randint(0, 2 ** 62, (1,), generator=state.rng))
-        gen = torch.Generator().manual_seed(
-            fold_seed(base, layout.data_index, DATA_SALT))
-        grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg, batch,
-                                 int(stage), gen, **mesh_kw)
-        grads, num, norm = _MeshSums(layout, state.params).reduce(grads, num)
-        metrics = _metrics(num)
-        keep = metrics["kept"] > 0
-        leaves = tree_leaves(state.params)
-        if not zero1:
-            tx.update_(leaves, grads, state.opt_state, keep, norm=norm)
-        else:
-            part = pmesh.Zero1Partition(leaves, layout.dp, layout.data_index)
-            mine = part.local(part.flat(leaves)).clone()
-            tx.update_([mine], [part.local(part.flat(grads))], state.opt_state,
-                       keep, norm=norm)
-            with torch.no_grad():
-                for p, new in zip(leaves, part.unflat(part.gather(mine,
-                                                                  layout.data_group))):
-                    p.copy_(new)
-        return state._replace(step=state.step + 1), metrics
+        with span("train.step"):
+            base = int(torch.randint(0, 2 ** 62, (1,), generator=state.rng))
+            gen = torch.Generator().manual_seed(
+                fold_seed(base, layout.data_index, DATA_SALT))
+            grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg, batch,
+                                     int(stage), gen, **mesh_kw)
+            grads, num, norm = _MeshSums(layout, state.params).reduce(grads, num)
+            metrics = _metrics(num)
+            keep = metrics["kept"] > 0
+            leaves = tree_leaves(state.params)
+            if not zero1:
+                tx.update_(leaves, grads, state.opt_state, keep, norm=norm)
+            else:
+                part = pmesh.Zero1Partition(leaves, layout.dp, layout.data_index)
+                mine = part.local(part.flat(leaves)).clone()
+                tx.update_([mine], [part.local(part.flat(grads))], state.opt_state,
+                           keep, norm=norm)
+                with torch.no_grad():
+                    new = part.unflat(part.gather(mine, layout.data_group))
+                    for p, q in zip(leaves, new):
+                        p.copy_(q)
+            return state._replace(step=state.step + 1), metrics
 
     return train_step
 
 
 def _single_device_step(mcfg, dcfg, tcfg, tx):
     def train_step(state: TrainState, const: Dict, batch: Dict, stage: int):
-        grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg, batch,
-                                 int(stage), state.rng)
-        metrics = _metrics(num)
-        denom = metrics["kept"].clamp_min(1.0)
-        # tree_leaves order on both sides
-        tx.update_(tree_leaves(state.params), [g / denom for g in grads],
-                   state.opt_state, metrics["kept"] > 0)
+        with span("train.step"):
+            grads, num = _numerators(state.params, const, mcfg, dcfg, tcfg,
+                                     batch, int(stage), state.rng)
+            metrics = _metrics(num)
+            denom = metrics["kept"].clamp_min(1.0)
+            # tree_leaves order on both sides
+            tx.update_(tree_leaves(state.params), [g / denom for g in grads],
+                       state.opt_state, metrics["kept"] > 0)
         return state._replace(step=state.step + 1), metrics
 
     return train_step
