@@ -248,6 +248,9 @@ POSITIONS = (0, 15, 16, 127, 128, 235)
 TIMED_POSITION = 235  # the last decode step: the longest live prefix
 GRU_SHAPE = dict(T=5, B=64, I=2048, H=512)
 OTHER_BATCHES = (1, 512)  # phase 2 beside B=64: the p50 path and the widest batch
+# the benchmark's decode attention (zh-generate-b4096): 4096 rows, every slot
+# live, a mid-call and the last position; 4 layers in turn keep it cold
+WIDE_BATCH, WIDE_POSITIONS, WIDE_LAYERS = 4096, (126, 235), 4
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (attention, GRU)
 LENGTH = 220
 # the depth of the paths whose subject is not the decoder's depth: the
@@ -697,6 +700,38 @@ def _ptxas_of(name):
     return lines
 
 
+def _decode_attention_ptxas():
+    """Registers and spill bytes (stores, loads) of every instantiation of
+    csrc/decode_attention.cu's kernel (dtype, cache kind, int4 pair,
+    append), from the build log."""
+    import re
+
+    from mmtg_tpu_torch.kernels import _build
+
+    kinds = {"0": "fp", "1": "int8", "2": "int4"}
+    seen, current = {}, None
+    with open(_build.library_path() + ".log") as f:
+        for ln in f:
+            if "Compiling entry function" in ln or "Function properties for" in ln:
+                m = re.search(r"decode_attention_kernelI(\w+?)Li(\d)ELb([01])ELb([01])E", ln)
+                current = None if m is None else (
+                    f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} {kinds[m.group(2)]}"
+                    f"{' pair' if m.group(4) == '1' else ''}{' append' if m.group(3) == '1' else ''}")
+                continue
+            if current is None:
+                continue
+            entry = seen.setdefault(current, {})
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                entry["spill"] = (int(m.group(1)), int(m.group(2)))
+    check(seen, "decode_attention: no ptxas report in the build log")
+    return [f"{k}: {v.get('registers')} registers, spills {v.get('spill')}"
+            for k, v in sorted(seen.items())]
+
+
 def phase_block_fused(results, gen, B=B_ATT):
     """decode_block_fused (all 12 layers of one step in one launch) vs its plain
     version at the full model width, batch ``B``, T=256, positions POSITIONS;
@@ -889,6 +924,56 @@ def _decode_vs_plain(results, da, name, kind, append, dtype, B, gen, H=H, D=D,
             f"plain {plain_ms:.4f} ms library "
             f"{'none' if library_ms is None else format(library_ms, '.4f') + ' ms'}"
             f" bound {results[key]['bound_ms']:.4f} ms")
+
+
+def _decode_at_width(results, da, gen):
+    """decode_attention_int8_append at the benchmark's batch (WIDE_BATCH rows,
+    bf16, every slot live as in a generate call's cache): ctx within TOL of
+    the plain version and the appended bytes and scales bit for bit at each
+    position of WIDE_POSITIONS, then the device time beside the bound.
+    Stored under (name, "bfloat16", "B<B>", "pos<p>")."""
+    import torch
+
+    name, B, dtype = "decode_attention_int8_append", WIDE_BATCH, torch.bfloat16
+    q, k_new, v_new = (torch.randn(B, D, generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(3))
+    mask = torch.ones(B, T_CAP, device=DEVICE, dtype=torch.int32)
+    base = [torch.randint(-127, 128, (WIDE_LAYERS, B, T_CAP, D), generator=gen,
+                          device=DEVICE, dtype=torch.int8) for _ in range(2)]
+    base += [torch.rand(WIDE_LAYERS, B, T_CAP, generator=gen, device=DEVICE) * 0.02 + 0.005
+             for _ in range(2)]
+    lines = []
+    for pos in WIDE_POSITIONS:
+        kc = [c.clone() for c in base]
+        ctx = da.decode_attention_int8_append(q, k_new, v_new, *kc, mask, pos, 1, n_head=H)
+        ref = da.decode_attention_append_plain(q, k_new, v_new, base[0], base[1], mask,
+                                               pos, 1, H, *base[2:])
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(kc, base)),
+              f"{name} B={B} pos {pos}: a cache or scale tensor differs from the plain version")
+        err = (ctx.float() - ref.float()).abs().max().item()
+        check(err <= TOL["bfloat16"][0], f"{name} B={B} pos {pos}: ctx max-abs {err:.3g}")
+        del kc, ctx, ref
+        state = {"layer": 0}
+
+        def rotate(r):
+            state["layer"] = r % WIDE_LAYERS
+
+        ms = device_ms(lambda: da.decode_attention_int8_append(
+            q, k_new, v_new, *base, mask, pos, state["layer"], n_head=H), reps=11,
+            between=rotate)
+        W = pos + 1  # every slot live: q, the k/v rows and scales, mask, ctx, the appends
+        nbytes = (B * D * 2 + 2 * B * W * D + 2 * 4 * B * W + 4 * B * W + B * D * 2
+                  + 2 * B * D * 2 + 2 * B * D + 2 * 4 * B)
+        key = (name, "bfloat16", f"B{B}", f"pos{pos}")
+        results[key] = dict(max_abs_err=err, ms=ms, **bound(nbytes, 4.0 * B * W * D,
+                                                            "bfloat16"))
+        share = 100.0 * results[key]["bound_ms"] / ms
+        lines.append(f"{name}[bfloat16 B={B} pos {pos}, all live] err {err:.3g} kernel "
+                     f"{ms:.4f} ms bound {results[key]['bound_ms']:.4f} ms ({share:.1f}%)")
+    del base
+    torch.cuda.empty_cache()
+    return lines
 
 
 def _gru_vs_plain(results, fg, dtype, B, gen):
@@ -1258,6 +1343,9 @@ def phase_kernels(out):
             other.append(_gru_vs_plain(results, fg, dtype, B, gen_other))
         other += phase_block_fused(results, gen_other, B)
     print("phase 2 kernels vs plain at B=1 and B=512: ok; " + "; ".join(other))
+    wide = _decode_at_width(results, da, torch.Generator(device=DEVICE).manual_seed(3))
+    print(f"phase 2 decode attention at B={WIDE_BATCH}: ok; " + "; ".join(wide))
+    print("phase 2 decode_attention ptxas: " + "; ".join(_decode_attention_ptxas()))
     # the batch-invariant kernels at the decode's row counts, bf16, and f32 at
     # the kernels line's M = 64 (their own generator, as above)
     inv, gen_inv = [], torch.Generator(device=DEVICE).manual_seed(2)

@@ -23,312 +23,326 @@
 //      (online softmax); ctx is stored in q's type.
 //
 // What bounds it on the H100: bytes. Each call streams the live cache prefix
-// of one layer, (position + 1) * D bytes per row for int8, half that for int4
-// and 2x / 4x for bf16 / f32, and does 2 FLOPs per byte or less. The first
-// port ran one block per batch row (64 SMs at B = 64, ONE at B = 1), a warp
-// per head walking the slots one by one, 1-4 bytes a lane and a 5-step
-// shuffle chain per slot: a latency chain at 30-80x the byte bound.
+// of one layer, (position + 1) * D bytes of k and as many of v per row for
+// int8, half that for int4 and 2x / 4x for bf16 / f32, and does 2 FLOPs per
+// byte or less.
+//
+// Why the design before this one sat at 24% of that bound at B = 4096: it gave
+// a block of 128 threads one (batch row, head), 49,152 blocks a launch, each
+// streaming only (position + 1) * 64 bytes of k and of v (one or two rounds of
+// loads). Around those loads every block paid a cost that did not shrink with
+// its bytes, once per head: it recomputed and staged the codes of the whole
+// row's append (D lanes, two barriers), read the row's mask word before each
+// slot it loaded and the scales again, and merged its 32 groups through shared
+// memory in a serial 32-deep loop. Most of a block's life had no load in
+// flight.
 //
 // Design:
-//   * a block of 128 threads owns one (batch row, head) and one chunk of the
-//     slots: chunks of 256, their number a function of `position` alone
-//     (ops/decode_attention.split_slots), never of B, so a row's context is
-//     summed in the same tree at any batch size (the service promises one
-//     answer per (request, seed) whatever its window holds). Up to position
-//     255 (the default 220-token call) that is one chunk. With more, the
-//     partial (max, sum, accumulator) triples go to scratch that the wrapper
-//     allocates, and the block that finishes last (an atomic count, reset by
-//     that block for the next call) merges them in chunk order:
-//     reproducible. No split follows B: where B x heads cannot fill the card
-//     (B = 1), splitting into 16-slot chunks was no faster than one chunk
-//     (0.0147 against 0.0148 ms at position 235, NVIDIA H100 80GB HBM3 at
-//     700 W), and it made the tree depend on B.
+//   * a block owns a few heads (int4 head pairs) of one batch row and one
+//     chunk of its slots, a few warps each head, as kShapes sets them for the
+//     cache kind (never for the batch size): a grid of (head blocks, chunks,
+//     B). Chunks hold 256 slots,
+//     their number a function of `position` alone
+//     (ops/decode_attention.split_slots); up to position 255 (the default
+//     220-token call) that is one chunk. With more, each head's partial
+//     (max, sum, accumulator) goes to scratch that the wrapper allocates, and
+//     the block of the (row, head block) that finishes last (an atomic count,
+//     reset by that block for the next call) merges them in chunk order.
 //   * a lane loads 16 bytes of a slot's head row, neighbouring lanes the
 //     neighbouring bytes: a group of G = hd * size / 16 lanes covers the row
-//     (8 lanes for bf16 at hd = 64, 4 for int8), so a warp reads 32 / G slots
-//     a load, and each group keeps its own online softmax. A score is summed
-//     within its group (log2 G shuffles), never over the whole warp; the
-//     groups of the block merge once at the end. A lane issues the loads of 4
-//     slots before it reduces any of them.
+//     (4 lanes for int8 at hd = 64, 8 for bf16), and each group keeps its own
+//     online softmax. The head's warps * 32 / G groups take its slots in turn
+//     (attend_range), kUnroll slots of k and v in flight a lane. The shape is a
+//     trade: more warps a head finish a lone row in fewer rounds of loads
+//     (B = 1), fewer warps a row pay less fixed work a warp (query, merges,
+//     an unhidden first round) at B = 4096; each kind takes the shape that
+//     timed best across both on an H100.
+//   * the chunk's mask words and scales are read into shared memory once a
+//     block (not once a head), so a round of the sweep waits on one load, not
+//     on a mask word and then the slot it guards.
+//   * the append: the row's scales are an abs-max over all of k_new / v_new, so
+//     every block of the row whose chunk holds slot `position` computes them,
+//     but only the codes of its own heads (stage_quantized), and writes those
+//     codes (one writer a byte; head block 0 writes the scales; the odd-H int4
+//     path, whose heads straddle bytes, stages the whole row and lets head
+//     block 0 write it). No block reads slot `position` from the cache, so
+//     nothing races; every kind takes slot `position` at the same point of its
+//     sweep (after the chunk's other slots), so after an append the read-only
+//     kernel gives the same ctx bit for bit.
+//   * a head's groups merge inside each warp by shuffles in a fixed tree
+//     (merge_warp), then its warps' states in warp order through shared memory
+//     (merge_groups): a loop as deep as the warps a head, not 32 deep.
 //   * int4: heads h and h + H/2 share their bytes (byte j holds lane j low and
-//     lane j + D/2 high), so for even H (and 16 | hd) one block owns the head
-//     pair and each 16-byte load gives the 32 codes of both heads. Odd H, where
-//     D/2 falls inside a head, takes a plain path: a block per head, a lane
-//     reading single bytes and picking its nibble.
-//   * append with exact bytes: every block whose chunk holds slot `position`
-//     recomputes the row's scale (an abs-max over ALL heads of k_new / v_new)
-//     and the row's codes from the step's rows, and attends over slot
-//     `position` from those; exactly one of them (head 0) writes the codes and
-//     both scales. No block reads slot `position` from the cache, so nothing
-//     races. The read-only kernel takes slot `position` at the same point of
-//     its sweep (after the chunk's other slots), so after an append it gives
-//     the same ctx bit for bit.
-// The item's stages are the device functions of decode_attention.cuh, which
-// the whole-step kernel (decode_block_fused.cu) calls too.
+//     lane j + D/2 high), so for even H (and 16 | hd) a unit is the head pair
+//     and each 16-byte load gives the 32 codes of both heads. Odd H, where D/2
+//     falls inside a head, takes a plain path: a unit a head, a lane reading
+//     single bytes and picking its nibble.
+// How slots split among a head's groups and into chunks is a function of the
+// position, the cache kind, the dtype and the head width alone, never of B or
+// of the other heads: a row's context has the same bits at any batch size, and
+// a head the same bits in a tensor-parallel shard (fp cache; a quantized
+// row's scale spans the shard's heads).
 
 #include "decode_attention.cuh"
+
 
 namespace {
 
 using namespace mmtg;
 
-constexpr int kThreads = 128;
+// The block of each cache kind (fp, int8, int4 odd-H, int4 head pairs):
+// units (heads; head pairs) of one batch row, warps a unit, and the launch
+// bound's blocks an SM, which leaves a thread 65536 / (threads * blocks)
+// registers.
+constexpr int kShapes[4][3] = {{1, 4, 8}, {2, 2, 4}, {2, 2, 4}, {1, 4, 4}};
 
-// Head `hh` of this block (0 or, for a pair, 1) as a head index of the model.
+template <int KIND, bool PAIR>
+struct Shape {
+  static constexpr int kRow = KIND == kInt4 ? 2 + PAIR : KIND;
+  static constexpr int kUnits = kShapes[kRow][0], kWarps = kShapes[kRow][1];
+  static constexpr int kMinBlocks = kShapes[kRow][2], kThreads = 32 * kUnits * kWarps;
+};
+
+// Head `hh` of unit `u` (a head, or for a pair u and u + n_head/2).
 template <bool PAIR>
-__device__ __forceinline__ int head_of(int hb, int hh, int n_head) {
-  return PAIR ? hb + hh * (n_head / 2) : hb;
+__device__ __forceinline__ int head_of(int u, int hh, int n_head) {
+  return PAIR ? u + hh * (n_head / 2) : u;
 }
 
-// The body of one block; the two kernels below differ only in their launch
-// bounds.
-template <typename T, int KIND, bool APPEND, bool PAIR>
-__device__ __forceinline__ void attention_block(
-                        const T* __restrict__ q, const T* __restrict__ k_new,
-                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
-                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
-                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
-                        int B, int T_cap, int D, int n_head, int position, int layer,
-                        float q_scale, int row_stride, int chunk, int G) {
+struct Args {
+  const void *q, *k_new, *v_new;
+  void *k_cache, *v_cache;
+  float *k_scale, *v_scale;
+  const int32_t* key_mask;
+  void* ctx;
+  float* scratch;
+  int* counters;
+  int B, T_cap, D, n_head, position, layer;
+  float q_scale;
+  int row_stride, chunk;
+  int G;  // lanes a head row takes (group_lanes), set by launch
+};
+
+// One block: head block blockIdx.x (units kUnits * x ..), slot chunk
+// blockIdx.y, batch row blockIdx.z.
+template <typename T, int KIND, bool APPEND, bool PAIR, typename S = Shape<KIND, PAIR>>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+decode_attention_kernel(const __grid_constant__ Args a) {
   using K = Kind<T, KIND, PAIR>;
   using C = typename K::C;
-  constexpr int NH = K::NH, EPL = K::EPL;
+  constexpr int NH = K::NH, EPL = K::EPL, NW = S::kWarps, NT = 32 * NW;
   extern __shared__ float4 smem4[];
-  __shared__ float red[2][kThreads / 32];
+  __shared__ float red[2 * 32];
   __shared__ int is_last;
 
-  const int s_idx = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x, n_hb = gridDim.y;
-  const int tid = threadIdx.x;
-  const int hd = D / n_head;
-  const int n_groups = kThreads / G, grp = tid / G, lg = tid % G;
+  const int ub = blockIdx.x, s_idx = blockIdx.y, b = blockIdx.z;
+  const int n_ub = gridDim.x, n_split = gridDim.y;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  // the block's units, and this thread's: unit ul of the block, warp wi of it
+  const int D = a.D, n_head = a.n_head, hd = D / n_head, n_units = n_head / NH;
+  const int u0 = ub * S::kUnits, nu = min(S::kUnits, n_units - u0);
+  const int ul = tid / NT, utid = tid % NT, wi = utid >> 5, u = u0 + ul;
+  const bool active = ul < nu;  // the last head block may hold fewer units
+  const int G = a.G, n_groups = NW * (32 / G), grp = wi * (32 / G) + lane / G, lg = lane % G;
+  const int position = a.position, chunk = a.chunk;
   const int W = position + 1;
   const int lo = s_idx * chunk, hi = min(lo + chunk, W);
   const bool has_pos = hi == W;  // this chunk holds slot `position`
+  const int end = min(hi, position);  // the chunk's slots before `position`
+  const size_t rs = static_cast<size_t>(a.row_stride);
+  const int P = NH * (2 + hd);  // one unit's state: m[NH], l[NH], acc[NH][hd]
 
-  // row-element width of one stored row (bytes for int4, elements else)
+  // shared memory: the staged codes (append, quantized kinds), the chunk's
+  // mask words and k / v scales, then each unit's kWarps warp states
   const int row_w = KIND == kInt4 ? D / 2 : D;
-  unsigned char* stage_k = reinterpret_cast<unsigned char*>(smem4);  // APPEND, quantized
-  unsigned char* stage_v = stage_k + ((row_w + 15) & ~15);
-  float* gsum = reinterpret_cast<float*>(
-      stage_k + (APPEND && KIND != kFp ? 2 * ((row_w + 15) & ~15) : 0));
-  // gsum: [NH][n_groups] max, [NH][n_groups] sum, [NH][n_groups][hd] accumulators
-  float* gm = gsum;
-  float* gl = gm + NH * n_groups;
-  float* gacc = gl + NH * n_groups;
+  const int stage_b = (row_w + 15) & ~15;
+  int8_t* stage_k = reinterpret_cast<int8_t*>(smem4);
+  int8_t* stage_v = stage_k + stage_b;
+  int32_t* smask = reinterpret_cast<int32_t*>(stage_k + (APPEND && KIND != kFp ? 2 * stage_b : 0));
+  float* sks = reinterpret_cast<float*>(smask + chunk);
+  float* svs = sks + chunk;
+  float* gm = svs + chunk + ul * NW * P;  // m[NH][NW], l[NH][NW], acc[NH][NW][hd]
+  float* gl = gm + NH * NW;
+  float* gacc = gl + NH * NW;
 
-  const size_t row0 = (static_cast<size_t>(layer) * B + b) * T_cap;
-  C* k_rows = static_cast<C*>(k_cache_) + row0 * row_stride;
-  C* v_rows = static_cast<C*>(v_cache_) + row0 * row_stride;
-  const int32_t* mask_row = key_mask + static_cast<size_t>(b) * T_cap;
+  const size_t row0 = (static_cast<size_t>(a.layer) * a.B + b) * a.T_cap;
+  C* k_rows = static_cast<C*>(a.k_cache) + row0 * rs;
+  C* v_rows = static_cast<C*>(a.v_cache) + row0 * rs;
+  const int32_t* mask_row = a.key_mask + static_cast<size_t>(b) * a.T_cap;
+  const auto sync = [] { __syncthreads(); };
 
-  // ---- this lane's elements ---------------------------------------------------
-  const LaneMap lm = lane_map<T, KIND, PAIR>(lg, hb, hd, D);
-  float qv[NH][EPL];
+  // the unit's query, loaded first: its wait hides under the block's set-up
+  T q_raw[NH][EPL];
 #pragma unroll
   for (int h = 0; h < NH; ++h)
 #pragma unroll
     for (int i = 0; i < EPL; ++i) {
       const int e = lg * EPL + i;
-      // pre-scale and round back to T, as the TPU wrapper does
-      qv[h][i] = e < hd ? round_to<T>(to_f(q[static_cast<size_t>(b) * D +
-                                             head_of<PAIR>(hb, h, n_head) * hd + e]) *
-                                      q_scale)
-                        : 0.0f;
+      const size_t at = static_cast<size_t>(b) * D + head_of<PAIR>(u, h, n_head) * hd + e;
+      q_raw[h][i] = active && e < hd ? static_cast<const T*>(a.q)[at] : from_f<T>(0.0f);
     }
-  const auto sync = [] { __syncthreads(); };
 
-  // ---- 1. the step's row, when this block attends over slot `position` -------
-  const C* pos_k = k_rows + static_cast<size_t>(position) * row_stride;
-  const C* pos_v = v_rows + static_cast<size_t>(position) * row_stride;
-  float pos_ks = 0.0f, pos_vs = 0.0f;
+  // ---- 1. the chunk's mask words and scales, once a block ---------------------
+  for (int t = lo + tid; t < hi; t += nt) {
+    smask[t - lo] = __ldg(mask_row + t);
+    if constexpr (KIND != kFp) {  // an append overwrites slot `position`'s below
+      sks[t - lo] = __ldg(a.k_scale + row0 + t);
+      svs[t - lo] = __ldg(a.v_scale + row0 + t);
+    }
+  }
+
+  // ---- 2. the step's row, where this block attends over `position` ------------
   if constexpr (APPEND) {
     if (has_pos) {
-      const T* kn = k_new + static_cast<size_t>(b) * D;
-      const T* vn = v_new + static_cast<size_t>(b) * D;
-      const bool writer = hb == 0;  // exactly one block writes the row
-      if constexpr (KIND == kFp) {
-        pos_k = kn;  // stored as it comes: the cache's type is q's
-        pos_v = vn;
-        if (writer)
-          for (int d = tid; d < D; d += kThreads) {
-            k_rows[static_cast<size_t>(position) * row_stride + d] = kn[d];
-            v_rows[static_cast<size_t>(position) * row_stride + d] = vn[d];
-          }
+      const T* kn = static_cast<const T*>(a.k_new) + static_cast<size_t>(b) * D;
+      const T* vn = static_cast<const T*>(a.v_new) + static_cast<size_t>(b) * D;
+      if constexpr (KIND == kFp) {  // stored as it comes: the cache's type is q's
+        for (int d = u0 * hd + tid; d < (u0 + nu) * hd; d += nt) {
+          k_rows[static_cast<size_t>(position) * rs + d] = kn[d];
+          v_rows[static_cast<size_t>(position) * rs + d] = vn[d];
+        }
       } else {
-        // the scale is an abs-max over the WHOLE row: every block computes it
-        int8_t* sk = reinterpret_cast<int8_t*>(stage_k);
-        int8_t* sv = reinterpret_cast<int8_t*>(stage_v);
+        // the codes of the block's units (a head pair's are its hd bytes); the
+        // odd-H int4 path stages the whole row and head block 0 writes it
+        const int c_lo = K::kScalar ? 0 : u0 * hd;
+        const int c_hi = K::kScalar ? row_w : (u0 + nu) * hd;
+        const bool writer = !K::kScalar || ub == 0;
         float ks, vs;
-        stage_quantized<KIND, kThreads>(kn, vn, D, 0, row_w, tid, sk, sv, red, sync, ks, vs);
-        if (writer) {
-          for (int d = tid; d < row_w; d += kThreads) {
-            k_rows[static_cast<size_t>(position) * row_stride + d] = sk[d];
-            v_rows[static_cast<size_t>(position) * row_stride + d] = sv[d];
-          }
-          if (tid == 0) {
-            k_scale[row0 + position] = ks;
-            v_scale[row0 + position] = vs;
+        stage_quantized<KIND>(kn, vn, D, c_lo, c_hi, tid, nt, stage_k, stage_v,
+                              writer ? k_rows + static_cast<size_t>(position) * rs : nullptr,
+                              writer ? v_rows + static_cast<size_t>(position) * rs : nullptr,
+                              red, sync, ks, vs);
+        if (tid == 0) {  // the slot's scales, where the read-only kernel finds them
+          sks[position - lo] = ks;
+          svs[position - lo] = vs;
+          if (ub == 0) {
+            a.k_scale[row0 + position] = ks;
+            a.v_scale[row0 + position] = vs;
           }
         }
-        pos_k = reinterpret_cast<const C*>(sk);
-        pos_v = reinterpret_cast<const C*>(sv);
-        pos_ks = ks;
-        pos_vs = vs;
       }
     }
   }
-  if constexpr (!APPEND && KIND != kFp) {
-    if (has_pos) {
-      pos_ks = k_scale[row0 + position];
-      pos_vs = v_scale[row0 + position];
-    }
-  }
+  __syncthreads();  // mask words and scales visible
 
-  // ---- 2. attend: the chunk's slots before `position`, then `position` --------
+  // ---- 3. attend: the unit's groups over the chunk's slots before `position`,
+  //         then it; then the groups of each warp merge --------------------------
   State<NH, EPL> st;
   st.init();
-  attend_range<T, KIND, PAIR>(st, qv, k_rows, v_rows, static_cast<size_t>(row_stride),
-                              k_scale + row0, v_scale + row0, mask_row, lo, min(hi, position),
-                              n_groups, grp, lm, G);
-  if (has_pos)  // slot `position`, by group 0, at the same point in every kind
-    attend_pos<T, KIND, PAIR>(st, qv, pos_k, pos_v, pos_ks, pos_vs, mask_row[position] != 0,
-                              grp, lm, G);
+  if (active) {
+    const LaneMap lm = lane_map<T, KIND, PAIR>(lg, u, hd, D);
+    float qv[NH][EPL];  // pre-scaled and rounded back to T, as the TPU wrapper does
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) qv[h][i] = round_to<T>(to_f(q_raw[h][i]) * a.q_scale);
+    attend_range<T, KIND, PAIR, true, true>(st, qv, k_rows, v_rows, rs, sks, svs, smask, lo,
+                                            end, n_groups, grp, lm, G);
+    if (has_pos) {  // slot `position`, by group 0, at the same point in every kind:
+                    // after an append the staged codes (fp: the step's row)
+      const C* pos_k = k_rows + static_cast<size_t>(position) * rs;
+      const C* pos_v = v_rows + static_cast<size_t>(position) * rs;
+      if constexpr (APPEND && KIND == kFp) {
+        pos_k = static_cast<const T*>(a.k_new) + static_cast<size_t>(b) * D;
+        pos_v = static_cast<const T*>(a.v_new) + static_cast<size_t>(b) * D;
+      } else if constexpr (APPEND) {
+        pos_k = reinterpret_cast<const C*>(stage_k);
+        pos_v = reinterpret_cast<const C*>(stage_v);
+      }
+      const bool live = smask[position - lo] != 0;
+      if constexpr (KIND == kFp)
+        attend_pos<T, KIND, PAIR>(st, qv, pos_k, pos_v, 0.0f, 0.0f, live, grp, lm, G);
+      else
+        attend_pos<T, KIND, PAIR>(st, qv, pos_k, pos_v, sks[position - lo], svs[position - lo],
+                                  live, grp, lm, G);
+    }
+    merge_warp(st, G);
+  }
 
-  // ---- 3. merge the groups of the block, in group order ------------------------
-  const int P = NH * (2 + hd);  // one partial: m[NH], l[NH], acc[NH][hd]
+  // ---- 4. the unit's warps merge in warp order: ctx, or the chunk's partial ----
   float* part = n_split > 1
-                    ? scratch + ((static_cast<size_t>(b) * n_hb + hb) * n_split + s_idx) * P
+                    ? a.scratch + ((static_cast<size_t>(b) * n_split + s_idx) * n_units + u) * P
                     : nullptr;
-  merge_groups<NH, EPL, kThreads>(
-      st, gm, gl, gacc, n_groups, grp, lg, hd, tid, sync,
-      [&](int h, int d, int idx, float M, float Lsum, float A) {
-        if (n_split == 1) {
-          ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
-              from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
-        } else {
-          if (d == 0) {
-            part[h] = M;
-            part[NH + h] = Lsum;
-          }
-          part[2 * NH + idx] = A;
-        }
-      });
+  T* ctx = static_cast<T*>(a.ctx) + static_cast<size_t>(b) * D;
+  merge_groups<NH, EPL, NT>(st, gm, gl, gacc, NW, wi, lane % G, active && lane < G, hd, utid,
+                            sync, [&](int h, int d, int, float M, float Lsum, float A) {
+                              if (!active) return;
+                              if (part == nullptr) {
+                                ctx[head_of<PAIR>(u, h, n_head) * hd + d] =
+                                    from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
+                                return;
+                              }
+                              if (d == 0) {
+                                part[h] = M;
+                                part[NH + h] = Lsum;
+                              }
+                              part[2 * NH + h * hd + d] = A;
+                            });
   if (n_split == 1) return;
 
-  // ---- 4. the last chunk of (b, head) to finish merges the chunks, in order ----
+  // ---- 5. the (row, head block)'s last chunk to finish merges them, in order ----
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    const int prev = atomicAdd(counters + b * n_hb + hb, 1);
+    const int prev = atomicAdd(a.counters + b * n_ub + ub, 1);
     is_last = prev == n_split - 1;
   }
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const float* parts = scratch + (static_cast<size_t>(b) * n_hb + hb) * n_split * P;
-  for (int idx = tid; idx < NH * hd; idx += kThreads) {
-    const int h = idx / hd, d = idx % hd;
+  const float* parts = a.scratch + static_cast<size_t>(b) * n_split * n_units * P;
+  const size_t split_stride = static_cast<size_t>(n_units) * P;
+  for (int idx = tid; idx < nu * NH * hd; idx += nt) {
+    const int uu = u0 + idx / (NH * hd), r = idx % (NH * hd), hh = r / hd, d = r % hd;
+    const float* pu = parts + static_cast<size_t>(uu) * P;
     float M = -INFINITY;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, __ldcg(parts + s * P + h));
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, __ldcg(pu + s * split_stride + hh));
     float Lsum = 0.0f, A = 0.0f;
     if (M != -INFINITY)
       for (int s = 0; s < n_split; ++s) {
-        const float ms = __ldcg(parts + s * P + h);
+        const float ms = __ldcg(pu + s * split_stride + hh);
         const float f = ms == -INFINITY ? 0.0f : expf(ms - M);
-        Lsum += __ldcg(parts + s * P + NH + h) * f;
-        A += __ldcg(parts + s * P + 2 * NH + idx) * f;
+        Lsum += __ldcg(pu + s * split_stride + NH + hh) * f;
+        A += __ldcg(pu + s * split_stride + 2 * NH + r) * f;
       }
-    ctx[static_cast<size_t>(b) * D + head_of<PAIR>(hb, h, n_head) * hd + d] =
-        from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
+    ctx[head_of<PAIR>(uu, hh, n_head) * hd + d] = from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
   }
-  if (tid == 0) counters[b * n_hb + hb] = 0;  // ready for the next call
+  if (tid == 0) a.counters[b * n_ub + ub] = 0;  // ready for the next call
 }
 
+// Launch: a block of kWarps warps for each of min(units, kUnits) units.
+// Shared memory: the staged codes (append, quantized kinds), the chunk's mask
+// words and k / v scales, then the units' warp states.
 template <typename T, int KIND, bool APPEND, bool PAIR>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
-                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
-                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
-                        int B, int T_cap, int D, int n_head, int position, int layer,
-                        float q_scale, int row_stride, int chunk, int G) {
-  attention_block<T, KIND, APPEND, PAIR>(
-      q, k_new, v_new, k_cache_, v_cache_, k_scale, v_scale, key_mask, ctx, scratch, counters, B, T_cap, D, n_head, position, layer, q_scale, row_stride, chunk, G);
-}
-
-// int4: four blocks an SM (at most 128 registers a thread), the occupancy
-// these kernels had before their stages moved to decode_attention.cuh, where
-// the head-pair append took 147 registers and 3 blocks an SM (13% slower at
-// B=512). The other kinds keep the compiler's own choice: any second launch
-// bound (even 1) made the bf16 fp kernels up to 39% slower.
-template <typename T, int KIND, bool APPEND, bool PAIR>
-__global__ void __launch_bounds__(kThreads, 4)
-decode_attention_int4_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                        const T* __restrict__ v_new, void* k_cache_, void* v_cache_,
-                        float* k_scale, float* v_scale, const int32_t* __restrict__ key_mask,
-                        T* __restrict__ ctx, float* __restrict__ scratch, int* counters,
-                        int B, int T_cap, int D, int n_head, int position, int layer,
-                        float q_scale, int row_stride, int chunk, int G) {
-  attention_block<T, KIND, APPEND, PAIR>(
-      q, k_new, v_new, k_cache_, v_cache_, k_scale, v_scale, key_mask, ctx, scratch, counters, B, T_cap, D, n_head, position, layer, q_scale, row_stride, chunk, G);
-}
-
-template <typename T, int KIND, bool APPEND, bool PAIR>
-constexpr auto kernel_of() {
-  if constexpr (KIND == kInt4)
-    return &decode_attention_int4_kernel<T, KIND, APPEND, PAIR>;
-  else
-    return &decode_attention_kernel<T, KIND, APPEND, PAIR>;
-}
-
-struct Args {
-  const void *q, *k_new, *v_new;
-  void *k_cache, *v_cache, *k_scale, *v_scale;
-  const void* key_mask;
-  void *ctx, *scratch, *counters;
-  int B, T_cap, D, n_head, position, layer;
-  float q_scale;
-  int row_stride, n_split, chunk;
-  cudaStream_t stream;
-};
-
-template <typename T, int KIND, bool APPEND, bool PAIR>
-int launch(const Args& a) {
-  using K = Kind<T, KIND, PAIR>;
-  const int hd = a.D / a.n_head;
-  const int G = group_lanes<T, KIND, PAIR>(hd);
-  if (G > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_groups = kThreads / G;
+int launch(Args a, int n_split, cudaStream_t stream) {
+  using S = Shape<KIND, PAIR>;
+  constexpr int NH = Kind<T, KIND, PAIR>::NH;
+  const int hd = a.D / a.n_head, units = a.n_head / NH;
+  a.G = group_lanes<T, KIND, PAIR>(hd);
+  if (a.G > 32 || a.chunk % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = units < S::kUnits ? units : S::kUnits;
   const int row_w = KIND == kInt4 ? a.D / 2 : a.D;
   const size_t stage = APPEND && KIND != kFp ? 2 * static_cast<size_t>((row_w + 15) & ~15) : 0;
-  const size_t smem = stage + sizeof(float) * K::NH * n_groups * (2 + static_cast<size_t>(hd));
-  auto kernel = kernel_of<T, KIND, APPEND, PAIR>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(a.n_split, a.n_head / K::NH, a.B);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
-      static_cast<const T*>(a.v_new), a.k_cache, a.v_cache, static_cast<float*>(a.k_scale),
-      static_cast<float*>(a.v_scale), static_cast<const int32_t*>(a.key_mask),
-      static_cast<T*>(a.ctx), static_cast<float*>(a.scratch), static_cast<int*>(a.counters),
-      a.B, a.T_cap, a.D, a.n_head, a.position, a.layer, a.q_scale, a.row_stride, a.chunk, G);
+  const size_t smem = stage + 3 * sizeof(float) * static_cast<size_t>(a.chunk) +
+                      sizeof(float) * per_block * S::kWarps * NH * (2 + hd);
+  const dim3 grid((units + S::kUnits - 1) / S::kUnits, n_split, a.B);
+  decode_attention_kernel<T, KIND, APPEND, PAIR>
+      <<<grid, 32 * S::kWarps * per_block, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool APPEND>
-int launch_kind(const Args& a, int kind, bool pair) {
-  if (kind == kFp) return launch<T, kFp, APPEND, false>(a);
-  if (kind == kInt8) return launch<T, kInt8, APPEND, false>(a);
-  return pair ? launch<T, kInt4, APPEND, true>(a) : launch<T, kInt4, APPEND, false>(a);
+int launch_kind(const Args& a, int kind, bool pair, int n_split, cudaStream_t s) {
+  if (kind == kFp) return launch<T, kFp, APPEND, false>(a, n_split, s);
+  if (kind == kInt8) return launch<T, kInt8, APPEND, false>(a, n_split, s);
+  return pair ? launch<T, kInt4, APPEND, true>(a, n_split, s)
+              : launch<T, kInt4, APPEND, false>(a, n_split, s);
 }
 
 template <typename T>
-int launch_dtype(const Args& a, int kind, bool append, bool pair) {
-  return append ? launch_kind<T, true>(a, kind, pair) : launch_kind<T, false>(a, kind, pair);
+int launch_dtype(const Args& a, int kind, bool append, bool pair, int n_split, cudaStream_t s) {
+  return append ? launch_kind<T, true>(a, kind, pair, n_split, s)
+                : launch_kind<T, false>(a, kind, pair, n_split, s);
 }
 
 }  // namespace
@@ -340,23 +354,27 @@ int launch_dtype(const Args& a, int kind, bool append, bool pair) {
 // 2D for the merged k||v buffer, whose v half the caller passes as
 // v_cache = k_cache + D. Scales [L, B, T_cap] f32 (ignored for kind 0);
 // key_mask [B, T_cap] int32. dtype: 0 = float32, 1 = bfloat16. The slots
-// 0..position are taken in n_split chunks of `chunk` (the last one holds
-// `position`); with n_split > 1, `scratch` holds B * n_head * n_split * (hd +
-// 2) f32 and `counters` B * n_head int32 that are ZERO (each call leaves them
-// zero). `pair` (int4 only, even n_head, 16 | hd): a block owns heads h and
-// h + n_head/2. Cache rows and their head slices start on 16-byte boundaries.
-// Returns cudaGetLastError() after the launch (0 on success). The caller
-// validates shapes and bounds.
+// 0..position are taken in n_split chunks of `chunk` slots (a multiple of 4;
+// the last chunk holds `position`); with n_split > 1, `scratch` holds B *
+// n_split * n_head * (hd + 2) f32 and `counters` B * n_head int32 that are
+// ZERO (each call leaves them zero). `pair` (int4 only, even n_head, 16 | hd):
+// a unit is the head pair h, h + n_head/2. Cache rows and their head slices
+// start on 16-byte boundaries. Returns cudaGetLastError() after the launch (0
+// on success), or cudaErrorInvalidValue for a chunk or head width the kernel
+// does not take. The caller validates shapes and bounds.
 extern "C" int mmtg_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
     void* k_scale, void* v_scale, const void* key_mask, void* ctx, void* scratch,
     void* counters, int B, int T_cap, int D, int n_head, int position, int layer,
     float q_scale, int cache_kind, int append, int row_stride, int dtype, int n_split,
     int chunk, int pair, void* stream) {
-  const Args a{q,        k_new,  v_new,    k_cache, v_cache,  k_scale, v_scale,
-               key_mask, ctx,    scratch,  counters, B,       T_cap,   D,
-               n_head,   position, layer,  q_scale, row_stride, n_split, chunk,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(a, cache_kind, append != 0, pair != 0);
-  return launch_dtype<float>(a, cache_kind, append != 0, pair != 0);
+  const Args a{q,        k_new,    v_new,   k_cache,    v_cache,
+               static_cast<float*>(k_scale),   static_cast<float*>(v_scale),
+               static_cast<const int32_t*>(key_mask), ctx, static_cast<float*>(scratch),
+               static_cast<int*>(counters),   B,        T_cap,   D,          n_head,
+               position, layer,    q_scale, row_stride, chunk, 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_dtype<__nv_bfloat16>(a, cache_kind, append != 0, pair != 0, n_split, s);
+  return launch_dtype<float>(a, cache_kind, append != 0, pair != 0, n_split, s);
 }

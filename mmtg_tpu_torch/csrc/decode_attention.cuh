@@ -1,10 +1,15 @@
-// Device functions shared by the decode kernels: one-query attention of one
-// (batch row, head) item over the live slots of a cache, with the step's k/v
-// row appended where the cache kind asks for it. decode_attention.cu wraps them
-// in a kernel of its own (a block of 128 threads per item and chunk of
-// slots); decode_block_fused.cu calls them from the attention stage of the
-// whole-step kernel (64 threads per item), so the two paths cannot drift
-// apart.
+// Device functions shared by the decode kernels: one-query attention of a
+// head (or int4 head pair) over the live slots of a cache, with the step's k/v
+// row appended where the cache kind asks for it. Two callers, two
+// decompositions over the same pieces, so the arithmetic of a slot cannot
+// drift apart:
+//   * decode_attention.cu (the per-layer kernel): a block owns a few heads of
+//     one batch row and a chunk of its slots, a few warps each head; it reads
+//     the chunk's mask words and scales into shared memory once, and merges a
+//     head's groups by shuffles inside each warp (merge_warp, its own) and then
+//     across the head's warps (merge_groups);
+//   * decode_block_fused.cu (the whole-step kernel): a 64-thread item owns one
+//     (batch row, head) and merges its groups with merge_groups alone.
 //
 // Cache kinds (the TPU kernel's CACHE build flag, decode_attention_unified.py):
 //   kFp    rows of T, D wide;
@@ -19,19 +24,20 @@
 // counted in cache elements): the merged k||v cache keeps k in the low half
 // of a 2D-wide row and v in the high half.
 //
-// The pieces, in the order an item runs them:
+// The pieces, in the order a head runs them:
 //   * lane_map: a lane loads 16 bytes of a slot's head row, neighbouring lanes
 //     the neighbouring bytes: a group of G = hd * size / 16 lanes covers the
 //     row, and each group keeps its own online softmax (State, sweep);
 //   * stage_quantized (the append, recomputed where it is read): the row's
-//     scale is an abs-max over ALL heads of k_new / v_new, so every item that
-//     attends over slot `position` computes it and the row's codes into shared
-//     memory; exactly one item writes them to the cache, and no item reads slot
-//     `position` from the cache, so nothing races;
+//     scale is an abs-max over ALL heads of k_new / v_new, so every block or
+//     item that attends over slot `position` computes it, and the codes of its
+//     own heads into shared memory; exactly one writer stores each code and
+//     the scales, and no one reads slot `position` from the cache, so nothing
+//     races;
 //   * attend_range, then attend_pos: the slots before `position`, then slot
 //     `position` (by group 0) at the same point of every sweep, so a read-only
 //     call after an append gives the same ctx bit for bit;
-//   * merge_groups: the groups of the item merge in group order.
+//   * merge_warp / merge_groups: the groups of a head merge in a fixed order.
 //
 // Division is IEEE (the build has no --use_fast_math) and rounding is rintf
 // (half to even), so quantized rows and scales are bit-identical to the plain
@@ -280,49 +286,57 @@ __device__ __forceinline__ void sweep(
 // attends over slot `position`: the row's scales (abs-max over the WHOLE row
 // of `kn` / `vn`, D values of type S) and its codes lo..hi-1 (int4: packed
 // bytes lo..hi-1 of D/2), into `sk` / `sv` in shared memory at their offsets
-// in the row. Called by the item's NT threads (`tid` 0..NT-1); `red` is
-// [2][NT / 32] floats of shared memory; `sync()` is the item's barrier. The
-// staged codes are visible to the item when it returns.
-template <int KIND, int NT, typename S, typename Sync>
+// in the row and, where `dk` / `dv` are not null, into the cache row there.
+// Called by the caller's `nt` threads (`tid` 0..nt-1, whole warps); `red` is
+// 2 * (nt / 32) floats of shared memory; `sync()` is the callers' barrier. The
+// staged codes are visible to them when it returns.
+template <int KIND, typename S, typename Sync>
 __device__ __forceinline__ void stage_quantized(const S* kn, const S* vn, int D, int lo, int hi,
-                                                int tid, int8_t* sk, int8_t* sv,
-                                                float (*red)[NT / 32], Sync sync, float& ks,
-                                                float& vs) {
-  const int lane = tid & 31, warp = tid >> 5;
+                                                int tid, int nt, int8_t* sk, int8_t* sv,
+                                                int8_t* dk, int8_t* dv, float* red, Sync sync,
+                                                float& ks, float& vs) {
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
   float mk = 0.0f, mv = 0.0f;
-  for (int d = tid; d < D; d += NT) {
+  for (int d = tid; d < D; d += nt) {
     mk = fmaxf(mk, fabsf(to_f(kn[d])));
     mv = fmaxf(mv, fabsf(to_f(vn[d])));
   }
   mk = warp_max(mk);
   mv = warp_max(mv);
   if (lane == 0) {
-    red[0][warp] = mk;
-    red[1][warp] = mv;
+    red[warp] = mk;
+    red[n_warps + warp] = mv;
   }
   sync();
   mk = 0.0f;
   mv = 0.0f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) {
-    mk = fmaxf(mk, red[0][w]);
-    mv = fmaxf(mv, red[1][w]);
+  for (int w = 0; w < n_warps; ++w) {  // a maximum: the order does not matter
+    mk = fmaxf(mk, red[w]);
+    mv = fmaxf(mv, red[n_warps + w]);
   }
   constexpr float qmax = KIND == kInt8 ? 127.0f : 7.0f;
   ks = fmaxf(mk, 1e-6f) / qmax;
   vs = fmaxf(mv, 1e-6f) / qmax;
   if constexpr (KIND == kInt8) {
-    for (int d = lo + tid; d < hi; d += NT) {
+    for (int d = lo + tid; d < hi; d += nt) {
       sk[d] = static_cast<int8_t>(quantize(to_f(kn[d]), ks, qmax));
       sv[d] = static_cast<int8_t>(quantize(to_f(vn[d]), vs, qmax));
+      if (dk != nullptr) {
+        dk[d] = sk[d];
+        dv[d] = sv[d];
+      }
     }
   } else {
     const int half = D >> 1;
-    for (int j = lo + tid; j < hi; j += NT) {
+    for (int j = lo + tid; j < hi; j += nt) {
       const int klo = quantize(to_f(kn[j]), ks, qmax), khi = quantize(to_f(kn[j + half]), ks, qmax);
       const int vlo = quantize(to_f(vn[j]), vs, qmax), vhi = quantize(to_f(vn[j + half]), vs, qmax);
       sk[j] = static_cast<int8_t>(((khi & 15) << 4) | (klo & 15));
       sv[j] = static_cast<int8_t>(((vhi & 15) << 4) | (vlo & 15));
+      if (dk != nullptr) {
+        dk[j] = sk[j];
+        dv[j] = sv[j];
+      }
     }
   }
   sync();
@@ -332,8 +346,10 @@ __device__ __forceinline__ void stage_quantized(const S* kn, const S* vn, int D,
 // `n_groups`, kUnroll slots a lane in flight. `k_rows` / `v_rows`: slot 0 of
 // the (layer, batch row); `ks_row` / `vs_row`: that row's [T_cap] scales;
 // `rs`: the row stride in cache elements. Masked slots cost no bytes.
-// `mask_row` is global memory, or shared memory with SMEM_MASK.
-template <typename T, int KIND, bool PAIR, bool SMEM_MASK = false>
+// `mask_row` is the row's [T_cap] words in global memory, or with SMEM_MASK
+// shared memory that holds slots lo.. from its start; SMEM_SCALES does the
+// same for `ks_row` / `vs_row`.
+template <typename T, int KIND, bool PAIR, bool SMEM_MASK = false, bool SMEM_SCALES = false>
 __device__ __forceinline__ void attend_range(
     State<Kind<T, KIND, PAIR>::NH, Kind<T, KIND, PAIR>::EPL>& st,
     const float (&qv)[Kind<T, KIND, PAIR>::NH][Kind<T, KIND, PAIR>::EPL],
@@ -347,7 +363,7 @@ __device__ __forceinline__ void attend_range(
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + u * n_groups + grp;
-      ok[u] = t < end && (SMEM_MASK ? mask_row[t] : __ldg(mask_row + t)) != 0;
+      ok[u] = t < end && (SMEM_MASK ? mask_row[t - lo] : __ldg(mask_row + t)) != 0;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       ks[u] = vs[u] = 0.0f;
       if (ok[u]) {  // masked slots cost no bytes (loading them too was slower)
@@ -356,8 +372,8 @@ __device__ __forceinline__ void attend_range(
           vr[u] = load_raw<T, KIND, PAIR>(v_rows + t * rs, lm, true);
         }
         if constexpr (KIND != kFp) {
-          ks[u] = __ldg(ks_row + t);
-          vs[u] = __ldg(vs_row + t);
+          ks[u] = SMEM_SCALES ? ks_row[t - lo] : __ldg(ks_row + t);
+          vs[u] = SMEM_SCALES ? vs_row[t - lo] : __ldg(vs_row + t);
         }
       }
     }
@@ -383,17 +399,19 @@ __device__ __forceinline__ void attend_pos(
   sweep<T, KIND, PAIR, 1>(st, qv, kr, vr, ok, ks, vs, lm, G);
 }
 
-// Merge the groups of one item in group order. `gm` / `gl`: [NH][n_groups]
-// floats, `gacc`: [NH][n_groups][hd] floats of shared memory. Then for every
-// (head h, lane d) of the item out(h, d, idx = h * hd + d, M, Lsum, A): the
-// running max, the sum and the accumulator of the merged softmax (ctx =
-// A / Lsum). Called by the item's NT threads.
+// Merge the groups of one head (or head pair) in group order. `gm` / `gl`:
+// [NH][n_groups] floats, `gacc`: [NH][n_groups][hd] floats of shared memory;
+// the lanes with `store` write their group's state there. Then for every
+// (head h, lane d) out(h, d, idx = h * hd + d, M, Lsum, A): the running max,
+// the sum and the accumulator of the merged softmax (ctx = A / Lsum). Called
+// by the head's NT threads (`tid` 0..NT-1); `sync()` is their barrier.
 template <int NH, int EPL, int NT, typename Sync, typename Out>
 __device__ __forceinline__ void merge_groups(const State<NH, EPL>& st, float* gm, float* gl,
-                                             float* gacc, int n_groups, int grp, int lg, int hd,
-                                             int tid, Sync sync, Out out) {
+                                             float* gacc, int n_groups, int grp, int lg,
+                                             bool store, int hd, int tid, Sync sync, Out out) {
 #pragma unroll
   for (int h = 0; h < NH; ++h) {
+    if (!store) break;
     if (lg == 0) {
       gm[h * n_groups + grp] = st.m[h];
       gl[h * n_groups + grp] = st.l[h];
@@ -416,6 +434,31 @@ __device__ __forceinline__ void merge_groups(const State<NH, EPL>& st, float* gm
         A += gacc[(h * n_groups + g) * hd + d] * f;
       }
     out(h, d, idx, M, Lsum, A);
+  }
+}
+
+// The per-layer kernel's merge of the groups of one warp (G lanes each) by
+// shuffles: group g takes group g ^ 1, then the pair g ^ 2, ... One fixed
+// tree; each step's two terms are added in either order to the same bits, so
+// every group ends with the warp's merged state.
+template <int NH, int EPL>
+__device__ __forceinline__ void merge_warp(State<NH, EPL>& st, int G) {
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const float mo = __shfl_xor_sync(0xffffffffu, st.m[h], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, st.l[h], o);
+      const float M = fmaxf(st.m[h], mo);
+      const float f = st.m[h] == -INFINITY ? 0.0f : expf(st.m[h] - M);
+      const float fo = mo == -INFINITY ? 0.0f : expf(mo - M);
+      st.l[h] = st.l[h] * f + lo * fo;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) {
+        const float ao = __shfl_xor_sync(0xffffffffu, st.acc[h][i], o);
+        st.acc[h][i] = st.acc[h][i] * f + ao * fo;
+      }
+      st.m[h] = M;
+    }
   }
 }
 

@@ -554,12 +554,9 @@ __device__ void attention_stage(const Args<T>& a, int l, unsigned char* work) {
     // the scales from the whole row, the codes of this head: the item writes
     // them (each head's codes one item, the scales the head-0 item)
     float ks, vs;
-    stage_quantized<kInt8, NT>(kv, kv + D, D, hb * hd, hb * hd + hd, tid, sk, sv,
-                                         red[part], sync, ks, vs);
-    for (int d = hb * hd + tid; d < hb * hd + hd; d += NT) {
-      k_rows[static_cast<size_t>(pos) * D + d] = sk[d];
-      v_rows[static_cast<size_t>(pos) * D + d] = sv[d];
-    }
+    stage_quantized<kInt8>(kv, kv + D, D, hb * hd, hb * hd + hd, tid, NT, sk, sv,
+                           k_rows + static_cast<size_t>(pos) * D,
+                           v_rows + static_cast<size_t>(pos) * D, &red[part][0][0], sync, ks, vs);
     if (hb == 0 && tid == 0) {
       a.k_scale[row0 + pos] = ks;
       a.v_scale[row0 + pos] = vs;
@@ -572,7 +569,7 @@ __device__ void attention_stage(const Args<T>& a, int l, unsigned char* work) {
     attend_pos<T, kInt8, false>(st, qv, sk, sv, ks, vs, smask[pos] != 0, grp, lm, G);
     T* ctx = a.act + b * ld + D + hb * hd;
     merge_groups<1, EPL, NT>(
-        st, gm, gl, gacc, n_groups, grp, lg, hd, tid, sync,
+        st, gm, gl, gacc, n_groups, grp, lg, true, hd, tid, sync,
         [&](int, int d, int, float, float Lsum, float A) {
           ctx[d] = from_f<T>(Lsum > 0.0f ? A / Lsum : 0.0f);
         });

@@ -14,9 +14,9 @@ the append kernels are held against.
 
 For CUDA tensors every wrapper launches the hand-written kernel
 ``csrc/decode_attention.cu`` (one kernel, the same options as build flags;
-a block per (batch row, head) and chunk of the slots, the chunks set by the
-position alone, :func:`split_slots`, so a row's context has the same bits
-whatever the batch size);
+a block per few heads of a batch row and chunk of its slots, the chunks
+set by the position alone, :func:`split_slots`, so a row's context has the
+same bits whatever the batch size);
 for CPU tensors it runs the plain PyTorch version
 (:func:`decode_attention_append_plain` / :func:`decode_attention_plain`).
 Each wrapper counts its kernel launches in ``.launches``.
@@ -151,15 +151,16 @@ def decode_attention_append_plain(q, k_new, v_new, k_cache, v_cache, key_mask,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KIND_CODE = {"fp": 0, "int8": 1, "int4": 2}
-# csrc/decode_attention.cu: a block owns one (batch row, head) and a chunk of
-# _CHUNK slots (one chunk up to position 255: the default 220-token call)
+# csrc/decode_attention.cu: a block owns a few heads of a batch row and a
+# chunk of _CHUNK slots (one chunk up to position 255: the default 220-token
+# call)
 _CHUNK = 256
 _counters = {}  # (device, stream) -> int32 zeros the kernel leaves zero
 
 
 def int4_pairs(n_head: int, head_dim: int) -> bool:
-    """Whether the int4 kernel gives a block the head pair (h, h + H/2) that
-    shares its bytes: even H and 16-byte head slices."""
+    """Whether the int4 kernel attends the head pair (h, h + H/2) that shares
+    its bytes together: even H and 16-byte head slices."""
     return n_head % 2 == 0 and head_dim % 16 == 0
 
 

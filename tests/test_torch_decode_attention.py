@@ -133,3 +133,125 @@ def test_bf16_plain_prescales_q_in_bf16():
     ref = decode_attention_append_plain(*f32, *[c.float() for c in tc],
                                         torch.from_numpy(mask), 90, LAYER, NH)
     np.testing.assert_allclose(ctx.float().numpy(), ref.numpy(), atol=2e-2)
+
+
+# ---- the CUDA kernel's launch plan (csrc/decode_attention.cu) ---------------
+
+PLAN_CASES = [  # (kind, merged, n_head, head_dim): every cache kind and int4 path
+    ("fp", False, 12, 64), ("int8", False, 12, 64), ("int8", True, 12, 64),
+    ("int4", False, 12, 64), ("int4", False, 3, 64), ("fp", False, 6, 64)]
+
+
+def _captured_launch(monkeypatch, kind, merged, n_head, hd, B, position,
+                     append):
+    """Run the wrapper's launch on meta tensors of batch ``B`` against a
+    stand-in library; returns what it handed the C entry point."""
+    import contextlib
+    import types
+
+    from mmtg_tpu_torch.kernels import _build
+    from mmtg_tpu_torch.ops import decode_attention as da
+
+    seen = {}
+
+    def entry(*a):
+        seen["args"] = a
+        return 0
+
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+        mmtg_decode_attention=entry))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(da, "_counters", {})
+    sizes = []  # the f32 scratch and the int32 counts the launch made
+    empty, zeros = torch.empty, torch.zeros
+
+    def spy(make):
+        def made(*shape, **kw):
+            out = make(*shape, **kw)
+            if kw.get("dtype") in (torch.float32, torch.int32):
+                sizes.append((kw["dtype"], out.numel()))
+            return out
+        return made
+
+    monkeypatch.setattr(torch, "empty", spy(empty))
+    monkeypatch.setattr(torch, "zeros", spy(zeros))
+    D, T = n_head * hd, position + 1
+    meta = dict(device="meta")
+    q = torch.empty(B, D, dtype=torch.bfloat16, **meta)
+    row = {"fp": D, "int8": 2 * D if merged else D, "int4": D // 2}[kind]
+    cdt = torch.bfloat16 if kind == "fp" else torch.int8
+    k = torch.empty(1, B, T, row, dtype=cdt, **meta)
+    v = None if merged else torch.empty(1, B, T, row, dtype=cdt, **meta)
+    scales = (None, None) if kind == "fp" else tuple(
+        torch.empty(1, B, T, dtype=torch.float32, **meta) for _ in range(2))
+    mask = torch.empty(B, T, dtype=torch.int32, **meta)
+    new = (q, q) if append else (None, None)
+    sizes.clear()
+    da._launch(kind, q, *new, k, v, *scales, mask, position, 0, n_head)
+    a = seen["args"]
+    scratch = [n for t, n in sizes if t == torch.float32]
+    counts = [n for t, n in sizes if t == torch.int32]
+    return dict(B=a[11], n_split=a[22], chunk=a[23], pair=a[24],
+                scratch=scratch[0] if scratch else None,
+                counts=counts[0] if counts else None)
+
+
+@pytest.mark.parametrize("position", [17, 126, 235, 300])
+@pytest.mark.parametrize("kind,merged,n_head,hd", PLAN_CASES)
+def test_launch_plan_depends_on_the_position_and_kind_alone(
+        monkeypatch, kind, merged, n_head, hd, position):
+    """The wrapper hands the kernel one plan (chunks, int4 path, partial sums
+    a row) at B = 1 and at B = 4096: a row's summation tree is the same at
+    any batch size. Partial sums and counts scale with B alone."""
+    from mmtg_tpu_torch.ops import decode_attention as da
+
+    for append in ((True,) if merged else (False, True)):
+        one, wide = (_captured_launch(monkeypatch, kind, merged, n_head, hd, B,
+                                      position, append) for B in (1, 4096))
+        assert (one["B"], wide["B"]) == (1, 4096)
+        assert ((one["n_split"], one["chunk"], one["pair"])
+                == (wide["n_split"], wide["chunk"], wide["pair"]))
+        assert one["pair"] == int(kind == "int4" and da.int4_pairs(n_head, hd))
+        # chunks of 256 slots, the last holding `position`
+        assert one["n_split"] == position // 256 + 1 and one["chunk"] == 256
+        if one["n_split"] == 1:
+            assert one["scratch"] is wide["scratch"] is None
+        else:
+            per_row = one["n_split"] * n_head * (hd + 2)
+            assert (one["scratch"], wide["scratch"]) == (per_row, 4096 * per_row)
+            assert wide["counts"] >= 4096 * n_head  # a count a (row, head)
+
+
+def test_launch_plan_takes_no_batch():
+    import inspect
+
+    from mmtg_tpu_torch.ops import decode_attention as da
+
+    assert list(inspect.signature(da.split_slots).parameters) == ["position"]
+    assert [da.split_slots(p) for p in (0, 235, 255, 256, 300, 511)] == [
+        (1, 256), (1, 256), (1, 256), (2, 256), (2, 256), (2, 256)]
+
+
+def test_every_kernel_name_is_read_by_the_roofline_metric():
+    """Every ``__global__`` function of csrc/decode_attention.cu matches the
+    kernel pattern of h100bench/metrics/decode_attn_roofline.py (read as
+    text), so the benchmark's reading cannot fall silent."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "h100bench", "metrics",
+                           "decode_attn_roofline.py")) as f:
+        metric = f.read()
+    m = re.search(r'KERNEL = re\.compile\(r"([^"]+)", re\.I\)', metric)
+    assert m, "the metric's kernel pattern moved"
+    kernel = re.compile(m.group(1), re.I)
+    with open(os.path.join(root, "mmtg_tpu_torch", "csrc",
+                           "decode_attention.cu")) as f:
+        src = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       src)
+    assert names and src.count("__global__") == len(names)
+    assert all(kernel.search(n) for n in names), names

@@ -554,14 +554,14 @@ SWEEP_WRAPPERS = [("decode_attention_fp_append", "fp", True),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,kind,append", SWEEP_WRAPPERS,
                          ids=[w[0] for w in SWEEP_WRAPPERS])
-@pytest.mark.parametrize("B,H,hd", [(1, 12, 64), (3, 3, 32), (3, 2, 64), (64, 12, 64),
-                                    (512, 12, 64)])
+@pytest.mark.parametrize("B,H,hd", [(1, 12, 64), (3, 3, 32), (3, 2, 64), (3, 4, 64),
+                                    (64, 12, 64), (512, 12, 64)])
 def test_decode_attention_sweep(cuda, dtype, name, kind, append, B, H, hd):
     """Every wrapper at B = 1, 3, 64 and 512 at positions of one chunk and of
-    two (a cache of 512 slots), H = 2, 3 (int4: D/2 inside a head), 12: ctx
-    within tolerance of the plain version, the appended bytes and scales bit
-    for bit, nothing else written, and after an append the read-only kernel
-    gives the same ctx."""
+    two (a cache of 512 slots), H = 2, 3 (int4: D/2 inside a head), 4 (a
+    block of fewer heads than the others), 12: ctx within tolerance of the
+    plain version, the appended bytes and scales bit for bit, nothing else
+    written, and after an append the read-only kernel gives the same ctx."""
     kernel = getattr(da, name)
     q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, hd, L=2,
                                                          T=SWEEP_T)
@@ -615,6 +615,111 @@ def test_decode_attention_split_is_reproducible(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     assert all(int(buf.abs().sum()) == 0 for buf in da._counters.values())
+
+
+# A row's context alone and among B rows: every cache kind (int4 on both its
+# head-pair and its odd-H path), with and without the append, at positions of
+# one chunk and of two
+INVARIANT_KINDS = [("fp", 12), ("int8", 12), ("int4", 12), ("int4", 3), ("merged", 12)]
+INVARIANT_POSITIONS = [17, 126, 235, 300]
+INVARIANT_BATCHES = [3, 64, 512]
+
+
+def _row_call(kind, append, H, q, k_new, v_new, caches, scales, mask, position, rows):
+    """The kernel over batch rows ``rows`` (a slice) of the case, on copies:
+    (ctx, the copies of caches + scales after the call)."""
+    pick = lambda t, dim: t.narrow(dim, rows.start, rows.stop - rows.start).contiguous()  # noqa: E731
+    cs = [pick(c, 1) for c in caches + scales]
+    n = len(caches)
+    if append:
+        fn = {"fp": da.decode_attention_fp_append, "int8": da.decode_attention_int8_append,
+              "int4": da.decode_attention_int4_append,
+              "merged": da.decode_attention_int8_append_merged}[kind]
+        ctx = fn(pick(q, 0), pick(k_new, 0), pick(v_new, 0), *cs, pick(mask, 0), position, 1,
+                 n_head=H)
+    else:
+        fn = {"fp": da.decode_attention, "int8": da.decode_attention_int8,
+              "int4": da.decode_attention_int4}[kind]
+        ctx = fn(pick(q, 0), *cs[:n], *cs[n:], pick(mask, 0), position, 1, n_head=H)
+    return ctx, cs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("append", [True, False], ids=["append", "read"])
+@pytest.mark.parametrize("kind,H", INVARIANT_KINDS, ids=[f"{k}{h}" for k, h in INVARIANT_KINDS])
+def test_decode_attention_row_is_batch_invariant(cuda, dtype, append, kind, H):
+    """At positions 17, 126, 235 and 300 (two chunks): the first and the last
+    row of a batch of 3, 64 and 512 rows have the bits they have alone; the
+    appended codes and scales equal the plain version's bit for bit; and the
+    read-only kernel after an append gives the same ctx bits."""
+    if kind == "merged" and not append:
+        pytest.skip("the merged cache has no read-only form")
+    B = max(INVARIANT_BATCHES)
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, H, 64, L=2,
+                                                         T=SWEEP_T)
+    n = len(caches)
+    for position in INVARIANT_POSITIONS:
+        for nb in INVARIANT_BATCHES:
+            ctx, cs = _row_call(kind, append, H, q, k_new, v_new, caches, scales, mask,
+                                position, slice(0, nb))
+            for r in (0, nb - 1):
+                alone, _ = _row_call(kind, append, H, q, k_new, v_new, caches, scales, mask,
+                                     position, slice(r, r + 1))
+                assert torch.equal(alone, ctx[r:r + 1]), (position, nb, r)
+        pc = [c.clone() for c in caches + scales]
+        if append:
+            ref = da.decode_attention_append_plain(
+                q, k_new, v_new, pc[0], None if kind == "merged" else pc[1], mask, position,
+                1, H, *pc[n:])
+        else:
+            ref = da.decode_attention_plain(q, *pc[:n], mask, position, 1, H, *pc[n:])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(cs, pc)), position  # B = 512
+        err = (ctx.float() - ref.float()).abs().max().item()
+        assert err <= DECODE_TOL[dtype], (position, err)
+        if append:
+            D = H * 64
+            kv = ((cs[0][..., :D].contiguous(), cs[0][..., D:].contiguous())
+                  if kind == "merged" else cs[:2])
+            read = {"fp": da.decode_attention, "int8": da.decode_attention_int8,
+                    "merged": da.decode_attention_int8,
+                    "int4": da.decode_attention_int4}[kind]
+            again = read(q, *kv, *cs[n:], mask, position, 1, n_head=H)
+            assert torch.equal(again, ctx), position
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("position", INVARIANT_POSITIONS)
+def test_decode_attention_tensor_parallel_shard(cuda, dtype, kind, position):
+    """A rank of a tp = 2 mesh: 6 heads of 64 lanes. Appended bytes and
+    scales bit for bit, ctx within tolerance of the plain version; with a
+    full-precision cache (no row-wide scale) each head's ctx has the bits
+    of the same head in the 12-head call."""
+    B, H = 32, 6
+    q, k_new, v_new, mask, caches, scales = _decode_case(cuda, kind, dtype, B, 2 * H, 64,
+                                                         L=2, T=SWEEP_T)
+    D = H * 64
+    half = lambda t: t[..., :D // 2 if kind == "int4" and t.dtype == torch.int8 else D]  # noqa: E731
+    if kind == "int4":  # a shard's cache holds its own heads' packed rows
+        caches = [torch.randint(-127, 128, c.shape[:-1] + (D // 2,), generator=cuda,
+                                device="cuda", dtype=torch.int8) for c in caches]
+    sq, sk, sv = (t[:, :D].contiguous() for t in (q, k_new, v_new))
+    sc = [half(c).contiguous() for c in caches]
+    kernel = {"fp": da.decode_attention_fp_append, "int8": da.decode_attention_int8_append,
+              "int4": da.decode_attention_int4_append}[kind]
+    kc = [c.clone() for c in sc + scales]
+    pc = [c.clone() for c in sc + scales]
+    ctx = kernel(sq, sk, sv, *kc, mask, position, 1, n_head=H)
+    ref = da.decode_attention_append_plain(sq, sk, sv, pc[0], pc[1], mask, position, 1, H,
+                                           *pc[2:])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+    assert (ctx.float() - ref.float()).abs().max().item() <= DECODE_TOL[dtype]
+    if kind == "fp":
+        full = da.decode_attention_fp_append(q, k_new, v_new, *[c.clone() for c in caches],
+                                             mask, position, 1, n_head=2 * H)
+        assert torch.equal(full[:, :D], ctx)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
